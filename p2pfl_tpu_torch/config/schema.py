@@ -1,0 +1,242 @@
+"""Scenario configuration, read from the same JSON as the JAX package.
+
+The counterpart of ``p2pfl_tpu/config/schema.py``. ``DataConfig``,
+``ModelConfig``, ``TrainingConfig`` and ``NodeConfig`` are copies of the
+JAX package's dataclasses (they import nothing but the standard
+library). ``ScenarioConfig`` has the same
+fields, so ``ScenarioConfig.load`` reads a scenario file that
+``p2pfl_tpu`` wrote. The sections this port does not run yet
+(adversary, privacy, lora, elastic, cross-device, faults, the sparse
+transport, the staged exchange, robust aggregators, other optimizers
+and objectives, checkpoints, metric logging and the socket plane) are
+kept as plain dicts and rejected in ``__post_init__`` with a
+``NotImplementedError`` that names the ``ROADMAP.md`` item that ports
+them: a scenario the port would silently run differently never starts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+from typing import Any
+
+FEDERATIONS = ("DFL", "CFL", "SDFL")
+ROLES = ("trainer", "aggregator", "server", "proxy", "idle")
+
+
+@dataclasses.dataclass
+class DataConfig:
+    dataset: str = "mnist"
+    partition: str = "iid"  # iid | sorted | dirichlet | writer
+    dirichlet_alpha: float = 0.5
+    samples_per_node: int | None = None
+    batch_size: int = 32
+    val_percent: float = 0.1
+    seed: int = 0
+    synthetic_train: int | None = None
+    synthetic_test: int | None = None
+    surrogate_profile: str = "hard"
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    model: str = "mlp"
+    objective: str = "classification"
+    param_dtype: str | None = None
+    compute_dtype: str | None = None
+    kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class TrainingConfig:
+    rounds: int = 3
+    epochs_per_round: int = 3
+    optimizer: str = "sgd"
+    learning_rate: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    momentum_dtype: str | None = None
+    eval_every: int = 1
+
+
+@dataclasses.dataclass
+class NodeConfig:
+    idx: int = 0
+    role: str = "trainer"
+    start: bool = False
+    epochs: int | None = None
+    fit_slowdown: float = 1.0
+
+    def __post_init__(self):
+        if self.role not in ROLES:
+            raise ValueError(f"unknown role {self.role!r}; have {ROLES}")
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to p2pfl_tpu_torch yet "
+        f"(ROADMAP.md queue A, item {item}); run it with p2pfl_tpu"
+    )
+
+
+_F32 = (None, "f32", "float32")
+_BF16 = (None, "bf16", "bfloat16")
+
+
+@dataclasses.dataclass
+class ScenarioConfig:
+    """A whole federation scenario (the JAX package's field set)."""
+
+    name: str = "scenario"
+    federation: str = "DFL"
+    topology: str = "fully"
+    topology_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
+    n_nodes: int = 2
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
+    # the JAX package's ProtocolConfig: only "train_set_size" (the
+    # train-set vote cap, default 10, <=0 off) acts on the stacked
+    # federation; the other keys pace the socket plane
+    protocol: dict[str, Any] = dataclasses.field(default_factory=dict)
+    aggregator: str = "fedavg"
+    aggregator_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
+    # sections this port does not run: plain dicts, checked below
+    network: dict[str, Any] = dataclasses.field(default_factory=dict)
+    adversary: dict[str, Any] = dataclasses.field(default_factory=dict)
+    elastic: dict[str, Any] = dataclasses.field(default_factory=dict)
+    cross_device: dict[str, Any] = dataclasses.field(default_factory=dict)
+    lora: dict[str, Any] = dataclasses.field(default_factory=dict)
+    privacy: dict[str, Any] = dataclasses.field(default_factory=dict)
+    transport: str = "auto"
+    wire_dtype: str = "f32"
+    exchange_overlap: str = "off"
+    aggregation_plane: str = "inline"
+    encrypt: bool = False
+    nodes: list[NodeConfig] = dataclasses.field(default_factory=list)
+    faults: list[dict[str, Any]] = dataclasses.field(default_factory=list)
+    seed: int = 0
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 0
+    log_dir: str | None = None
+    tensorboard: bool = False
+    wandb: bool = False
+    profile_dir: str | None = None
+
+    def __post_init__(self):
+        if self.federation not in FEDERATIONS:
+            raise ValueError(
+                f"unknown federation {self.federation!r}; have {FEDERATIONS}"
+            )
+        if self.transport not in ("auto", "dense", "sparse"):
+            raise ValueError(f"unknown transport {self.transport!r}")
+        if self.wire_dtype not in ("f32", "bf16", "int8"):
+            raise ValueError(f"unknown wire_dtype {self.wire_dtype!r}")
+        if self.exchange_overlap not in ("off", "staged"):
+            raise ValueError(
+                f"unknown exchange_overlap {self.exchange_overlap!r}")
+        if self.n_nodes < 1:
+            raise ValueError("n_nodes must be >= 1")
+        self._reject_unported()
+        if not self.nodes:
+            self.nodes = self._default_nodes()
+        if len(self.nodes) != self.n_nodes:
+            raise ValueError(
+                f"{len(self.nodes)} node configs for n_nodes={self.n_nodes}"
+            )
+
+    def _reject_unported(self) -> None:
+        adv = self.adversary
+        if (adv.get("kind", "none") != "none"
+                and (adv.get("fraction", 0.0) > 0.0 or adv.get("nodes"))):
+            raise _unported("adversary (attack injection)", "A6")
+        if adv.get("reputation", False):
+            raise _unported("adversary.reputation", "A6")
+        if self.privacy.get("dp", False):
+            raise _unported("privacy.dp (DP-FedAvg)", "A7")
+        if self.privacy.get("secagg", False):
+            raise _unported("privacy.secagg", "A7")
+        if self.lora.get("rank", 0) > 0:
+            raise _unported("lora", "A8")
+        el = self.elastic
+        if (el.get("async_aggregation", False)
+                or el.get("straggler_fraction", 0.0) > 0.0
+                or el.get("churn_fraction", 0.0) > 0.0):
+            raise _unported("elastic (async aggregation, churn)", "A9")
+        if self.cross_device.get("n_clients", 0) > 0:
+            raise _unported("cross_device", "A10")
+        if self.faults:
+            raise _unported("faults (membership clock)", "A11")
+        if self.transport == "sparse":
+            raise _unported("transport='sparse'", "A12")
+        if self.exchange_overlap == "staged":
+            raise _unported("exchange_overlap='staged'", "A13")
+        if self.aggregator.lower().replace("_", "").replace("-", "") \
+                != "fedavg" or self.aggregator_kwargs:
+            raise _unported(f"aggregator {self.aggregator!r}", "A14")
+        if self.training.optimizer.lower() != "sgd":
+            raise _unported(f"optimizer {self.training.optimizer!r}", "A15")
+        if self.model.objective != "classification":
+            raise _unported(f"objective {self.model.objective!r}", "A16")
+        if self.checkpoint_dir or self.checkpoint_every:
+            raise _unported("checkpointing", "A17")
+        if (self.log_dir or self.tensorboard or self.wandb
+                or self.profile_dir):
+            raise _unported("metric logging and profiling", "A18")
+        net = self.network
+        if (self.aggregation_plane != "inline" or self.encrypt
+                or any(net.get(k) for k in ("delay_ms", "jitter_ms",
+                                            "loss_pct", "rate_mbps",
+                                            "partitions"))):
+            raise _unported("the socket plane (network, sidecar, TLS)",
+                            "A22")
+        # the kernels take bf16 activations and f32 parameters
+        if self.model.param_dtype not in _F32:
+            raise _unported(f"param_dtype {self.model.param_dtype!r}",
+                            "A19")
+        if self.model.compute_dtype not in _BF16:
+            raise _unported(f"compute_dtype {self.model.compute_dtype!r}",
+                            "A19")
+
+    def _default_nodes(self) -> list[NodeConfig]:
+        nodes = []
+        for i in range(self.n_nodes):
+            if self.federation == "CFL":
+                role = "server" if i == 0 else "trainer"
+            elif self.federation == "SDFL":
+                role = "aggregator" if i == 0 else "trainer"
+            else:
+                role = "aggregator"
+            nodes.append(NodeConfig(idx=i, role=role, start=(i == 0)))
+        return nodes
+
+    # ---- JSON round-trip -------------------------------------------------
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    def save(self, path: str | pathlib.Path) -> None:
+        pathlib.Path(path).write_text(self.to_json())
+
+    @staticmethod
+    def from_dict(d: dict) -> "ScenarioConfig":
+        d = dict(d)
+        for field, cls in [
+            ("data", DataConfig),
+            ("model", ModelConfig),
+            ("training", TrainingConfig),
+        ]:
+            if field in d and isinstance(d[field], dict):
+                d[field] = cls(**d[field])
+        if "nodes" in d:
+            d["nodes"] = [
+                NodeConfig(**n) if isinstance(n, dict) else n
+                for n in d["nodes"]
+            ]
+        return ScenarioConfig(**d)
+
+    @staticmethod
+    def load(path: str | pathlib.Path) -> "ScenarioConfig":
+        return ScenarioConfig.from_dict(
+            json.loads(pathlib.Path(path).read_text()))

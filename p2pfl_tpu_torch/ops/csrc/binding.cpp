@@ -1,0 +1,135 @@
+// PyTorch binding of the port's Hopper kernels: the only source that
+// includes PyTorch's headers. Each function checks its tensors, allocates
+// its outputs with torch::empty, launches on the current stream and
+// checks the launch; the kernels themselves live in the .cu files.
+#include <torch/extension.h>
+
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+
+#include "kernels.h"
+
+namespace {
+
+void check(const torch::Tensor& t, const char* name, at::ScalarType dtype,
+           int64_t dim) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == dtype, name, " must be ", dtype, ", got ",
+              t.scalar_type());
+  TORCH_CHECK(t.dim() == dim, name, " must have ", dim, " dims, got ",
+              t.dim());
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+void same_device(const torch::Tensor& a, const torch::Tensor& b) {
+  TORCH_CHECK(a.device() == b.device(), "operands on different devices");
+}
+
+int as_int(int64_t v, const char* name) {
+  TORCH_CHECK(v >= 0 && v <= INT32_MAX, name, " out of int range: ", v);
+  return static_cast<int>(v);
+}
+
+torch::Tensor stream_gemm(torch::Tensor x, torch::Tensor w) {
+  check(x, "x", at::kBFloat16, 3);
+  check(w, "w", at::kBFloat16, 3);
+  same_device(x, w);
+  TORCH_CHECK(x.size(0) == w.size(0) && x.size(2) == w.size(1),
+              "stream_gemm shapes ", x.sizes(), " @ ", w.sizes());
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto out = torch::empty({x.size(0), x.size(1), w.size(2)}, x.options());
+  if (out.numel() == 0) return out;
+  p2pfl::launch_stream_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                            as_int(x.size(0), "n"), as_int(x.size(1), "M"),
+                            as_int(x.size(2), "K"), as_int(w.size(2), "N"),
+                            at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g) {
+  check(x, "x", at::kBFloat16, 3);
+  check(g, "g", at::kBFloat16, 3);
+  same_device(x, g);
+  TORCH_CHECK(x.size(0) == g.size(0) && x.size(1) == g.size(1),
+              "stream_wgrad shapes ", x.sizes(), " ^T@ ", g.sizes());
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int n = as_int(x.size(0), "n"), M = as_int(x.size(1), "M");
+  const int K = as_int(x.size(2), "K"), N = as_int(g.size(2), "N");
+  auto f32 = x.options().dtype(at::kFloat);
+  auto out = torch::empty({n, K, N}, f32);
+  if (out.numel() == 0) return out;
+  if (M == 0) return out.zero_();
+  auto partial = torch::empty(
+      {n, static_cast<int64_t>(p2pfl::wgrad_splits(M)), K, N}, f32);
+  p2pfl::launch_stream_wgrad(x.data_ptr(), g.data_ptr(),
+                             partial.data_ptr<float>(), out.data_ptr<float>(),
+                             n, M, K, N, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+std::vector<torch::Tensor> dense_bwd(torch::Tensor x, torch::Tensor w,
+                                     torch::Tensor g) {
+  check(x, "x", at::kBFloat16, 3);
+  check(w, "w", at::kBFloat16, 3);
+  check(g, "g", at::kBFloat16, 3);
+  same_device(x, w);
+  same_device(x, g);
+  TORCH_CHECK(x.size(0) == w.size(0) && x.size(0) == g.size(0) &&
+                  x.size(2) == w.size(1) && x.size(1) == g.size(1) &&
+                  w.size(2) == g.size(2),
+              "dense_bwd shapes x ", x.sizes(), " w ", w.sizes(), " g ",
+              g.sizes());
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto dx = torch::empty_like(x);
+  auto dw = torch::empty_like(w);
+  if (dx.numel() == 0 && dw.numel() == 0) return {dx, dw};
+  p2pfl::launch_dense_bwd(x.data_ptr(), w.data_ptr(), g.data_ptr(),
+                          dx.data_ptr(), dw.data_ptr(),
+                          as_int(x.size(0), "n"), as_int(x.size(1), "B"),
+                          as_int(x.size(2), "D"), as_int(w.size(2), "H"),
+                          at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {dx, dw};
+}
+
+std::vector<torch::Tensor> sgd(torch::Tensor p, torch::Tensor m,
+                               torch::Tensor g, torch::Tensor lr,
+                               double decay) {
+  check(p, "p", at::kFloat, 2);
+  check(g, "g", at::kFloat, 2);
+  check(lr, "lr", at::kFloat, 1);
+  TORCH_CHECK(m.is_cuda() && m.dim() == 2 && m.is_contiguous(),
+              "m must be a contiguous 2-D CUDA tensor");
+  TORCH_CHECK(m.scalar_type() == at::kFloat ||
+                  m.scalar_type() == at::kBFloat16,
+              "m must be float32 or bfloat16");
+  same_device(p, m);
+  same_device(p, g);
+  same_device(p, lr);
+  TORCH_CHECK(p.sizes() == m.sizes() && p.sizes() == g.sizes() &&
+                  lr.size(0) == p.size(0),
+              "sgd shapes p ", p.sizes(), " m ", m.sizes(), " g ", g.sizes(),
+              " lr ", lr.sizes());
+  const c10::cuda::CUDAGuard guard(p.device());
+  auto p_out = torch::empty_like(p);
+  auto m_out = torch::empty_like(m);
+  p2pfl::launch_sgd(p.data_ptr<float>(), m.data_ptr(), g.data_ptr<float>(),
+                    lr.data_ptr<float>(), p_out.data_ptr<float>(),
+                    m_out.data_ptr(), static_cast<float>(decay),
+                    m.scalar_type() == at::kBFloat16 ? 1 : 0, p.size(0),
+                    p.size(1), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {p_out, m_out};
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("stream_gemm", &stream_gemm, "K1: [n,M,K] @ [n,K,N], bf16");
+  m.def("stream_wgrad", &stream_wgrad, "K2: [n,M,K]^T @ [n,M,N] -> f32");
+  m.def("dense_bwd", &dense_bwd, "K3: fused dx, dw of y = x @ w");
+  m.def("sgd", &sgd, "K4: SGD-with-momentum step over [n, numel]");
+}

@@ -1,0 +1,38 @@
+// Launch functions of the port's Hopper kernels. Plain C++ over raw
+// pointers, so that only binding.cpp includes PyTorch's headers. Each
+// launches on `stream` and returns without synchronising; the caller
+// checks cudaGetLastError() right after.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace p2pfl {
+
+// K1: out[n, M, N] = x[n, M, K] @ w[n, K, N]; bf16 in/out, f32 sum.
+void launch_stream_gemm(const void* x, const void* w, void* out, int n,
+                        int M, int K, int N, cudaStream_t stream);
+
+// Number of depth splits K2 uses for M rows (partials buffer size).
+int wgrad_splits(int M);
+
+// K2: out[n, K, N] = x[n, M, K]^T @ g[n, M, N] in f32, summed over M
+// in `wgrad_splits(M)` fixed slices and reduced in slice order.
+// `partial` holds n * splits * K * N floats.
+void launch_stream_wgrad(const void* x, const void* g, float* partial,
+                         float* out, int n, int M, int K, int N,
+                         cudaStream_t stream);
+
+// K3: dx[n, B, D] = g @ w^T and dw[n, D, H] = x^T @ g in one launch;
+// x [n, B, D], w [n, D, H], g [n, B, H], all bf16.
+void launch_dense_bwd(const void* x, const void* w, const void* g,
+                      void* dx, void* dw, int n, int B, int D, int H,
+                      cudaStream_t stream);
+
+// K4: one SGD-with-momentum step over [n, numel] leaves; p and g f32,
+// the trace f32 (trace_bf16 = 0) or bf16 (trace_bf16 = 1), lr [n] f32.
+void launch_sgd(const float* p, const void* m, const float* g,
+                const float* lr, float* p_out, void* m_out, float decay,
+                int trace_bf16, long long n, long long numel,
+                cudaStream_t stream);
+
+}  // namespace p2pfl

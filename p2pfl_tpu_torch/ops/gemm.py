@@ -1,0 +1,260 @@
+"""The training path's kernels: wrappers, plain versions, autograd.
+
+The counterpart of ``p2pfl_tpu/ops/pallas_gemm.py``. Four hand-written
+Hopper kernels (CUDA C++ for ``sm_90a``, sources in ``ops/csrc/``, built
+on first use by ``ops/_build.py``) replace the four Pallas kernels the
+FEMNIST-CNN round runs:
+
+- ``stream_gemm`` (K1, replaces ``_stream_gemm``): ``[n,M,K] @ [n,K,N]``
+  in bf16 with f32 accumulation — conv1 and conv2 forward.
+- ``stream_wgrad`` (K2, replaces ``_stream_wgrad``): ``[n,M,K]^T @
+  [n,M,N]`` summed in f32 — conv1 and conv2 weight gradients.
+- ``dense_bwd`` (K3, replaces ``_dense_bwd``): ``dx = g @ w^T`` and
+  ``dw = x^T @ g`` in one launch — the dense1 backward.
+- ``sgd_accum`` (K4, replaces ``_sgd``): one SGD-with-momentum step.
+
+Every kernel takes the node axis as its leading dimension; the JAX
+package's ``vmap`` over nodes is that axis written out. Beside each
+wrapper is its plain PyTorch version (``*_plain``, the same f32
+arithmetic written out). A wrapper takes the plain version only for a
+tensor that lies on the CPU; for a CUDA tensor it launches its kernel
+or raises. There is no gate and no fallback: the JAX package's measured
+``choose()`` is not ported, and the question it answered — does the
+kernel beat the library? — is answered by the library-call column of
+``PERF.md``. ``launches`` counts kernel launches per wrapper, so a run
+can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from p2pfl_tpu_torch.ops import _build
+
+__all__ = [
+    "stream_gemm", "stream_gemm_plain",
+    "stream_wgrad", "stream_wgrad_plain",
+    "dense_bwd", "dense_bwd_plain",
+    "sgd_accum", "sgd_accum_plain",
+    "patches_matmul", "conv2_matmul", "dense_matmul",
+    "launches", "reset_launches",
+]
+
+#: kernel launches per wrapper since the last reset_launches()
+launches: dict[str, int] = {
+    "stream_gemm": 0, "stream_wgrad": 0, "dense_bwd": 0, "sgd_accum": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    """True when every operand lies on the CPU (the plain version's
+    only use); False when all lie on a CUDA device. Anything else
+    raises: the kernels run on CUDA tensors and nowhere else."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"operands must all be on CPU or all on CUDA: {kinds}")
+
+
+# ---------------------------------------------------------------------------
+# K1 stream_gemm: [n, M, K] @ [n, K, N]
+# ---------------------------------------------------------------------------
+
+
+def stream_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [n,M,K] @ w [n,K,N]``: f32 products and sums, one cast to
+    x's dtype."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def stream_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K1 (``csrc/stream_gemm.cu``): bf16 ``[n,M,K] @ [n,K,N]``."""
+    if _on_cpu(x, w):
+        return stream_gemm_plain(x, w)
+    out = _build.kernels().stream_gemm(x, w)
+    launches["stream_gemm"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2 stream_wgrad: [n, M, K]^T @ [n, M, N] -> [n, K, N] f32
+# ---------------------------------------------------------------------------
+
+
+def stream_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``x [n,M,K]^T @ g [n,M,N] -> [n,K,N]`` in f32."""
+    return torch.matmul(x.float().transpose(1, 2), g.float())
+
+
+def stream_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K2 (``csrc/stream_wgrad.cu``): deterministic split-M reduction."""
+    if _on_cpu(x, g):
+        return stream_wgrad_plain(x, g)
+    out = _build.kernels().stream_wgrad(x, g)
+    launches["stream_wgrad"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3 dense_bwd: dx = g @ w^T, dw = x^T @ g
+# ---------------------------------------------------------------------------
+
+
+def dense_bwd_plain(x: torch.Tensor, w: torch.Tensor,
+                    g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Backward of ``y = x @ w`` for x ``[n,B,D]``, w ``[n,D,H]``, g
+    ``[n,B,H]``: ``(dx, dw)`` in x's and w's dtypes, f32 sums."""
+    gf = g.float()
+    dx = torch.matmul(gf, w.float().transpose(1, 2)).to(x.dtype)
+    dw = torch.matmul(x.float().transpose(1, 2), gf).to(w.dtype)
+    return dx, dw
+
+
+def dense_bwd(x: torch.Tensor, w: torch.Tensor,
+              g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 (``csrc/dense_bwd.cu``): dx and dw from one launch."""
+    if _on_cpu(x, w, g):
+        return dense_bwd_plain(x, w, g)
+    dx, dw = _build.kernels().dense_bwd(x, w, g)
+    launches["dense_bwd"] += 1
+    return dx, dw
+
+
+# ---------------------------------------------------------------------------
+# K4 sgd_accum: one SGD-with-momentum step over a stacked leaf
+# ---------------------------------------------------------------------------
+
+
+def _decay(momentum: float, trace_dtype: torch.dtype) -> float:
+    # optax multiplies the trace by the momentum in the trace's dtype
+    return float(torch.tensor(momentum, dtype=trace_dtype))
+
+
+def sgd_accum_plain(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+                    lr: torch.Tensor, *, momentum: float
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``optax.sgd`` term by term over a leaf with a leading node axis:
+    ``m' = g + round_to(m.dtype, decay * m)``; ``p' = p + m' * -lr``
+    with ``lr [n]`` (learning rate x update gate); stored ``m'`` cast
+    to the trace dtype. Returns ``(p', m')``."""
+    decay = torch.tensor(_decay(momentum, m.dtype), dtype=torch.float32,
+                         device=m.device)
+    dec = (decay * m.float()).to(m.dtype).float()
+    m_new = g + dec
+    neg_lr = (-lr).reshape((-1,) + (1,) * (p.dim() - 1))
+    p_new = p + m_new * neg_lr
+    return p_new.to(p.dtype), m_new.to(m.dtype)
+
+
+def sgd_accum(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+              lr: torch.Tensor, *, momentum: float
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 (``csrc/sgd.cu``): the step of :func:`sgd_accum_plain` in one
+    pass over ``[n, numel]``. p and g f32, m f32 or bf16, lr ``[n]``
+    f32. At lr 0 (update gate 0) p comes back bit-exact."""
+    if _on_cpu(p, m, g, lr):
+        return sgd_accum_plain(p, m, g, lr, momentum=momentum)
+    n = p.shape[0]
+    p_new, m_new = _build.kernels().sgd(
+        p.reshape(n, -1), m.reshape(n, -1), g.reshape(n, -1), lr,
+        _decay(momentum, m.dtype))
+    launches["sgd_accum"] += 1
+    return p_new.view(p.shape), m_new.view(m.shape)
+
+
+# ---------------------------------------------------------------------------
+# autograd around the kernels
+# ---------------------------------------------------------------------------
+
+
+class _PatchesMatmul(torch.autograd.Function):
+    """conv1: forward K1, dx K1 on ``w^T``, dw K2."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        return stream_gemm(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        # never true for conv1, whose patches come from the image —
+        # JAX's dead-code elimination of the same dgrad
+        if ctx.needs_input_grad[0]:
+            dx = stream_gemm(g, w.transpose(1, 2).contiguous()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = stream_wgrad(x, g).to(w.dtype)
+        return dx, dw
+
+
+class _Conv2Matmul(torch.autograd.Function):
+    """conv2: forward K1, dw K2, dx a plain f32-accumulated matmul (the
+    JAX package leaves conv2's dgrad to XLA)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        return stream_gemm(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g.float(), w.float().transpose(1, 2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = stream_wgrad(x, g).to(w.dtype)
+        return dx, dw
+
+
+class _DenseMatmul(torch.autograd.Function):
+    """dense1: plain forward, fused K3 backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = dense_bwd(x, w, g.to(x.dtype).contiguous())
+        return dx, dw
+
+
+def patches_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [n,M,K] @ w [n,K,N]`` with kernel forward, dgrad and wgrad."""
+    _check_3d(x, w)
+    return _PatchesMatmul.apply(x, w)
+
+
+def conv2_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [n,M,K] @ w [n,K,N]``: kernel forward and wgrad, plain dgrad."""
+    _check_3d(x, w)
+    return _Conv2Matmul.apply(x, w)
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [n,B,D] @ w [n,D,H]``: plain forward, kernel backward."""
+    _check_3d(x, w)
+    return _DenseMatmul.apply(x, w)
+
+
+def _check_3d(x, w):
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(
+            f"[n, rows, k] @ [n, k, cols] operands required, got "
+            f"{tuple(x.shape)} @ {tuple(w.shape)}")

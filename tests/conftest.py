@@ -56,6 +56,11 @@ def pytest_configure(config):
         "adversary: attack-injection / reputation / robustness tests "
         "(select with -m adversary)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); "
+        "skipped without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

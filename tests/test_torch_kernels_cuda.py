@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test asks, inside a fixture, whether a CUDA card
+is present and skips without one (so on a CPU-only machine they skip
+with a reason). On the card, run them with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+(``--noconftest`` where JAX, which the repo's conftest imports, is not
+installed.)
+
+Shapes are the FEMNIST CNN's widths at a reduced batch (ragged row
+counts included). Tolerances: bf16 outputs (K1, K3) one bf16 ulp of an
+f32 sum, rtol 2**-7 and atol 1e-2; f32 sums (K2) rtol 1e-4 and atol
+1e-2, and two runs bit-identical (no atomics); the SGD step (K4) the
+same bits as its plain version, and at gate 0 the params unchanged.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from p2pfl_tpu_torch.ops import gemm
+
+pytestmark = pytest.mark.cuda
+
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-2)
+F32_SUM_TOL = dict(rtol=1e-4, atol=1e-2)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the hand-written kernels run only there")
+    return torch.device("cuda", 0)
+
+
+def _rand(dev, seed, *shape, dtype=torch.bfloat16):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(784 * 3, 25, 32), (129, 25, 32),
+                                   (196 * 3 + 5, 800, 64), (40, 32, 25)])
+def test_stream_gemm_matches_plain(dev, m, k, n):
+    x, w = _rand(dev, 0, 3, m, k), _rand(dev, 1, 3, k, n)
+    before = gemm.launches["stream_gemm"]
+    got = gemm.stream_gemm(x, w)
+    assert gemm.launches["stream_gemm"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               gemm.stream_gemm_plain(x, w).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(784 * 3, 25, 32), (4096 * 2 + 7, 25, 32),
+                                   (196 * 3 + 5, 800, 64)])
+def test_stream_wgrad_matches_plain_and_is_deterministic(dev, m, k, n):
+    x, g = _rand(dev, 2, 3, m, k), _rand(dev, 3, 3, m, n)
+    got = gemm.stream_wgrad(x, g)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, gemm.stream_wgrad(x, g))
+    torch.testing.assert_close(got, gemm.stream_wgrad_plain(x, g),
+                               **F32_SUM_TOL)
+
+
+@pytest.mark.parametrize("b,d,h", [(48, 3136, 256), (21, 300, 70)])
+def test_dense_bwd_matches_plain(dev, b, d, h):
+    x, w, g = (_rand(dev, 4, 2, b, d), _rand(dev, 5, 2, d, h),
+               _rand(dev, 6, 2, b, h))
+    dx, dw = gemm.dense_bwd(x, w, g)
+    pdx, pdw = gemm.dense_bwd_plain(x, w, g)
+    torch.testing.assert_close(dx.float(), pdx.float(), **BF16_TOL)
+    torch.testing.assert_close(dw.float(), pdw.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("trace", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3136, 64), (62,), (5, 5, 32, 64)])
+def test_sgd_accum_matches_plain_bits_and_gate_zero(dev, shape, trace):
+    n = 4
+    p = _rand(dev, 7, n, *shape, dtype=torch.float32)
+    m = _rand(dev, 8, n, *shape, dtype=trace)
+    g = _rand(dev, 9, n, *shape, dtype=torch.float32)
+    lr = torch.tensor([0.05, 0.0, 0.1, 0.0], device=dev)
+    kp, km = gemm.sgd_accum(p, m, g, lr, momentum=0.9)
+    pp, pm = gemm.sgd_accum_plain(p, m, g, lr, momentum=0.9)
+    assert torch.equal(kp, pp) and torch.equal(km, pm)
+    off = lr == 0
+    assert torch.equal(kp[off], p[off])
+    assert not torch.equal(kp[~off], p[~off])
+
+
+def test_autograd_functions_run_the_kernels(dev):
+    x = _rand(dev, 10, 2, 300, 800).requires_grad_(True)
+    w = _rand(dev, 11, 2, 800, 64).requires_grad_(True)
+    gemm.reset_launches()
+    y = gemm.conv2_matmul(x, w)
+    gx, gw = torch.autograd.grad((y.float() ** 2).sum(), (x, w))
+    assert gemm.launches["stream_gemm"] == 1
+    assert gemm.launches["stream_wgrad"] == 1
+    x2, w2 = x.detach().requires_grad_(), w.detach().requires_grad_()
+    hx, hw = torch.autograd.grad(
+        (gemm.stream_gemm_plain(x2, w2).float() ** 2).sum(), (x2, w2))
+    for a, b in ((gx, hx), (gw, hw)):
+        rel = (a.float() - b.float()).norm() / b.float().norm()
+        assert rel < 2.0 ** -7
