@@ -8,21 +8,33 @@ one, or when run outside a checkout of this repository). Phases:
 1. Device: the card's name and power limit; the kernels are built from
    ``p2pfl_tpu_torch/ops/csrc`` (the build time is printed).
 2. Kernels: each hand-written kernel (K1 stream_gemm, K2 stream_wgrad,
-   K3 dense_bwd, K4 sgd_accum) at the FEMNIST-CNN shapes of 8 nodes x
-   336 samples, held against its plain PyTorch version on the same
+   K3 dense_bwd, K4 sgd_accum, K5 sgd_accum(acc=)/fedavg_accum) at the
+   FEMNIST-CNN shapes of its path (8 nodes x 336 samples; K5 every leaf
+   at 8 slots), held against its plain PyTorch version on the same
    inputs with a stated tolerance, and timed with CUDA events beside the
    plain version, one PyTorch library call, and the card's bound.
-3. End to end: the port's ``Scenario`` on the full-width FEMNIST CNN,
-   8 nodes on a ring, DFL, FedAvg, bf16 wire, 750 samples a node,
-   batch 336, 3 rounds on the seeded synthetic surrogate. The launch
-   counts are zeroed just before and read just after: every kernel must
-   have run. One training step is then run through the kernels and
-   through the plain versions from the same state and compared, and one
-   more round is traced with ``torch.profiler`` (device time by
-   operation, the device's busy share).
-4. One JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
+3. End to end, the stacked federation: the port's ``Scenario`` on the
+   full-width FEMNIST CNN, 8 nodes on a ring, DFL, FedAvg, bf16 wire,
+   750 samples a node, batch 336, 3 rounds on the seeded synthetic
+   surrogate. The launch counts are zeroed just before and read just
+   after: every kernel of the path must have run. One training step is
+   then run through the kernels and through the plain versions from the
+   same state and compared, and one more round is traced with
+   ``torch.profiler`` (device time by operation, the device's busy
+   share).
+4. End to end, the cross-device round: ``CrossDeviceScenario`` on the
+   full-width FEMNIST CNN, 3,550 clients (LEAF FEMNIST's writer count),
+   32 sampled a round in 4 cohorts of 8 slots, 20 samples a client,
+   3 rounds and an evaluation; launch counts as in phase 3, K5
+   included; the train loss must fall. From the same seed, one streamed
+   round must equal the first materialized round bit for bit, and one
+   round in 2 chunks must run and stay finite. One more round is
+   profiled. Then the JAX package's own cross-device headline shape
+   (mnist-mlp, 10,000 clients, 256 a round, cohorts of 32) for 2
+   rounds: the second round's wall time and clients per second.
+5. One JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
    "device": {...}}``. With ``--out DIR`` the per-instance kernel
-   numbers and the profile are also written there as JSON.
+   numbers and the profiles are also written there as JSON.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -38,6 +50,14 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N_NODES, BATCH = 8, 336
+# the kernels each main path runs
+DENSE_PATH = ("stream_gemm", "stream_wgrad", "dense_bwd", "sgd_accum")
+CROSS_PATH = DENSE_PATH + ("fedavg_accum",)
+FEMNIST_CNN_LEAVES = {
+    "Conv_0.kernel": (5, 5, 1, 32), "Conv_0.bias": (32,),
+    "Conv_1.kernel": (5, 5, 32, 64), "Conv_1.bias": (64,),
+    "Dense_0.kernel": (3136, 2048), "Dense_0.bias": (2048,),
+    "Dense_1.kernel": (2048, 62), "Dense_1.bias": (62,)}
 
 # published peaks (NVIDIA data sheets, dense): bytes/s, bf16 FLOP/s,
 # f32 (non-tensor) FLOP/s; the SKU is read from the card's name
@@ -115,9 +135,10 @@ def kernel_checks(dev, peak) -> dict:
                          ok=ok, tol=tol, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bms, bound_by=by,
                          bytes=nbytes, flops=flops, on_path=on_path))
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"  {kernel:13s} {inst:12s} max_abs_err={err:.3g} ({tol}) "
               f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
+              f"{plain_ms:.4f} ms  library {lib}  bound "
               f"{bms:.4f} ms ({by})", flush=True)
 
     # K1 stream_gemm: bf16 out, one bf16 ulp of an f32 sum
@@ -173,10 +194,7 @@ def kernel_checks(dev, peak) -> dict:
 
     # K4 sgd_accum over every FEMNIST-CNN leaf, f32 trace; nodes 1, 3,
     # 5, 7 gated off (lr 0) must keep their params bit for bit
-    shapes = {"Conv_0.kernel": (5, 5, 1, 32), "Conv_0.bias": (32,),
-              "Conv_1.kernel": (5, 5, 32, 64), "Conv_1.bias": (64,),
-              "Dense_0.kernel": (3136, 2048), "Dense_0.bias": (2048,),
-              "Dense_1.kernel": (2048, 62), "Dense_1.bias": (62,)}
+    shapes = FEMNIST_CNN_LEAVES
     lr = torch.tensor([0.05, 0.0] * (n // 2), device=dev)
     off = lr == 0
     # explicit roundings in the kernel: the same bits are expected; the
@@ -212,6 +230,57 @@ def kernel_checks(dev, peak) -> dict:
     if not torch.equal(kp[off], p[off]):
         fail("sgd_accum (bf16 trace): gate 0 changed the params")
     del p, gr, m, kp, km, pp, pm
+    torch.cuda.empty_cache()
+
+    # K5 over every FEMNIST-CNN leaf at 8 slots: the null form (the
+    # cross-device round's per-step accumulate) with p in f32 and in
+    # bf16, and the general form with an f32 and a bf16 trace, slots 1,
+    # 3, 5, 7 at lr 0. The kernel rounds as its plain version does: the
+    # same bits are expected, the check allows 4 f32 ulp.
+    w = torch.rand(n, generator=gen, device=dev) / (4 * n)
+    for inst, shp in shapes.items():
+        for pdt in (torch.float32, torch.bfloat16):
+            p = rand(n, *shp, dtype=pdt)
+            acc = rand(n, *shp, dtype=torch.float32)
+            got = gemm.fedavg_accum(p, acc, w)
+            err, ok = within(got, gemm.fedavg_accum_plain(p, acc, w),
+                             **k4_tol)
+            pf, af = p.reshape(n, -1), acc.reshape(n, -1)
+            wc = w.view(-1, 1)
+            numel = p.numel()
+            record("fedavg_accum", f"{inst}.{str(pdt)[6:]}", err, ok,
+                   k4_tol,
+                   time_ms(lambda: gemm.fedavg_accum(p, acc, w)),
+                   time_ms(lambda: gemm.fedavg_accum_plain(p, acc, w)),
+                   time_ms(lambda: torch.addcmul(af, wc, pf.float())),
+                   numel * (p.element_size() + 8), 2 * numel, f32_peak,
+                   on_path=pdt == torch.float32)
+            del p, acc, got, pf, af
+        for tdt in (torch.float32, torch.bfloat16):
+            p, gr = (rand(n, *shp, dtype=torch.float32) for _ in range(2))
+            m = rand(n, *shp, dtype=tdt)
+            acc = rand(n, *shp, dtype=torch.float32)
+            kp, km, ka = gemm.sgd_accum(p, m, gr, lr, momentum=0.9,
+                                        acc=acc, weight=w)
+            pp, pm, pa = gemm.sgd_accum_plain(p, m, gr, lr, momentum=0.9,
+                                              acc=acc, weight=w)
+            errs = [within(a, b, **k4_tol)
+                    for a, b in ((kp, pp), (km, pm), (ka, pa))]
+            if not torch.equal(kp[off], p[off]):
+                fail(f"sgd_accum(acc=) {inst}: lr 0 changed the params")
+            numel = p.numel()
+            tb = m.element_size()
+            record("sgd_accum_acc", f"{inst}.{str(tdt)[6:]}",
+                   max(e for e, _ in errs), all(o for _, o in errs),
+                   k4_tol,
+                   time_ms(lambda: gemm.sgd_accum(p, m, gr, lr,
+                                                  momentum=0.9, acc=acc,
+                                                  weight=w)),
+                   time_ms(lambda: gemm.sgd_accum_plain(
+                       p, m, gr, lr, momentum=0.9, acc=acc, weight=w)),
+                   None, numel * (20 + 2 * tb), 6 * numel, f32_peak,
+                   on_path=False)
+            del p, gr, m, acc, kp, km, ka, pp, pm, pa
     torch.cuda.empty_cache()
 
     bad = [r for r in rows if not r["ok"]]
@@ -351,7 +420,7 @@ def end_to_end(dev):
         fail(f"non-finite train loss {losses}")
     if not losses[-1] < losses[0]:
         fail(f"train loss did not fall: {losses}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in DENSE_PATH if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
 
@@ -377,10 +446,12 @@ def end_to_end(dev):
     return launches, sc
 
 
-def profile_round(sc, out: pathlib.Path | None) -> None:
-    """One more round (and its evaluation) under ``torch.profiler``:
-    device time by operation and the device's busy share of the wall
-    time (the profiler's own cost inflates the wall)."""
+def profile_round(run, out: pathlib.Path | None,
+                  name: str = "chip_smoke_profile",
+                  what: str = "round + evaluation") -> None:
+    """``run()`` (one more round) under ``torch.profiler``: device time
+    by operation and the device's busy share of the wall time (the
+    profiler's own cost inflates the wall)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -389,7 +460,7 @@ def profile_round(sc, out: pathlib.Path | None) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sc.run(rounds=1)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels only: a CPU op's row repeats its kernels' time, and
@@ -402,13 +473,162 @@ def profile_round(sc, out: pathlib.Path | None) -> None:
                   and e.self_device_time_total > 0 and e.key not in cupti),
                  key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in ops)
-    print(f"  profiled round + evaluation: {wall_ms:.1f} ms wall, device "
+    print(f"  profiled {what}: {wall_ms:.1f} ms wall, device "
           f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)", flush=True)
-    for name, ms, count in ops[:15]:
-        print(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}", flush=True)
+    for op, ms, count in ops[:15]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {op[:90]}", flush=True)
     if out is not None:
-        (out / "chip_smoke_profile.json").write_text(json.dumps(
+        (out / f"{name}.json").write_text(json.dumps(
             {"wall_ms": wall_ms, "busy_ms": busy, "ops": ops}, indent=1))
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the cross-device round
+# ---------------------------------------------------------------------------
+
+
+def crossdev_config(**cd):
+    """FEMNIST CNN at full width, 3,550 clients (LEAF FEMNIST's writer
+    count), 32 a round in 4 cohorts of 8 slots, 20 samples a client in
+    one batch, 1 epoch, lr 0.05, 3 rounds; ``cd`` overrides the
+    cross-device knobs."""
+    from p2pfl_tpu_torch.config.schema import (
+        CrossDeviceConfig,
+        DataConfig,
+        ModelConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+
+    return ScenarioConfig(
+        name="femnist-cnn-crossdev",
+        data=DataConfig(dataset="femnist", partition="iid",
+                        synthetic_train=71_000, samples_per_node=20,
+                        batch_size=20, seed=0),
+        model=ModelConfig(model="femnist-cnn"),
+        training=TrainingConfig(rounds=3, epochs_per_round=1,
+                                learning_rate=0.05, eval_every=0),
+        cross_device=CrossDeviceConfig(
+            n_clients=3550, clients_per_round=32, cohort_size=4,
+            seed=0, **cd),
+        seed=0,
+    )
+
+
+def snapshot(fed):
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+
+    return [t.clone() for t in tree_leaves(fed.states.params)
+            + tree_leaves(fed.states.opt_state)]
+
+
+def cross_device(dev, out: pathlib.Path | None):
+    import numpy as np
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_param_count
+    from p2pfl_tpu_torch.federation import CrossDeviceScenario
+    from p2pfl_tpu_torch.ops import gemm
+
+    cfg = crossdev_config()
+    t0 = time.perf_counter()
+    sc = CrossDeviceScenario(cfg, device=dev)
+    n_slots = cfg.cross_device.n_slots
+    print(f"  setup {time.perf_counter() - t0:.1f} s (data, init); "
+          f"{tree_param_count(sc.fed.states.params) // n_slots} params a "
+          f"slot, {n_slots} slots, {cfg.cross_device.cohort_size} cohort "
+          "steps a round", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gemm.reset_launches()
+    first = sc.run(rounds=1)
+    round1 = snapshot(sc.fed)
+    rest = sc.run(rounds=2)
+    torch.cuda.synchronize(dev)
+    launches = dict(gemm.launches)
+    hist = first.history + rest.history
+    losses = [h["Train/loss"] for h in hist]
+    for h in hist:
+        print(f"  round {h['round'] + 1}: {h['round_time_s']:.4f} s wall, "
+              f"mean train loss {h['Train/loss']:.4f}", flush=True)
+    peak_mem = torch.cuda.max_memory_allocated(dev)
+    print(f"  test accuracy after 3 rounds {rest.final_accuracy:.4f}; "
+          f"max_memory_allocated {peak_mem / 2**30:.2f} GiB; "
+          f"launches {launches}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite cross-device train loss {losses}")
+    if not losses[2] < losses[0]:
+        fail(f"cross-device train loss did not fall: {losses}")
+    missing = [k for k in CROSS_PATH if launches[k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the cross-device path: {missing}")
+
+    # from the same seed: a streamed round and a round in two chunks
+    streamed = CrossDeviceScenario(crossdev_config(prefetch="stream"),
+                                   dataset=sc.data, device=dev)
+    res = streamed.run(rounds=1)
+    same = all(torch.equal(a, b)
+               for a, b in zip(snapshot(streamed.fed), round1))
+    print(f"  streamed round: {res.round_times_s[0]:.4f} s wall, "
+          f"{streamed.crossdev_last}; params and momentum equal to the "
+          f"materialized round bit for bit: {same}", flush=True)
+    if not same:
+        fail("the streamed round differs from the materialized round")
+    chunked = CrossDeviceScenario(crossdev_config(cohort_shards=2),
+                                  dataset=sc.data, device=dev)
+    res = chunked.run(rounds=1)
+    finite = all(bool(torch.isfinite(t).all()) for t in snapshot(chunked.fed))
+    print(f"  2-chunk round: {res.round_times_s[0]:.4f} s wall, loss "
+          f"{res.history[0]['Train/loss']:.4f}, finite: {finite}",
+          flush=True)
+    if not (finite and math.isfinite(res.history[0]["Train/loss"])):
+        fail("the chunked cross-device round is not finite")
+    del streamed, chunked
+
+    def one_round():
+        # a round as run() drives it, without the evaluation run() ends
+        # with (the same draw for the next round, every client alive)
+        from p2pfl_tpu_torch.federation.sampling import sample_cohorts
+
+        c = sc.cd
+        sampled, cohorts = sample_cohorts(c.n_clients, c.clients_per_round,
+                                          c.cohort_size, sc.fed.round,
+                                          seed=c.seed)
+        sc._run_materialized_round(sampled, np.ones(cohorts.shape, bool))
+
+    profile_round(one_round, out, "chip_smoke_crossdev_profile",
+                  "cross-device round (no evaluation)")
+    return launches
+
+
+def crossdev_headline(dev) -> None:
+    """The JAX package's cross-device headline shape (bench.py's
+    ``_phase_cross_device``): mnist-mlp, 10,000 clients, 256 a round in
+    cohorts of 32 (8 slots), 50,000 synthetic samples, batch 32, lr
+    0.1; 2 rounds, the second one's wall time."""
+    from p2pfl_tpu_torch.config.schema import (
+        CrossDeviceConfig,
+        DataConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+    from p2pfl_tpu_torch.federation import CrossDeviceScenario
+
+    cfg = ScenarioConfig(
+        name="crossdev-headline",
+        data=DataConfig(dataset="mnist", synthetic_train=50_000,
+                        synthetic_test=2000, batch_size=32),
+        training=TrainingConfig(rounds=2, epochs_per_round=1,
+                                learning_rate=0.1, eval_every=0),
+        cross_device=CrossDeviceConfig(n_clients=10_000,
+                                       clients_per_round=256,
+                                       cohort_size=32, seed=0),
+        seed=0,
+    )
+    res = CrossDeviceScenario(cfg, device=dev).run()
+    dt = res.round_times_s[1]
+    print(f"  mnist-mlp N=10000 K=256 cohorts of 32: round 2 {dt:.4f} s "
+          f"wall, {256 / dt:.1f} clients/s, rounds {res.round_times_s}, "
+          f"accuracy {res.final_accuracy:.4f}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -455,23 +675,36 @@ def main(argv: list[str] | None = None) -> int:
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
     launches, sc = end_to_end(dev)
-    profile_round(sc, args.out)
+    profile_round(lambda: sc.run(rounds=1), args.out)
+    del sc
+    torch.cuda.empty_cache()
+
+    print("[4] end to end: cross-device FEMNIST CNN, 3550 clients, 32 a "
+          "round in 4 cohorts of 8 slots, 3 rounds", flush=True)
+    cross_launches = cross_device(dev, args.out)
+    torch.cuda.empty_cache()
+    crossdev_headline(dev)
+    launches["fedavg_accum"] = cross_launches["fedavg_accum"]
 
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
         "stream_wgrad": "p2pfl_tpu/ops/pallas_gemm.py:171",
         "dense_bwd": "p2pfl_tpu/ops/pallas_gemm.py:249",
         "sgd_accum": "p2pfl_tpu/ops/pallas_gemm.py:384",
+        "fedavg_accum": "p2pfl_tpu/ops/pallas_gemm.py:408",
     }
     sources = {
         "stream_gemm": "p2pfl_tpu_torch/ops/csrc/stream_gemm.cu",
         "stream_wgrad": "p2pfl_tpu_torch/ops/csrc/stream_wgrad.cu",
         "dense_bwd": "p2pfl_tpu_torch/ops/csrc/dense_bwd.cu",
         "sgd_accum": "p2pfl_tpu_torch/ops/csrc/sgd.cu",
+        "fedavg_accum": "p2pfl_tpu_torch/ops/csrc/sgd_accum.cu",
     }
     kernels = []
     for k in replaces:
-        # per training step: the sum over the instances the path runs
+        # per training step (K5: per cohort step): the sum over the
+        # instances the path runs; launches from the path's own run (K1-K4
+        # the stacked federation, K5 the cross-device round)
         mine = [r for r in rows if r["kernel"] == k and r["on_path"]]
         top = max(mine, key=lambda r: r["bound_ms"])
         kernels.append({

@@ -3,15 +3,18 @@
 The counterpart of ``p2pfl_tpu/config/schema.py``. ``DataConfig``,
 ``ModelConfig``, ``TrainingConfig`` and ``NodeConfig`` are copies of the
 JAX package's dataclasses (they import nothing but the standard
-library). ``ScenarioConfig`` has the same
-fields, so ``ScenarioConfig.load`` reads a scenario file that
-``p2pfl_tpu`` wrote. The sections this port does not run yet
-(adversary, privacy, lora, elastic, cross-device, faults, the sparse
-transport, the staged exchange, robust aggregators, other optimizers
-and objectives, checkpoints, metric logging and the socket plane) are
-kept as plain dicts and rejected in ``__post_init__`` with a
-``NotImplementedError`` that names the ``ROADMAP.md`` item that ports
-them: a scenario the port would silently run differently never starts.
+library), and so is ``CrossDeviceConfig`` with all its validation.
+``ScenarioConfig`` has the same fields, so ``ScenarioConfig.load``
+reads a scenario file that ``p2pfl_tpu`` wrote. The combinations the
+JAX package refuses with the cross-device regime raise the same
+``ValueError`` here, before anything else is checked. The sections
+this port does not run yet (adversary, privacy, lora, elastic, faults,
+the sparse transport, the staged exchange, robust aggregators, other
+optimizers and objectives, checkpoints, metric logging and the socket
+plane) are kept as plain dicts and rejected in ``__post_init__`` with
+a ``NotImplementedError`` that names the ``ROADMAP.md`` item that
+ports them: a scenario the port would silently run differently never
+starts.
 """
 
 from __future__ import annotations
@@ -73,6 +76,100 @@ class NodeConfig:
             raise ValueError(f"unknown role {self.role!r}; have {ROLES}")
 
 
+@dataclasses.dataclass
+class CrossDeviceConfig:
+    """Cross-device regime: N virtual clients, K sampled per round,
+    simulated by scanning ``cohort_size`` cohorts of ``n_slots`` clients
+    through one fixed slot width (a copy of the JAX package's class).
+
+    ``n_clients == 0`` (default) keeps cross-device off. When active,
+    ``n_slots = clients_per_round / cohort_size`` is the stacked axis
+    the round trains at once, and the round runs ``cohort_size`` steps.
+    """
+
+    n_clients: int = 0  # total virtual clients; 0 = off
+    clients_per_round: int = 0  # K sampled per round
+    cohort_size: int = 1  # clients per simulation slot (steps a round)
+    sampling: str = "uniform"  # uniform | weighted (by client data size)
+    # "fused": per-slot K5 accumulators summed once at round end;
+    # "unfused": the [n_slots, n_slots] @ [n_slots, d] reference product
+    accumulate: str = "fused"
+    # split the C cohort steps into this many contiguous chunks, each
+    # trained from the round-start carry (part of the round's semantics)
+    cohort_shards: int = 1
+    # "stream": feed the round one cohort at a time through two reused
+    # host buffers instead of materializing all C cohorts up front
+    prefetch: str = "off"
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.sampling not in ("uniform", "weighted"):
+            raise ValueError(
+                f"unknown sampling {self.sampling!r}; "
+                "have ('uniform', 'weighted')"
+            )
+        if self.accumulate not in ("fused", "unfused"):
+            raise ValueError(
+                f"unknown accumulate {self.accumulate!r}; "
+                "have ('fused', 'unfused')"
+            )
+        if self.prefetch not in ("off", "stream"):
+            raise ValueError(
+                f"unknown prefetch {self.prefetch!r}; "
+                "have ('off', 'stream')"
+            )
+        if self.cohort_shards < 1:
+            raise ValueError(
+                f"cohort_shards must be >= 1, got {self.cohort_shards}"
+            )
+        if self.n_clients < 0:
+            raise ValueError(f"n_clients must be >= 0, got {self.n_clients}")
+        if not self.active:
+            return
+        if self.prefetch == "stream" and self.cohort_shards > 1:
+            raise ValueError(
+                "cross_device prefetch='stream' does not compose with "
+                "cohort_shards > 1: the streamed round feeds one "
+                "cohort step at a time, the sharded scan wants all "
+                "chunks resident — pick one axis"
+            )
+        if self.clients_per_round < 1:
+            raise ValueError(
+                "cross_device needs clients_per_round >= 1 "
+                f"(got {self.clients_per_round})"
+            )
+        if self.clients_per_round > self.n_clients:
+            raise ValueError(
+                f"clients_per_round={self.clients_per_round} > "
+                f"n_clients={self.n_clients}"
+            )
+        if self.cohort_size < 1:
+            raise ValueError(
+                f"cohort_size must be >= 1, got {self.cohort_size}"
+            )
+        if self.clients_per_round % self.cohort_size:
+            raise ValueError(
+                f"clients_per_round={self.clients_per_round} must be a "
+                f"multiple of cohort_size={self.cohort_size} (the round "
+                "scans cohort_size waves of equal width)"
+            )
+        if self.cohort_size % self.cohort_shards:
+            raise ValueError(
+                f"cohort_size={self.cohort_size} must be a multiple of "
+                f"cohort_shards={self.cohort_shards} (each device scans "
+                "an equal contiguous chunk of the cohort axis)"
+            )
+
+    @property
+    def active(self) -> bool:
+        return self.n_clients > 0
+
+    @property
+    def n_slots(self) -> int:
+        """Simulation width: clients trained in parallel per step."""
+        return self.clients_per_round // self.cohort_size
+
+
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to p2pfl_tpu_torch yet "
@@ -106,7 +203,8 @@ class ScenarioConfig:
     network: dict[str, Any] = dataclasses.field(default_factory=dict)
     adversary: dict[str, Any] = dataclasses.field(default_factory=dict)
     elastic: dict[str, Any] = dataclasses.field(default_factory=dict)
-    cross_device: dict[str, Any] = dataclasses.field(default_factory=dict)
+    cross_device: CrossDeviceConfig = dataclasses.field(
+        default_factory=CrossDeviceConfig)
     lora: dict[str, Any] = dataclasses.field(default_factory=dict)
     privacy: dict[str, Any] = dataclasses.field(default_factory=dict)
     transport: str = "auto"
@@ -138,12 +236,59 @@ class ScenarioConfig:
                 f"unknown exchange_overlap {self.exchange_overlap!r}")
         if self.n_nodes < 1:
             raise ValueError("n_nodes must be >= 1")
+        self._refuse_cross_device_compositions()
         self._reject_unported()
         if not self.nodes:
             self.nodes = self._default_nodes()
         if len(self.nodes) != self.n_nodes:
             raise ValueError(
                 f"{len(self.nodes)} node configs for n_nodes={self.n_nodes}"
+            )
+
+    def _refuse_cross_device_compositions(self) -> None:
+        """The JAX schema's refusals of what the cohort-scan round has
+        no hook for, with the same type (``ValueError``), raised before
+        the port's own ``NotImplementedError`` checks so that a
+        combination the JAX package refuses is refused the same way."""
+        if not self.cross_device.active:
+            return
+        adv = self.adversary
+        if (adv.get("kind", "none") != "none"
+                and (adv.get("fraction", 0.0) > 0.0 or adv.get("nodes"))
+                or adv.get("reputation", False)):
+            raise ValueError(
+                "cross_device composes with no adversary/reputation "
+                "config yet: sampled clients are stateless rows, so "
+                "there is no per-node trust or poisoning hook"
+            )
+        if self.exchange_overlap != "off":
+            raise ValueError(
+                "cross_device requires exchange_overlap='off': a "
+                "sampled cohort has no previous-round buffer to ship"
+            )
+        if self.transport == "sparse":
+            raise ValueError(
+                "cross_device uses the cohort-scan round, not the "
+                "ppermute transport; leave transport 'auto'/'dense'"
+            )
+        if self.aggregation_plane == "sidecar":
+            raise ValueError(
+                "aggregation_plane='sidecar' is a socket-plane "
+                "feature; cross_device runs the cohort-scan round"
+            )
+        if self.lora.get("rank", 0) > 0:
+            raise ValueError(
+                "lora is not wired into the cross_device "
+                "cohort-scan round yet: it would silently train "
+                "full weights while the scenario says adapters"
+            )
+        if self.privacy.get("dp", False) or self.privacy.get("secagg",
+                                                            False):
+            raise ValueError(
+                "privacy is not wired into the cross_device cohort-"
+                "scan round yet: sampled clients are stateless rows "
+                "with no per-node (seed, round, idx) noise stream or "
+                "pairwise mask identity"
             )
 
     def _reject_unported(self) -> None:
@@ -164,8 +309,6 @@ class ScenarioConfig:
                 or el.get("straggler_fraction", 0.0) > 0.0
                 or el.get("churn_fraction", 0.0) > 0.0):
             raise _unported("elastic (async aggregation, churn)", "A9")
-        if self.cross_device.get("n_clients", 0) > 0:
-            raise _unported("cross_device", "A10")
         if self.faults:
             raise _unported("faults (membership clock)", "A11")
         if self.transport == "sparse":
@@ -226,6 +369,7 @@ class ScenarioConfig:
             ("data", DataConfig),
             ("model", ModelConfig),
             ("training", TrainingConfig),
+            ("cross_device", CrossDeviceConfig),
         ]:
             if field in d and isinstance(d[field], dict):
                 d[field] = cls(**d[field])

@@ -1,9 +1,10 @@
 """Federated dataset views: per-node shards and node-stacked arrays.
 
-The counterpart of ``p2pfl_tpu/datasets/data.py`` (``FederatedDataset``
-and ``NodeData`` only; the cross-device view is not ported yet). Host
-arrays stay numpy — the same seed gives the same shards as the JAX
-package — and the caller moves ``stacked()`` to its device once.
+The counterpart of ``p2pfl_tpu/datasets/data.py``: ``FederatedDataset``
+and ``NodeData`` for the stacked federation, ``CrossDeviceData`` for
+the sampled cross-device regime. Host arrays stay numpy — the same seed
+gives the same shards and cohorts as the JAX package — and the caller
+moves them to its device.
 """
 
 from __future__ import annotations
@@ -13,7 +14,11 @@ import dataclasses
 import numpy as np
 
 from p2pfl_tpu_torch.config.schema import DataConfig
-from p2pfl_tpu_torch.datasets.partition import partition_indices
+from p2pfl_tpu_torch.datasets.partition import (
+    ClientPartition,
+    lazy_partition_indices,
+    partition_indices,
+)
 from p2pfl_tpu_torch.datasets.sources import DatasetSplits, get_dataset
 
 
@@ -109,5 +114,111 @@ class FederatedDataset:
             nodes=nodes,
             x_test=splits.x_test,
             y_test=splits.y_test,
+            synthetic=splits.synthetic,
+        )
+
+
+@dataclasses.dataclass
+class CrossDeviceData:
+    """Cross-device dataset view: a client is its row in a lazy
+    :class:`ClientPartition`. Arrays materialize per round, only for the
+    sampled clients, padded to one fixed ``shard_size`` so that every
+    round's cohort batch has the same shapes. No per-client validation
+    split: quality is measured on the shared test set."""
+
+    name: str
+    num_classes: int
+    input_shape: tuple[int, ...]
+    x_train: np.ndarray
+    y_train: np.ndarray
+    part: ClientPartition
+    x_test: np.ndarray
+    y_test: np.ndarray
+    shard_size: int  # fixed pad target for every materialized shard
+    seed: int = 0
+    synthetic: bool = False
+
+    @property
+    def n_clients(self) -> int:
+        return self.part.n_clients
+
+    @property
+    def client_sizes(self) -> np.ndarray:
+        """Cap-clamped per-client sample counts: the FedAvg weights and
+        the weighted-sampling distribution."""
+        return np.minimum(self.part.sizes(), self.shard_size)
+
+    def cohort_sizes(self, client_ids: np.ndarray) -> np.ndarray:
+        """``client_sizes[client_ids]`` in O(k), int32."""
+        return np.minimum(self.part.take_sizes(client_ids),
+                          self.shard_size).astype(np.int32)
+
+    def cohort_buffers(self, k: int):
+        """Host buffers for a ``k``-client ``cohort_batch(out=...)``."""
+        s = self.shard_size
+        return (np.zeros((k, s) + self.input_shape, np.float32),
+                np.zeros((k, s), np.int32),
+                np.zeros((k, s), bool),
+                np.zeros((k,), np.int32))
+
+    def cohort_batch(self, client_ids: np.ndarray, out=None):
+        """The sampled clients' shards padded to ``shard_size``: ``(x
+        [k,S,...], y [k,S], mask [k,S], n_samples [k])``. Each client's
+        rows go through a shuffle seeded ``seed * 100003 + cid`` before
+        the cap. ``out`` (a ``cohort_buffers(k)`` tuple, or arrays of
+        those shapes) is filled in place with the same values."""
+        k = len(client_ids)
+        s = self.shard_size
+        if out is None:
+            x, y, mask, sizes = self.cohort_buffers(k)
+        else:
+            x, y, mask, sizes = out
+            x[:k] = 0.0
+            y[:k] = 0
+            mask[:k] = False
+            sizes[:k] = 0
+        for j, cid in enumerate(client_ids):
+            idx = self.part.client_indices(int(cid))
+            rng = np.random.default_rng(self.seed * 100003 + int(cid))
+            idx = rng.permutation(idx)[:s]
+            m = len(idx)
+            x[j, :m] = self.x_train[idx]
+            y[j, :m] = self.y_train[idx]
+            mask[j, :m] = True
+            sizes[j] = m
+        return x, y, mask, sizes
+
+    @staticmethod
+    def make(config: DataConfig, n_clients: int) -> "CrossDeviceData":
+        """The lazy N-client view per the DataConfig scheme.
+        ``samples_per_node`` caps (and so fixes) the shard size; without
+        it the pad target is the largest client shard."""
+        sizes = (
+            (config.synthetic_train, config.synthetic_test or 4000)
+            if config.synthetic_train else None
+        )
+        splits = get_dataset(config.dataset, seed=config.seed,
+                             synthetic_sizes=sizes,
+                             profile=config.surrogate_profile)
+        part = lazy_partition_indices(
+            splits.y_train, n_clients, scheme=config.partition,
+            seed=config.seed, alpha=config.dirichlet_alpha,
+        )
+        largest = int(part.sizes().max())
+        shard = (
+            min(config.samples_per_node, largest)
+            if config.samples_per_node is not None else largest
+        )
+        return CrossDeviceData(
+            name=splits.name,
+            num_classes=splits.num_classes,
+            input_shape=splits.input_shape,
+            x_train=splits.x_train,
+            y_train=splits.y_train,
+            part=part,
+            x_test=splits.x_test,
+            y_test=splits.y_test,
+            shard_size=shard,
+            seed=config.seed,
             synthetic=splits.synthetic,
         )

@@ -12,12 +12,17 @@ Reference semantics reproduced:
 
 All return ``list[np.ndarray]`` of row indices, length N.
 
-A copy of ``p2pfl_tpu/datasets/partition.py`` without the lazy
-cross-device partition (the port does not run the cross-device round
-yet). It imports only numpy, so the two packages partition identically.
+``lazy_partition_indices`` returns the same allocation laws as a
+:class:`ClientPartition` (two arrays) for the cross-device regime's
+10k-1M clients.
+
+A copy of ``p2pfl_tpu/datasets/partition.py``. It imports only numpy,
+so the two packages partition identically.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -187,3 +192,81 @@ def partition_indices(
             )
         return writer_partition(groups, n_nodes, seed)
     raise ValueError(f"unknown partition scheme {scheme!r}")
+
+
+# --------------------------------------------------------------------
+# Lazy cross-device partition: index-on-demand at N=10k+
+# --------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientPartition:
+    """Partition of a dataset across N clients without N eager arrays:
+    ``order`` (every sample index, grouped by owning client) and
+    ``offsets`` (``[n_clients + 1]`` group boundaries). A client's
+    indices are an O(1) slice view, taken only when it is sampled."""
+
+    order: np.ndarray  # [n_samples] sample indices grouped by client
+    offsets: np.ndarray  # [n_clients + 1] int64 group boundaries
+
+    @property
+    def n_clients(self) -> int:
+        return len(self.offsets) - 1
+
+    def client_indices(self, client: int) -> np.ndarray:
+        """Sample indices owned by ``client`` (a view, not a copy)."""
+        return self.order[self.offsets[client]:self.offsets[client + 1]]
+
+    def sizes(self) -> np.ndarray:
+        """Per-client shard sizes, ``[n_clients]``."""
+        return np.diff(self.offsets)
+
+    def take_sizes(self, client_ids: np.ndarray) -> np.ndarray:
+        """Shard sizes of just ``client_ids`` (any shape), O(k)."""
+        ids = np.asarray(client_ids, np.int64)
+        return self.offsets[ids + 1] - self.offsets[ids]
+
+
+def _partition_from_assignment(node_of: np.ndarray,
+                               n_clients: int) -> ClientPartition:
+    order = np.argsort(node_of, kind="stable")
+    counts = np.bincount(node_of, minlength=n_clients)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return ClientPartition(order=order, offsets=offsets)
+
+
+def lazy_partition_indices(
+    labels: np.ndarray, n_clients: int, scheme: str = "iid", seed: int = 0,
+    alpha: float = 0.5, min_per_client: int = 1,
+) -> ClientPartition:
+    """:func:`partition_indices` twin for the cross-device regime: the
+    same allocation laws as a :class:`ClientPartition`. Within-client
+    order is not shuffled here (dirichlet is label-grouped);
+    ``CrossDeviceData`` shuffles each client when it materializes it.
+    A sparse dirichlet draw (too few samples a client for any redraw
+    to give everyone ``min_per_client``) is repaired deterministically;
+    it raises only when ``len(labels) < n_clients * min_per_client``."""
+    n = len(labels)
+    if scheme in ("iid", "sorted", "non-iid", "noniid"):
+        per = n // n_clients
+        if per < min_per_client:
+            raise ValueError(
+                f"{n} samples over {n_clients} clients gives {per} "
+                f"per client < min_per_client={min_per_client}"
+            )
+        if scheme == "iid":
+            order = np.random.default_rng(seed).permutation(n)
+        else:
+            order = np.argsort(labels, kind="stable")
+        offsets = np.arange(n_clients + 1, dtype=np.int64) * per
+        return ClientPartition(order=order[: per * n_clients],
+                               offsets=offsets)
+    if scheme == "dirichlet":
+        rng = np.random.default_rng(seed)
+        node_of = _dirichlet_assign(labels, n_clients, alpha, rng,
+                                    min_per_node=min_per_client)
+        return _partition_from_assignment(node_of, n_clients)
+    raise ValueError(
+        f"unknown cross-device partition scheme {scheme!r}; "
+        "have ('iid', 'sorted', 'dirichlet')"
+    )

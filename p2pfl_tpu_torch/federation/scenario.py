@@ -1,15 +1,21 @@
-"""Scenario: build and run a whole federation on one device.
+"""Scenarios: build and run a whole federation on one device.
 
-The counterpart of ``p2pfl_tpu/federation/scenario.py::Scenario`` for
-what this port runs: the dense FedAvg round over stacked nodes, DFL,
-CFL and SDFL plans, the train-set vote cap, periodic evaluation, and
-``transport`` ``auto``/``dense`` (both mean the one dense mix here).
+The counterpart of ``p2pfl_tpu/federation/scenario.py`` for what this
+port runs:
+
+- ``Scenario``: the dense FedAvg round over stacked nodes, DFL, CFL and
+  SDFL plans, the train-set vote cap, periodic evaluation, and
+  ``transport`` ``auto``/``dense`` (both mean the one dense mix here);
+- ``CrossDeviceScenario``: the sampled K-of-N cross-device regime, a
+  cohort scan through ``n_slots`` slots, materialized or streamed.
+
 ``ScenarioConfig`` rejects everything else before a run starts. There is
-no membership clock (no faults are accepted, so every node stays
-alive), no status publishing and no metrics logger yet.
+no membership clock (no faults are accepted, so every node and client
+stays alive), no status publishing and no metrics logger yet.
 
     scenario = Scenario(ScenarioConfig(...))   # device "cuda" by default
     result = scenario.run()
+    result = CrossDeviceScenario(cfg, device="cpu").run()
 """
 
 from __future__ import annotations
@@ -23,13 +29,17 @@ import torch
 
 from p2pfl_tpu_torch.config.schema import ScenarioConfig
 from p2pfl_tpu_torch.core.aggregators import FedAvg
-from p2pfl_tpu_torch.datasets.data import FederatedDataset
+from p2pfl_tpu_torch.datasets.data import CrossDeviceData, FederatedDataset
 from p2pfl_tpu_torch.device import resolve_device
+from p2pfl_tpu_torch.federation.sampling import sample_cohorts
 from p2pfl_tpu_torch.learning.learner import make_step_fns
 from p2pfl_tpu_torch.models.base import build_model
 from p2pfl_tpu_torch.parallel.federated import (
+    build_cross_device_stream_fns,
     build_eval_fn,
     build_round_fn,
+    build_round_fn_cross_device,
+    cross_device_wn,
     init_federation,
     make_round_plan,
 )
@@ -47,30 +57,54 @@ class ScenarioResult:
     min_accuracy: float = 0.0
 
 
+def _resolve(device: torch.device | str) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        # the f32 FedAvg mix and dense layers run in full f32
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def _step_fns(model, config: ScenarioConfig):
+    return make_step_fns(
+        model,
+        objective=config.model.objective,
+        optimizer=config.training.optimizer,
+        learning_rate=config.training.learning_rate,
+        momentum=config.training.momentum,
+        weight_decay=config.training.weight_decay,
+        momentum_dtype=config.training.momentum_dtype,
+        batch_size=config.data.batch_size,
+    )
+
+
+def _exchange_dtype(config: ScenarioConfig) -> torch.dtype | None:
+    return torch.bfloat16 if config.wire_dtype in ("bf16", "int8") else None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class Scenario:
     """Build and drive a federation from a ScenarioConfig."""
 
     def __init__(self, config: ScenarioConfig,
                  dataset: FederatedDataset | None = None,
                  device: torch.device | str = "cuda"):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # the f32 FedAvg mix and dense layers run in full f32
-            torch.backends.cuda.matmul.allow_tf32 = False
+        if config.cross_device.active:
+            raise ValueError(
+                "config.cross_device is active — Scenario drives one "
+                "live row per node; use CrossDeviceScenario for the "
+                "sampled K-of-N regime"
+            )
+        self.device = _resolve(device)
         self.config = config
         n = config.n_nodes
         self.dataset = dataset or FederatedDataset.make(config.data, n)
         self.model = build_model(config.model)
-        self.fns = make_step_fns(
-            self.model,
-            objective=config.model.objective,
-            optimizer=config.training.optimizer,
-            learning_rate=config.training.learning_rate,
-            momentum=config.training.momentum,
-            weight_decay=config.training.weight_decay,
-            momentum_dtype=config.training.momentum_dtype,
-            batch_size=config.data.batch_size,
-        )
+        self.fns = _step_fns(self.model, config)
         self.topology = generate_topology(config.topology, n,
                                           **config.topology_kwargs)
         self.roles = [nc.role for nc in config.nodes]
@@ -87,12 +121,10 @@ class Scenario:
         )
         self._x_test = torch.from_numpy(self.dataset.x_test).to(dev)
         self._y_test = torch.from_numpy(self.dataset.y_test).to(dev)
-        exchange_dtype = (torch.bfloat16
-                          if config.wire_dtype in ("bf16", "int8") else None)
         self._round_fn = build_round_fn(
             self.fns, aggregator=FedAvg(),
             epochs=config.training.epochs_per_round,
-            exchange_dtype=exchange_dtype,
+            exchange_dtype=_exchange_dtype(config),
             # DFL plans adopt their own row: the adopt gather is elided
             identity_adopt=config.federation == "DFL",
         )
@@ -101,10 +133,6 @@ class Scenario:
                                    seed=config.seed, device=dev)
 
     # ------------------------------------------------------------------
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _rotate_leader(self, alive: np.ndarray) -> None:
         if self.config.federation == "SDFL":
             candidates = [i for i in np.flatnonzero(alive)
@@ -170,17 +198,250 @@ class Scenario:
         start_round = self.fed.round
         alive = self.fed.alive.cpu().numpy()
         for r in range(start_round, start_round + rounds):
-            self._sync()
+            _sync(self.device)
             t0 = time.monotonic()
             self._rotate_leader(alive)
             trains_vote = self._voted_trains(alive, r)
             self.fed, metrics = self._round_fn(
                 self.fed, *self._data_args, *self._plan_args(trains_vote))
-            self._sync()
+            _sync(self.device)
             dt = time.monotonic() - t0
             round_times.append(dt)
             rec = {"round": r, "round_time_s": dt,
                    "train_loss": metrics["train_loss"].double().cpu().tolist()}
+            if cfg.training.eval_every and (r + 1) % cfg.training.eval_every == 0:
+                ev = self.evaluate()
+                ev_round = r
+                rec["eval"] = ev
+                if (target_accuracy is not None and rounds_to_target is None
+                        and ev["mean_accuracy"] >= target_accuracy):
+                    rounds_to_target = r + 1
+            history.append(rec)
+        last_round = start_round + rounds - 1
+        if ev is None or ev_round != last_round:
+            ev = self.evaluate()
+            if (target_accuracy is not None and rounds_to_target is None
+                    and ev["mean_accuracy"] >= target_accuracy):
+                rounds_to_target = last_round + 1
+        return ScenarioResult(
+            final_accuracy=ev["mean_accuracy"],
+            per_node_accuracy=ev["per_node_accuracy"],
+            rounds_run=rounds,
+            round_times_s=round_times,
+            history=history,
+            rounds_to_target=rounds_to_target,
+            min_accuracy=ev["min_accuracy"],
+        )
+
+
+class CrossDeviceScenario:
+    """The sampled K-of-N cross-device scenario.
+
+    A client is an index into a lazy ``ClientPartition``, not a live
+    row. Each round the host draws ``clients_per_round`` of
+    ``n_clients`` (seeded by ``(cross_device.seed, round)``, without
+    replacement, optionally weighted by data size), reshapes them into
+    ``cohort_size`` cohorts of ``n_slots`` and materializes their shards
+    at the fixed shard size; the round (``build_round_fn_cross_device``)
+    trains the cohorts one after another through the ``n_slots`` slots
+    and FedAvg-sums all of them. With ``prefetch="stream"`` the round
+    is driven one cohort at a time through two reused pinned host
+    buffers: the host fills cohort t+1 while the card trains cohort t.
+    """
+
+    def __init__(self, config: ScenarioConfig,
+                 dataset: CrossDeviceData | None = None,
+                 device: torch.device | str = "cuda"):
+        cd = config.cross_device
+        if not cd.active:
+            raise ValueError(
+                "CrossDeviceScenario needs config.cross_device.n_clients"
+                " > 0; use Scenario for the stacked federation"
+            )
+        self.device = _resolve(device)
+        self.config = config
+        self.cd = cd
+        self.data = dataset or CrossDeviceData.make(config.data,
+                                                    cd.n_clients)
+        self.model = build_model(config.model)
+        self.fns = _step_fns(self.model, config)
+        # faults are refused (ROADMAP A11), and without them the JAX
+        # package's Membership clock keeps every client alive; the
+        # round still takes a per-client alive vector
+        self._alive = np.ones(cd.n_clients, bool)
+        self._sample_weights = (
+            self.data.client_sizes.astype(np.float64)
+            if cd.sampling == "weighted" else None
+        )
+        epochs = config.training.epochs_per_round
+        fused = cd.accumulate == "fused"
+        self._stream = cd.prefetch == "stream"
+        if self._stream:
+            self._stream_fns = build_cross_device_stream_fns(
+                self.fns, epochs=epochs,
+                exchange_dtype=_exchange_dtype(config),
+                fused_accumulate=fused)
+            self._stream_bufs = None  # two pinned cohort buffers
+            self._stream_events: list = [None, None]
+            self._round_fn = None
+        else:
+            self._round_fn = build_round_fn_cross_device(
+                self.fns, epochs=epochs,
+                exchange_dtype=_exchange_dtype(config),
+                fused_accumulate=fused, cohort_shards=cd.cohort_shards)
+        self._eval_fn = build_eval_fn(self.fns)
+        dev = self.device
+        sample_x = torch.zeros((1,) + tuple(self.data.input_shape))
+        self.fed = init_federation(self.fns, sample_x, cd.n_slots,
+                                   seed=config.seed, device=dev)
+        self._x_test = torch.from_numpy(self.data.x_test).to(dev)
+        self._y_test = torch.from_numpy(self.data.y_test).to(dev)
+        # throughput and prefetch gauges of the last round
+        self.crossdev_last: dict[str, Any] = {}
+        # the last round's draw and its liveness
+        self.last_sampled: np.ndarray | None = None
+        self.last_cohorts: np.ndarray | None = None
+        self.last_cohort_alive: np.ndarray | None = None
+
+    def _buffers(self):
+        """Two host buffers for one cohort each: pinned tensors on the
+        card's host (so the copies can run asynchronously) and the numpy
+        views ``cohort_batch(out=)`` fills."""
+        if self._stream_bufs is None:
+            pin = self.device.type == "cuda"
+            bufs = []
+            for _ in range(2):
+                x, y, m, sizes = self.data.cohort_buffers(self.cd.n_slots)
+                host = tuple(torch.from_numpy(a) for a in (x, y, m))
+                if pin:
+                    host = tuple(t.pin_memory() for t in host)
+                bufs.append((host, tuple(t.numpy() for t in host) + (sizes,)))
+            self._stream_bufs = bufs
+        return self._stream_bufs
+
+    def _run_streamed_round(self, cohorts: np.ndarray,
+                            c_alive: np.ndarray) -> dict[str, Any]:
+        """One round, one cohort at a time. While the card trains step
+        t, the host gathers cohort t+1 into the other of two buffers and
+        queues its copy. Before the host rewrites a buffer it waits on
+        the event recorded after that buffer's last copy (two steps
+        earlier). The steps are the materialized round's body in the
+        same order with the same weights, so the result is the same bit
+        for bit.
+
+        Gauges in ``crossdev_last``: ``crossdev_prefetch_mb``, the
+        host-to-device bytes this round; ``crossdev_prefetch_stall_s``,
+        the host time spent gathering and waiting for a free buffer."""
+        cd = self.cd
+        dev = self.device
+        bufs = self._buffers()
+        sizes = self.data.cohort_sizes(cohorts)
+        wn, got_any = cross_device_wn(torch.from_numpy(sizes).to(dev),
+                                      torch.from_numpy(c_alive).to(dev))
+        alive_dev = torch.from_numpy(c_alive).to(dev)
+        stall_s = 0.0
+
+        def gather_put(t: int):
+            nonlocal stall_s
+            t0 = time.monotonic()
+            host, views = bufs[t % 2]
+            if self._stream_events[t % 2] is not None:
+                # the copy out of this buffer two steps ago must be done
+                self._stream_events[t % 2].synchronize()
+            self.data.cohort_batch(cohorts[t], out=views)
+            out = tuple(h.to(dev, non_blocking=True) for h in host)
+            if dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record()
+                self._stream_events[t % 2] = ev
+            stall_s += time.monotonic() - t0
+            return out
+
+        init_carry, step, finalize = self._stream_fns
+        buf = gather_put(0)
+        prefetch_bytes = sum(a.nbytes for a in buf) * cd.cohort_size
+        params0 = self.fed.states.params
+        carry = init_carry(self.fed)
+        losses = []
+        for t in range(cd.cohort_size):
+            # the step is queued on the card; the gather below overlaps it
+            carry, loss = step(params0, carry, *buf, alive_dev[t], wn[t])
+            if t + 1 < cd.cohort_size:
+                buf = gather_put(t + 1)
+            losses.append(loss)
+        self.fed = finalize(self.fed, carry, got_any)
+        self.crossdev_last["crossdev_prefetch_mb"] = prefetch_bytes / 1e6
+        self.crossdev_last["crossdev_prefetch_stall_s"] = stall_s
+        return {"train_loss": torch.stack(losses), "alive": self.fed.alive}
+
+    def _run_materialized_round(self, sampled: np.ndarray,
+                                c_alive: np.ndarray) -> dict[str, Any]:
+        cd = self.cd
+        x, y, mask, sizes = self.data.cohort_batch(sampled)
+        shape2 = (cd.cohort_size, cd.n_slots)
+        args = tuple(
+            torch.from_numpy(a.reshape(shape2 + a.shape[1:])).to(
+                self.device)
+            for a in (x, y, mask, sizes))
+        self.fed, metrics = self._round_fn(
+            self.fed, *args, torch.from_numpy(c_alive).to(self.device))
+        return metrics
+
+    def evaluate(self) -> dict[str, Any]:
+        """The global model on the shared test set. Every slot holds the
+        same aggregate after a round, so the slots agree; the mean is
+        reported as ``Scenario.evaluate`` does."""
+        metrics = self._eval_fn(self.fed, self._x_test, self._y_test)
+        acc = metrics["accuracy"].double().cpu().numpy()
+        loss = metrics["loss"].double().cpu().numpy()
+        return {
+            "per_node_accuracy": [float(a) for a in acc],
+            "per_node_loss": [float(v) for v in loss],
+            "mean_accuracy": float(acc.mean()),
+            "min_accuracy": float(acc.min()),
+        }
+
+    def run(self, rounds: int | None = None,
+            target_accuracy: float | None = None) -> ScenarioResult:
+        cfg = self.config
+        cd = self.cd
+        rounds = rounds if rounds is not None else cfg.training.rounds
+        round_times: list[float] = []
+        history: list[dict] = []
+        rounds_to_target = None
+        ev = None
+        ev_round = -1
+        start_round = self.fed.round
+        for r in range(start_round, start_round + rounds):
+            _sync(self.device)
+            t0 = time.monotonic()
+            # cohort step t runs clients sampled[t*n_slots:(t+1)*n_slots]
+            sampled, cohorts = sample_cohorts(
+                cd.n_clients, cd.clients_per_round, cd.cohort_size, r,
+                seed=cd.seed, weights=self._sample_weights,
+            )
+            c_alive = self._alive[cohorts]
+            if self._stream:
+                metrics = self._run_streamed_round(cohorts, c_alive)
+            else:
+                metrics = self._run_materialized_round(sampled, c_alive)
+            _sync(self.device)
+            dt = time.monotonic() - t0
+            round_times.append(dt)
+            self.last_sampled = sampled
+            self.last_cohorts = cohorts
+            self.last_cohort_alive = c_alive
+
+            losses = metrics["train_loss"].double().cpu().numpy()
+            live = c_alive.astype(bool)
+            mean_loss = float(losses[live].mean()) if live.any() else 0.0
+            self.crossdev_last["crossdev_clients_per_s"] = (
+                len(sampled) / dt if dt > 0 else None)
+            rec = {"round": r, "round_time_s": dt,
+                   "train_loss": losses.tolist(),  # [C, n_slots]
+                   "Train/loss": mean_loss,
+                   "CrossDev/clients_sampled": int(len(sampled)),
+                   "CrossDev/clients_alive": int(live.sum())}
             if cfg.training.eval_every and (r + 1) % cfg.training.eval_every == 0:
                 ev = self.evaluate()
                 ev_round = r

@@ -125,6 +125,67 @@ std::vector<torch::Tensor> sgd(torch::Tensor p, torch::Tensor m,
   return {p_out, m_out};
 }
 
+void check_float_or_bf16(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.dim() == 2 && t.is_contiguous(), name,
+              " must be a contiguous 2-D CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == at::kFloat ||
+                  t.scalar_type() == at::kBFloat16,
+              name, " must be float32 or bfloat16, got ", t.scalar_type());
+}
+
+std::vector<torch::Tensor> sgd_accum(torch::Tensor p, torch::Tensor m,
+                                     torch::Tensor g, torch::Tensor lr,
+                                     torch::Tensor acc, torch::Tensor w,
+                                     double decay) {
+  check_float_or_bf16(p, "p");
+  check_float_or_bf16(m, "m");
+  check(g, "g", p.scalar_type(), 2);
+  check(lr, "lr", at::kFloat, 1);
+  check(acc, "acc", at::kFloat, 2);
+  check(w, "w", at::kFloat, 1);
+  for (const auto* t : {&m, &g, &lr, &acc, &w}) same_device(p, *t);
+  TORCH_CHECK(p.sizes() == m.sizes() && p.sizes() == g.sizes() &&
+                  p.sizes() == acc.sizes() && lr.size(0) == p.size(0) &&
+                  w.size(0) == p.size(0),
+              "sgd_accum shapes p ", p.sizes(), " m ", m.sizes(), " g ",
+              g.sizes(), " acc ", acc.sizes(), " lr ", lr.sizes(), " w ",
+              w.sizes());
+  const c10::cuda::CUDAGuard guard(p.device());
+  auto p_out = torch::empty_like(p);
+  auto m_out = torch::empty_like(m);
+  auto acc_out = torch::empty_like(acc);
+  p2pfl::launch_sgd_accum(
+      p.data_ptr(), m.data_ptr(), g.data_ptr(), lr.data_ptr<float>(),
+      acc.data_ptr<float>(), w.data_ptr<float>(), p_out.data_ptr(),
+      m_out.data_ptr(), acc_out.data_ptr<float>(), static_cast<float>(decay),
+      p.scalar_type() == at::kBFloat16 ? 1 : 0,
+      m.scalar_type() == at::kBFloat16 ? 1 : 0, p.size(0), p.size(1),
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {p_out, m_out, acc_out};
+}
+
+torch::Tensor fedavg_accum(torch::Tensor p, torch::Tensor acc,
+                           torch::Tensor w) {
+  check_float_or_bf16(p, "p");
+  check(acc, "acc", at::kFloat, 2);
+  check(w, "w", at::kFloat, 1);
+  same_device(p, acc);
+  same_device(p, w);
+  TORCH_CHECK(p.sizes() == acc.sizes() && w.size(0) == p.size(0),
+              "fedavg_accum shapes p ", p.sizes(), " acc ", acc.sizes(),
+              " w ", w.sizes());
+  const c10::cuda::CUDAGuard guard(p.device());
+  auto acc_out = torch::empty_like(acc);
+  p2pfl::launch_fedavg_accum(p.data_ptr(), acc.data_ptr<float>(),
+                             w.data_ptr<float>(), acc_out.data_ptr<float>(),
+                             p.scalar_type() == at::kBFloat16 ? 1 : 0,
+                             p.size(0), p.size(1),
+                             at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return acc_out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -132,4 +193,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stream_wgrad", &stream_wgrad, "K2: [n,M,K]^T @ [n,M,N] -> f32");
   m.def("dense_bwd", &dense_bwd, "K3: fused dx, dw of y = x @ w");
   m.def("sgd", &sgd, "K4: SGD-with-momentum step over [n, numel]");
+  m.def("sgd_accum", &sgd_accum, "K5: K4 plus acc + w * p' over [n, numel]");
+  m.def("fedavg_accum", &fedavg_accum, "K5 null form: acc + w * p");
 }

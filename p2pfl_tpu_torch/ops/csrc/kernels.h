@@ -35,4 +35,19 @@ void launch_sgd(const float* p, const void* m, const float* g,
                 int trace_bf16, long long n, long long numel,
                 cudaStream_t stream);
 
+// K5, general form: K4's step plus acc_out = acc + w[slot] * f32(p_out)
+// over [n, numel]; p and g f32 (p_bf16 = 0) or bf16 (p_bf16 = 1), the
+// trace f32 or bf16, lr, w [n] f32, acc f32.
+void launch_sgd_accum(const void* p, const void* m, const void* g,
+                      const float* lr, const float* acc, const float* w,
+                      void* p_out, void* m_out, float* acc_out, float decay,
+                      int p_bf16, int trace_bf16, long long n,
+                      long long numel, cudaStream_t stream);
+
+// K5, null form (fedavg_accum): acc_out = acc + w[slot] * f32(p) over
+// [n, numel]; p f32 or bf16, acc f32, w [n] f32.
+void launch_fedavg_accum(const void* p, const float* acc, const float* w,
+                         float* acc_out, int p_bf16, long long n,
+                         long long numel, cudaStream_t stream);
+
 }  // namespace p2pfl

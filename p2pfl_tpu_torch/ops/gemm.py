@@ -1,9 +1,9 @@
 """The training path's kernels: wrappers, plain versions, autograd.
 
-The counterpart of ``p2pfl_tpu/ops/pallas_gemm.py``. Four hand-written
+The counterpart of ``p2pfl_tpu/ops/pallas_gemm.py``. Five hand-written
 Hopper kernels (CUDA C++ for ``sm_90a``, sources in ``ops/csrc/``, built
-on first use by ``ops/_build.py``) replace the four Pallas kernels the
-FEMNIST-CNN round runs:
+on first use by ``ops/_build.py``) replace the five Pallas kernels the
+FEMNIST-CNN rounds run:
 
 - ``stream_gemm`` (K1, replaces ``_stream_gemm``): ``[n,M,K] @ [n,K,N]``
   in bf16 with f32 accumulation — conv1 and conv2 forward.
@@ -12,6 +12,10 @@ FEMNIST-CNN round runs:
 - ``dense_bwd`` (K3, replaces ``_dense_bwd``): ``dx = g @ w^T`` and
   ``dw = x^T @ g`` in one launch — the dense1 backward.
 - ``sgd_accum`` (K4, replaces ``_sgd``): one SGD-with-momentum step.
+- ``sgd_accum(acc=, weight=)`` and ``fedavg_accum`` (K5, replaces
+  ``_sgd_acc``): K4 plus the weighted FedAvg accumulate
+  ``acc + w[slot] * p'``, and its null form ``acc + w[slot] * p`` — the
+  cross-device round's per-step accumulate.
 
 Every kernel takes the node axis as its leading dimension; the JAX
 package's ``vmap`` over nodes is that axis written out. Beside each
@@ -36,6 +40,7 @@ __all__ = [
     "stream_wgrad", "stream_wgrad_plain",
     "dense_bwd", "dense_bwd_plain",
     "sgd_accum", "sgd_accum_plain",
+    "fedavg_accum", "fedavg_accum_plain",
     "patches_matmul", "conv2_matmul", "dense_matmul",
     "launches", "reset_launches",
 ]
@@ -43,6 +48,7 @@ __all__ = [
 #: kernel launches per wrapper since the last reset_launches()
 launches: dict[str, int] = {
     "stream_gemm": 0, "stream_wgrad": 0, "dense_bwd": 0, "sgd_accum": 0,
+    "sgd_accum_acc": 0, "fedavg_accum": 0,
 }
 
 
@@ -129,6 +135,7 @@ def dense_bwd(x: torch.Tensor, w: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # K4 sgd_accum: one SGD-with-momentum step over a stacked leaf
+# K5 sgd_accum(acc=, weight=) / fedavg_accum: plus acc + w[slot] * p
 # ---------------------------------------------------------------------------
 
 
@@ -137,36 +144,84 @@ def _decay(momentum: float, trace_dtype: torch.dtype) -> float:
     return float(torch.tensor(momentum, dtype=trace_dtype))
 
 
+def _per_slot(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return v.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
 def sgd_accum_plain(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
-                    lr: torch.Tensor, *, momentum: float
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``optax.sgd`` term by term over a leaf with a leading node axis:
-    ``m' = g + round_to(m.dtype, decay * m)``; ``p' = p + m' * -lr``
-    with ``lr [n]`` (learning rate x update gate); stored ``m'`` cast
-    to the trace dtype. Returns ``(p', m')``."""
+                    lr: torch.Tensor, *, momentum: float,
+                    acc: torch.Tensor | None = None,
+                    weight: torch.Tensor | None = None):
+    """``optax.sgd`` term by term over a leaf with a leading slot axis:
+    ``m' = g + round_to(m.dtype, decay * m)`` in f32 (the Pallas kernel
+    evaluates in f32 and rounds only the decayed trace and its outputs);
+    ``p' = p + m' * -lr`` with ``lr [n]`` (learning rate x update gate),
+    rounded to p's dtype; stored ``m'`` cast to the trace dtype. Returns ``(p', m')``; with ``acc`` (f32, p's shape) and
+    ``weight [n]`` f32 also ``acc' = acc + weight[slot] * f32(p')``."""
+    if (acc is None) != (weight is None):
+        raise ValueError("acc and weight go together")
     decay = torch.tensor(_decay(momentum, m.dtype), dtype=torch.float32,
                          device=m.device)
     dec = (decay * m.float()).to(m.dtype).float()
-    m_new = g + dec
-    neg_lr = (-lr).reshape((-1,) + (1,) * (p.dim() - 1))
-    p_new = p + m_new * neg_lr
-    return p_new.to(p.dtype), m_new.to(m.dtype)
+    m_new = g.float() + dec
+    p_new = (p + m_new * _per_slot(-lr, p)).to(p.dtype)
+    if acc is None:
+        return p_new, m_new.to(m.dtype)
+    acc_new = acc + _per_slot(weight, p) * p_new.float()
+    return p_new, m_new.to(m.dtype), acc_new
 
 
 def sgd_accum(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
-              lr: torch.Tensor, *, momentum: float
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              lr: torch.Tensor, *, momentum: float,
+              acc: torch.Tensor | None = None,
+              weight: torch.Tensor | None = None):
     """K4 (``csrc/sgd.cu``): the step of :func:`sgd_accum_plain` in one
-    pass over ``[n, numel]``. p and g f32, m f32 or bf16, lr ``[n]``
-    f32. At lr 0 (update gate 0) p comes back bit-exact."""
-    if _on_cpu(p, m, g, lr):
-        return sgd_accum_plain(p, m, g, lr, momentum=momentum)
+    pass over ``[n, numel]``, p and g f32, m f32 or bf16, lr ``[n]`` f32.
+    With ``acc`` and ``weight``, K5 (``csrc/sgd_accum.cu``): the step and
+    the accumulate in one pass, p and g f32 or bf16. At lr 0 (update
+    gate 0) p comes back bit-exact."""
+    if (acc is None) != (weight is None):
+        raise ValueError("acc and weight go together")
+    if acc is None:
+        if _on_cpu(p, m, g, lr):
+            return sgd_accum_plain(p, m, g, lr, momentum=momentum)
+        n = p.shape[0]
+        p_new, m_new = _build.kernels().sgd(
+            p.reshape(n, -1), m.reshape(n, -1), g.reshape(n, -1), lr,
+            _decay(momentum, m.dtype))
+        launches["sgd_accum"] += 1
+        return p_new.view(p.shape), m_new.view(m.shape)
+    if _on_cpu(p, m, g, lr, acc, weight):
+        return sgd_accum_plain(p, m, g, lr, momentum=momentum, acc=acc,
+                               weight=weight)
     n = p.shape[0]
-    p_new, m_new = _build.kernels().sgd(
+    p_new, m_new, acc_new = _build.kernels().sgd_accum(
         p.reshape(n, -1), m.reshape(n, -1), g.reshape(n, -1), lr,
-        _decay(momentum, m.dtype))
-    launches["sgd_accum"] += 1
-    return p_new.view(p.shape), m_new.view(m.shape)
+        acc.reshape(n, -1), weight, _decay(momentum, m.dtype))
+    launches["sgd_accum_acc"] += 1
+    return p_new.view(p.shape), m_new.view(m.shape), acc_new.view(acc.shape)
+
+
+def fedavg_accum_plain(p: torch.Tensor, acc: torch.Tensor,
+                       weight: torch.Tensor) -> torch.Tensor:
+    """``acc + weight[slot] * f32(p)``: the JAX package's null
+    ``sgd_accum`` step (g = 0, momentum 0, lr 0), whose optimizer half
+    passes p through unchanged."""
+    return acc + _per_slot(weight, p) * p.float()
+
+
+def fedavg_accum(p: torch.Tensor, acc: torch.Tensor,
+                 weight: torch.Tensor) -> torch.Tensor:
+    """K5's null form (``csrc/sgd_accum.cu``): ``acc' = acc +
+    weight[slot] * f32(p)`` in one pass over ``[n, numel]``; p f32 or
+    bf16, acc f32 of p's shape, weight ``[n]`` f32. Returns ``acc'``."""
+    if _on_cpu(p, acc, weight):
+        return fedavg_accum_plain(p, acc, weight)
+    n = p.shape[0]
+    acc_new = _build.kernels().fedavg_accum(
+        p.reshape(n, -1), acc.reshape(n, -1), weight)
+    launches["fedavg_accum"] += 1
+    return acc_new.view(acc.shape)
 
 
 # ---------------------------------------------------------------------------

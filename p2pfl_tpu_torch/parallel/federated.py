@@ -1,7 +1,8 @@
-"""The federated round over the node axis, on one device.
+"""The federated rounds over the node axis, on one device.
 
 The counterpart of ``p2pfl_tpu/parallel/federated.py`` for the dense
-FedAvg path: every node trains its local epochs (one ``train_epochs``
+FedAvg path and the cross-device round (``build_round_fn_cross_device``,
+``build_cross_device_stream_fns``, below). The dense round: every node trains its local epochs (one ``train_epochs``
 call over the stacked ``[n, ...]`` state), then each node's aggregate
 is row ``i`` of ``W @ params`` with ``W`` the row-normalised product of
 the round plan's mixing matrix, the sample counts and the alive and
@@ -20,7 +21,7 @@ f32, as the JAX package's ``preferred_element_type=f32`` dot does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ import torch
 from p2pfl_tpu_torch.core.aggregators import FedAvg
 from p2pfl_tpu_torch.core.pytree import Params, tree_map
 from p2pfl_tpu_torch.learning.learner import StepFns, TrainState
+from p2pfl_tpu_torch.ops import gemm
 from p2pfl_tpu_torch.topology.topology import Topology
 
 
@@ -175,6 +177,258 @@ def build_round_fn(
         return fed, {"train_loss": train_metrics["loss"], "alive": alive}
 
     return round_fn
+
+
+# ---------------------------------------------------------------------------
+# the cross-device round: a scan over sampled cohorts through n_slots slots
+# ---------------------------------------------------------------------------
+
+
+def cross_device_wn(c_sizes: torch.Tensor, c_alive: torch.Tensor):
+    """FedAvg weights normalized over all ``C x n_slots`` sampled clients
+    (``[C, n_slots]`` f32), and the flag that any client carries weight.
+    Every arm (materialized, chunked, streamed) takes its weights from
+    here, so their aggregates cannot drift apart."""
+    w = c_sizes.float() * c_alive.float()
+    total = w.sum()
+    return w / total.clamp(min=1e-9), total > 0
+
+
+def _cross_device_plan(params0: Params, fused_accumulate: bool) -> Params:
+    """Per leaf: True sends the per-step accumulate through K5
+    (``gemm.fedavg_accum``, per-slot f32 accumulators). Under the fused
+    layout that is every leaf with a per-slot axis (ndim >= 2) — on the
+    card always, as the JAX package's route with ``P2PFL_PALLAS_GEMM=on``;
+    a per-slot scalar takes the row product. The unfused layout is the
+    reference product and never takes K5."""
+    return tree_map(lambda p: fused_accumulate and p.dim() >= 2, params0)
+
+
+def _cross_device_acc0(params0: Params, fused_accumulate: bool,
+                       plan: Params) -> Params:
+    """Zero f32 accumulators in the layout each route wants: K5 leaves
+    one per slot (p's shape), row-product leaves one ``[1, d]`` row, the
+    unfused reference the full ``[n_slots, d]``."""
+
+    def leaf0(p, use_k5):
+        if use_k5:
+            return torch.zeros(p.shape, dtype=torch.float32,
+                               device=p.device)
+        rows = 1 if fused_accumulate else p.shape[0]
+        return torch.zeros((rows, p[0].numel()), dtype=torch.float32,
+                           device=p.device)
+
+    return tree_map(leaf0, params0, plan)
+
+
+def _cross_device_body(fns: StepFns, epochs: int,
+                       mix_dtype: torch.dtype | None,
+                       fused_accumulate: bool, params0: Params,
+                       plan: Params) -> Callable:
+    """One cohort step: train the cohort from the round-start
+    ``params0`` (the carried optimizer state, generator and step), then
+    fold its weighted parameters into the accumulators. The materialized,
+    chunked and streamed arms all run this function."""
+
+    def cast(p):
+        return p if mix_dtype is None else p.to(mix_dtype)
+
+    def body(carry, x_t, y_t, m_t, alive_t, wn_t):
+        opt_state, rng, step, acc = carry
+        n_slots = alive_t.shape[0]
+        states_t = TrainState(params=params0, opt_state=opt_state, rng=rng,
+                              step=step)
+        trains = torch.ones(n_slots, dtype=torch.bool, device=alive_t.device)
+        states_t, tm = _train_and_select(fns, states_t, alive_t, trains,
+                                         x_t, y_t, m_t, epochs)
+        # the weight operand of the row products, rounded to the wire
+        # dtype as the JAX package's [n, n] weight matrix is
+        w_row = cast(wn_t).float()
+
+        def leaf_acc(a, p, use_k5):
+            if use_k5:
+                # acc[s] += wn[s] * p[s] in one pass (the weights stay f32)
+                return gemm.fedavg_accum(cast(p), a, wn_t)
+            flat = cast(p.reshape(n_slots, -1)).float()
+            if fused_accumulate:
+                return a + torch.matmul(w_row[None, :], flat)  # [1,n]@[n,d]
+            w_t = w_row[None, :].expand(n_slots, n_slots)
+            return a + torch.matmul(w_t, flat)  # [n,n]@[n,d], f32
+
+        acc = tree_map(leaf_acc, acc, states_t.params, plan)
+        carry = (states_t.opt_state, states_t.rng, states_t.step, acc)
+        return carry, tm["loss"]
+
+    return body
+
+
+def _slot_sum(a: torch.Tensor) -> torch.Tensor:
+    """``a[0] + a[1] + ...`` in slot order: the same bits on every
+    device (a reduction kernel's order is its own)."""
+    total = a[0]
+    for s in range(1, a.shape[0]):
+        total = total + a[s]
+    return total
+
+
+def _cross_device_leaf_out(keep: torch.Tensor, fused_accumulate: bool):
+    """Round end, per leaf: collapse the accumulator to the ``[n_slots,
+    ...]`` parameter stack, keeping the round-start params where the
+    round was empty or the slot dead."""
+
+    def leaf_out(a, p, use_k5):
+        if use_k5:
+            # the slot sum is the sum over all C x n_slots clients: the
+            # weights were normalized globally up front
+            out = _slot_sum(a).to(p.dtype).expand(p.shape)
+        elif fused_accumulate:
+            out = a.reshape(p.shape[1:]).to(p.dtype).expand(p.shape)
+        else:
+            out = a.reshape(p.shape).to(p.dtype)
+        return _where_node(keep, out, p)
+
+    return leaf_out
+
+
+def _ordered_chunk_sum(parts: list) -> Any:
+    """Sum per-chunk accumulator trees chunk 0 first."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = tree_map(lambda a, b: a + b, total, part)
+    return total
+
+
+def _clone_generator(g: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=g.device)
+    out.set_state(g.get_state())
+    return out
+
+
+def _finish_round(fed: FederatedState, params0: Params, carry, got_any,
+                  fused_accumulate: bool) -> FederatedState:
+    opt_state, rng, step, acc = carry
+    plan = _cross_device_plan(params0, fused_accumulate)
+    # an empty round (every sampled client dead) keeps the global model
+    keep = torch.logical_and(fed.alive, got_any)
+    params = tree_map(_cross_device_leaf_out(keep, fused_accumulate), acc,
+                      params0, plan)
+    return FederatedState(
+        states=TrainState(params=params, opt_state=opt_state, rng=rng,
+                          step=step),
+        alive=fed.alive,
+        round=fed.round + 1,
+    )
+
+
+def build_round_fn_cross_device(
+    fns: StepFns,
+    epochs: int = 1,
+    exchange_dtype: torch.dtype | None = None,
+    fused_accumulate: bool = True,
+    cohort_shards: int = 1,
+) -> Callable:
+    """The cross-device round: ``round_fn(fed, cx, cy, cmask, c_sizes,
+    c_alive) -> (fed, metrics)`` over cohort-stacked data ``cx [C,
+    n_slots, S, ...]``, ``cy/cmask [C, n_slots, S]``, ``c_sizes/c_alive
+    [C, n_slots]``. ``fed`` holds the global model on every slot.
+
+    Each of the C cohort steps trains its cohort from the round-start
+    params; the optimizer state, the shuffle generator and the step
+    count carry from step to step and persist into the next round. The
+    FedAvg aggregate sums all ``C x n_slots`` clients against the
+    globally normalized weights ``wn = w / max(sum(w), 1e-9)``:
+
+    - ``fused_accumulate=True``: per leaf and step, K5's null form
+      ``acc[s] += wn[s] * p[s]`` into per-slot f32 accumulators, summed
+      over slots in slot order at round end. This re-associates the
+      reference's contraction (slots, then steps), so it agrees with it
+      to f32 rounding, not bit for bit.
+    - ``fused_accumulate=False``: the reference, ``acc += W_t @ flat_t``
+      with ``W_t`` the step's weights on every row, one f32 matmul.
+
+    A sampled-but-dead client trains nothing (update gate 0: its params
+    stay ``params0``, its momentum decays, its step is kept) and
+    carries zero weight. ``exchange_dtype`` (bf16) rounds each slot's
+    params entering the accumulate.
+
+    ``cohort_shards = D > 1`` splits the C steps into D contiguous
+    chunks, each run from the same round-start carry (a copy of the
+    generator's state included); the final optimizer state, generator
+    and step are the last chunk's, and the chunks' accumulators are
+    summed chunk 0 first. The chunks run one after another on the one
+    device (the JAX package's single-device arm); sharding them over
+    several cards is ROADMAP item A24.
+    """
+    if cohort_shards < 1:
+        raise ValueError(f"cohort_shards must be >= 1, got {cohort_shards}")
+
+    def round_fn(fed: FederatedState, cx, cy, cmask, c_sizes, c_alive):
+        params0 = fed.states.params
+        wn, got_any = cross_device_wn(c_sizes, c_alive)
+        plan = _cross_device_plan(params0, fused_accumulate)
+        body = _cross_device_body(fns, epochs, exchange_dtype,
+                                  fused_accumulate, params0, plan)
+        n_cohorts = cx.shape[0]
+        if n_cohorts % cohort_shards:
+            raise ValueError(
+                f"cohort_size {n_cohorts} not divisible by "
+                f"cohort_shards {cohort_shards}")
+        per = n_cohorts // cohort_shards
+        opt0, rng0, step0 = (fed.states.opt_state, fed.states.rng,
+                             fed.states.step)
+        carries, losses = [], []
+        for chunk in range(cohort_shards):
+            rng = rng0 if cohort_shards == 1 else _clone_generator(rng0)
+            carry = (opt0, rng, step0,
+                     _cross_device_acc0(params0, fused_accumulate, plan))
+            for t in range(chunk * per, (chunk + 1) * per):
+                carry, loss = body(carry, cx[t], cy[t], cmask[t],
+                                   c_alive[t], wn[t])
+                losses.append(loss)
+            carries.append(carry)
+        acc = _ordered_chunk_sum([c[3] for c in carries])
+        final = carries[-1][:3] + (acc,)
+        fed = _finish_round(fed, params0, final, got_any, fused_accumulate)
+        return fed, {"train_loss": torch.stack(losses), "alive": fed.alive}
+
+    return round_fn
+
+
+def build_cross_device_stream_fns(
+    fns: StepFns,
+    epochs: int = 1,
+    exchange_dtype: torch.dtype | None = None,
+    fused_accumulate: bool = True,
+) -> tuple[Callable, Callable, Callable]:
+    """The cross-device round unrolled for streamed client data:
+    ``(init_carry, step, finalize)``, so the host can fill cohort t+1
+    while the device trains cohort t.
+
+    ``step(params0, carry, x_t, y_t, m_t, alive_t, wn_t) -> (carry,
+    loss)`` is one step of the same body the materialized round runs,
+    with ``wn_t`` a row of :func:`cross_device_wn` over the whole round,
+    so a streamed round equals ``build_round_fn_cross_device`` at
+    ``cohort_shards=1`` bit for bit. ``finalize(fed, carry, got_any)``
+    runs the round-end epilogue and advances the round counter.
+    """
+
+    def init_carry(fed: FederatedState):
+        params0 = fed.states.params
+        plan = _cross_device_plan(params0, fused_accumulate)
+        return (fed.states.opt_state, fed.states.rng, fed.states.step,
+                _cross_device_acc0(params0, fused_accumulate, plan))
+
+    def step(params0, carry, x_t, y_t, m_t, alive_t, wn_t):
+        plan = _cross_device_plan(params0, fused_accumulate)
+        body = _cross_device_body(fns, epochs, exchange_dtype,
+                                  fused_accumulate, params0, plan)
+        return body(carry, x_t, y_t, m_t, alive_t, wn_t)
+
+    def finalize(fed: FederatedState, carry, got_any):
+        return _finish_round(fed, fed.states.params, carry, got_any,
+                             fused_accumulate)
+
+    return init_carry, step, finalize
 
 
 def build_eval_fn(fns: StepFns) -> Callable:

@@ -12,8 +12,9 @@ installed.)
 Shapes are the FEMNIST CNN's widths at a reduced batch (ragged row
 counts included). Tolerances: bf16 outputs (K1, K3) one bf16 ulp of an
 f32 sum, rtol 2**-7 and atol 1e-2; f32 sums (K2) rtol 1e-4 and atol
-1e-2, and two runs bit-identical (no atomics); the SGD step (K4) the
-same bits as its plain version, and at gate 0 the params unchanged.
+1e-2, and two runs bit-identical (no atomics); the SGD step (K4) and
+the SGD step with the FedAvg accumulate and its null form (K5) the same
+bits as their plain versions, and at gate 0 the params unchanged.
 """
 
 from __future__ import annotations
@@ -104,3 +105,49 @@ def test_autograd_functions_run_the_kernels(dev):
     for a, b in ((gx, hx), (gw, hw)):
         rel = (a.float() - b.float()).norm() / b.float().norm()
         assert rel < 2.0 ** -7
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3136, 2048), (62,), (5, 5, 32, 64)])
+def test_fedavg_accum_matches_plain_bits(dev, shape, pdt):
+    n = 8
+    p = _rand(dev, 12, n, *shape, dtype=pdt)
+    acc = _rand(dev, 13, n, *shape, dtype=torch.float32)
+    w = torch.rand(n, device=dev) / n
+    before = gemm.launches["fedavg_accum"]
+    got = gemm.fedavg_accum(p, acc, w)
+    assert gemm.launches["fedavg_accum"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == acc.shape
+    assert torch.equal(got, gemm.fedavg_accum_plain(p, acc, w))
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trace", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3136, 64), (62,), (5, 5, 32, 64)])
+def test_sgd_accum_acc_matches_plain_bits_and_gate_zero(dev, shape, trace,
+                                                        pdt):
+    n = 4
+    p = _rand(dev, 14, n, *shape, dtype=pdt)
+    m = _rand(dev, 15, n, *shape, dtype=trace)
+    g = _rand(dev, 16, n, *shape, dtype=pdt)
+    acc = _rand(dev, 17, n, *shape, dtype=torch.float32)
+    lr = torch.tensor([0.05, 0.0, 0.1, 0.0], device=dev)
+    w = torch.tensor([0.1, 0.2, 0.3, 0.4], device=dev)
+    before = gemm.launches["sgd_accum_acc"]
+    got = gemm.sgd_accum(p, m, g, lr, momentum=0.9, acc=acc, weight=w)
+    assert gemm.launches["sgd_accum_acc"] == before + 1
+    want = gemm.sgd_accum_plain(p, m, g, lr, momentum=0.9, acc=acc,
+                                weight=w)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    off = lr == 0
+    assert torch.equal(got[0][off], p[off])
+
+
+def test_k5_wrappers_raise_on_mixed_devices(dev):
+    p = torch.zeros(2, 8, device=dev)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        gemm.fedavg_accum(p, torch.zeros(2, 8), torch.ones(2, device=dev))
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        gemm.sgd_accum(p, p, p, torch.ones(2, device=dev), momentum=0.9,
+                       acc=p, weight=torch.ones(2))
