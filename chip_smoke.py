@@ -8,11 +8,15 @@ one, or when run outside a checkout of this repository). Phases:
 1. Device: the card's name and power limit; the kernels are built from
    ``p2pfl_tpu_torch/ops/csrc`` (the build time is printed).
 2. Kernels: each hand-written kernel (K1 stream_gemm, K2 stream_wgrad,
-   K3 dense_bwd, K4 sgd_accum, K5 sgd_accum(acc=)/fedavg_accum) at the
-   FEMNIST-CNN shapes of its path (8 nodes x 336 samples; K5 every leaf
-   at 8 slots), held against its plain PyTorch version on the same
-   inputs with a stated tolerance, and timed with CUDA events beside the
-   plain version, one PyTorch library call, and the card's bound.
+   K3 dense_bwd, K4 sgd_accum, K5 sgd_accum(acc=)/fedavg_accum, K6
+   fused_mlp_train_epoch) at the shapes of its path (8 nodes x 336
+   FEMNIST-CNN samples; K5 every leaf at 8 slots; K6 64 nodes of
+   mnist-mlp at full width, 19 steps of 32 MNIST-surrogate rows, plus
+   one step, a shard shorter than a batch and the ragged-rows refusal),
+   held against its plain PyTorch version on the same inputs with a
+   stated tolerance (K6 also twice, bit for bit), and timed with CUDA
+   events beside the plain version, one PyTorch library call where
+   there is one, and the card's bound.
 3. End to end, the stacked federation: the port's ``Scenario`` on the
    full-width FEMNIST CNN, 8 nodes on a ring, DFL, FedAvg, bf16 wire,
    750 samples a node, batch 336, 3 rounds on the seeded synthetic
@@ -32,7 +36,20 @@ one, or when run outside a checkout of this repository). Phases:
    profiled. Then the JAX package's own cross-device headline shape
    (mnist-mlp, 10,000 clients, 256 a round, cohorts of 32) for 2
    rounds: the second round's wall time and clients per second.
-5. One JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
+5. The fused-epoch path: 5 epochs of ``fused_mlp_train_epoch`` at K6's
+   headline shape, the launch count zeroed before and read after (it
+   must be 5); the mean loss must fall below 0.8 of the first epoch's.
+6. Byzantine DFL (the JAX bench's robustness configuration): the
+   port's ``Scenario`` on the full-width FEMNIST CNN, 16 nodes fully
+   connected, DFL, iid, 256 samples a node, batch 64, lr 0.05, bf16
+   wire, 4 sign-flippers at scale 10, 3 rounds each under FedAvg (clean
+   and attacked), Krum(f=4, m=8), TrimmedMean(beta=4), FedMedian and
+   reputation-weighted FedAvg; K1-K4 must launch in every variant, the
+   defended params stay finite, reputation must cut off exactly the
+   attackers after round 1, and the robust aggregators must reach at
+   least the attacked FedAvg's accuracy. One TrimmedMean round on a
+   16-node ring runs the per-row branch.
+7. One JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
    "device": {...}}``. With ``--out DIR`` the per-instance kernel
    numbers and the profiles are also written there as JSON.
 
@@ -53,6 +70,20 @@ N_NODES, BATCH = 8, 336
 # the kernels each main path runs
 DENSE_PATH = ("stream_gemm", "stream_wgrad", "dense_bwd", "sgd_accum")
 CROSS_PATH = DENSE_PATH + ("fedavg_accum",)
+# K6's headline shape: 64 nodes of mnist-mlp, 19 steps of 32, lr 0.05
+MLP_NODES, MLP_ROWS, MLP_BATCH, MLP_LR = 64, 608, 32, 0.05
+# K6 tolerance. Exact where the two versions start from one state: at
+# one step and on a short shard, every element within the JAX test's
+# rtol 2e-4 / atol 2e-5 (they agree to about 1e-7). Over 19 steps a
+# ReLU whose pre-activation lies within the two versions' rounding
+# difference (about 1e-6) of zero takes the other gate in one of them,
+# and that unit's weight column, bias and trace train on from there: at
+# most 1e-3 of a leaf's elements may then lie outside rtol 2e-4 / atol
+# 2e-5, none more than 1e-2 off, and each leaf within relative L2 5e-3;
+# the loss stays within rtol 1e-4 / atol 1e-5.
+K6_TOL = dict(rtol=2e-4, atol=2e-5)
+K6_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
+K6_FLIP_FRACTION, K6_FLIP_ATOL, K6_FLIP_REL_L2 = 1e-3, 1e-2, 5e-3
 FEMNIST_CNN_LEAVES = {
     "Conv_0.kernel": (5, 5, 1, 32), "Conv_0.bias": (32,),
     "Conv_1.kernel": (5, 5, 32, 64), "Conv_1.bias": (64,),
@@ -283,11 +314,111 @@ def kernel_checks(dev, peak) -> dict:
             del p, gr, m, acc, kp, km, ka, pp, pm, pa
     torch.cuda.empty_cache()
 
+    # K6 fused_mlp_train_epoch at its headline shape (f32 products: the
+    # card's non-tensor f32 peak), then one step, a short shard and the
+    # ragged-rows refusal on the card
+    from p2pfl_tpu_torch.ops import fused_train
+
+    params, mom, bx, by = mlp_epoch_inputs(dev)
+    n6, rows6, d_in = bx.shape
+    steps = rows6 // MLP_BATCH
+
+    def epoch(fn, p=params, x=bx, y=by, batch=MLP_BATCH):
+        return fn(p, mom, x, y, MLP_LR, 0.9, batch_size=batch)
+
+    got = epoch(fused_train.fused_mlp_train_epoch)
+    again = epoch(fused_train.fused_mlp_train_epoch)
+    if not all(torch.equal(a, b) for a, b in zip(
+            got[0] + got[1] + (got[2],), again[0] + again[1] + (again[2],))):
+        fail("fused_mlp_train_epoch is not deterministic")
+    err, ok, flips = k6_compare(got, epoch(
+        fused_train.fused_mlp_train_epoch_plain), multi_step=True)
+    print(f"  fused_mlp_train_epoch: two runs bit-identical; elements off "
+          f"the elementwise tolerance per leaf {flips}", flush=True)
+    for inst, x, y, batch in (
+            ("one_step", bx[:, :MLP_BATCH], by[:, :MLP_BATCH], MLP_BATCH),
+            ("short_shard", bx[:, :20], by[:, :20], MLP_BATCH)):
+        x, y = x.contiguous(), y.contiguous()
+        e, o, _ = k6_compare(
+            epoch(fused_train.fused_mlp_train_epoch, x=x, y=y, batch=batch),
+            epoch(fused_train.fused_mlp_train_epoch_plain, x=x, y=y,
+                  batch=batch), multi_step=False)
+        print(f"  fused_mlp_train_epoch {inst}: max_abs_err {e:.3g} "
+              f"{'ok' if o else 'FAIL'}", flush=True)
+        if not o:
+            fail(f"fused_mlp_train_epoch {inst} outside tolerance")
+    try:
+        epoch(fused_train.fused_mlp_train_epoch, x=bx[:, :40].contiguous(),
+              y=by[:, :40].contiguous())
+        fail("fused_mlp_train_epoch took 40 rows at batch 32")
+    except ValueError:
+        pass
+    n_par = sum(int(t[0].numel()) for t in params)
+    d1, d2, n_cls = params[0].shape[2], params[2].shape[2], params[4].shape[2]
+    flops = n6 * steps * (2 * MLP_BATCH * (2 * d_in * d1 + 3 * d1 * d2
+                                           + 3 * d2 * n_cls) + 4 * n_par)
+    nbytes = n6 * (4 * 4 * n_par + rows6 * (4 * d_in + 4) + 4)
+    record("fused_mlp_train_epoch", "mnist_mlp_64x19x32", err, ok,
+           "K6_TOL/K6_FLIP_*",
+           time_ms(lambda: epoch(fused_train.fused_mlp_train_epoch), reps=10),
+           time_ms(lambda: epoch(fused_train.fused_mlp_train_epoch_plain),
+                   reps=10),
+           None, nbytes, flops, f32_peak)
+    del params, mom, bx, by, got, again
+    torch.cuda.empty_cache()
+
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail("kernels outside tolerance: " + ", ".join(
             f"{r['kernel']}/{r['instance']}" for r in bad))
     return rows
+
+
+def mlp_epoch_inputs(dev):
+    """K6's headline inputs: 64 mnist-mlp nodes at full width from the
+    port's init (node i from seed i) through ``mlp_params_to_tuple``,
+    zero momentum, and 608 rows a node of the seeded MNIST surrogate."""
+    import numpy as np
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_map
+    from p2pfl_tpu_torch.datasets.sources import get_dataset
+    from p2pfl_tpu_torch.models.base import get_model
+    from p2pfl_tpu_torch.ops.fused_train import mlp_params_to_tuple
+
+    n, rows = MLP_NODES, MLP_ROWS
+    data = get_dataset("mnist", seed=0, synthetic_sizes=(n * rows, 4000))
+    bx = torch.from_numpy(data.x_train.reshape(n, rows, -1)).to(dev)
+    by = torch.from_numpy(
+        data.y_train.reshape(n, rows, 1).astype(np.int32)).to(dev)
+    model = get_model("mnist-mlp")
+    trees = [model.init(torch.Generator().manual_seed(i),
+                        torch.zeros(1, 28, 28, 1)) for i in range(n)]
+    stacked = tree_map(lambda *leaves: torch.stack(leaves).to(dev), *trees)
+    params = tuple(t.contiguous() for t in mlp_params_to_tuple(stacked))
+    return params, tuple(torch.zeros_like(t) for t in params), bx, by
+
+
+def k6_compare(got, want, multi_step: bool):
+    """K6 against its plain version under the K6 tolerance (see K6_TOL):
+    (max |error| over params and trace, ok, per-leaf count of elements
+    off the elementwise tolerance)."""
+    (kp, km, kl), (pp, pm, pl) = got, want
+    err, ok, flips = 0.0, True, []
+    for a, b in zip(kp + km, pp + pm):
+        d = (a - b).abs()
+        off = int((d > K6_TOL["atol"] + K6_TOL["rtol"] * b.abs()).sum())
+        flips.append(off)
+        err = max(err, float(d.max()))
+        if not multi_step:
+            ok = ok and off == 0
+            continue
+        rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        ok = ok and (off <= K6_FLIP_FRACTION * a.numel()
+                     and float(d.max()) <= K6_FLIP_ATOL
+                     and rel <= K6_FLIP_REL_L2)
+    e_loss, ok_loss = within(kl, pl, **K6_LOSS_TOL)
+    return max(err, e_loss), ok and ok_loss, flips
 
 
 # ---------------------------------------------------------------------------
@@ -632,6 +763,153 @@ def crossdev_headline(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the fused-epoch path; phase 6: Byzantine DFL
+# ---------------------------------------------------------------------------
+
+
+def fused_epoch_path(dev) -> int:
+    """5 epochs of ``fused_mlp_train_epoch`` at K6's headline shape,
+    each from the last one's params and momentum; returns the launches."""
+    import torch
+
+    from p2pfl_tpu_torch.ops import gemm
+    from p2pfl_tpu_torch.ops.fused_train import fused_mlp_train_epoch
+
+    params, mom, bx, by = mlp_epoch_inputs(dev)
+    losses, times = [], []
+    gemm.reset_launches()
+    for _ in range(5):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, mom, loss = fused_mlp_train_epoch(
+            params, mom, bx, by, MLP_LR, 0.9, batch_size=MLP_BATCH)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.mean()))
+    launches = gemm.launches["fused_mlp_train_epoch"]
+    print(f"  epoch wall times (s) {[round(t, 5) for t in times]}; mean "
+          f"loss {[round(v, 4) for v in losses]}; launches {launches}",
+          flush=True)
+    if launches != 5:
+        fail(f"fused_mlp_train_epoch launched {launches} times in 5 epochs")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite fused-epoch loss {losses}")
+    if not losses[-1] < 0.8 * losses[0]:
+        fail(f"fused-epoch loss did not fall: {losses}")
+    if not all(bool(torch.isfinite(t).all()) for t in params + mom):
+        fail("fused-epoch params are not finite")
+    return launches
+
+
+def byzantine_config(aggregator="fedavg", aggregator_kwargs=None,
+                     attack=True, reputation=False, topology="fully"):
+    """The JAX bench's robustness configuration (``bench.py``'s
+    ``_phase_robust``): FEMNIST CNN at full width, 16 nodes, DFL, iid,
+    256 samples a node, batch 64, lr 0.05, bf16 wire, a quarter of the
+    nodes sign-flipping at scale 10; every node trains every round (the
+    bench's plan: no train-set vote cap); 3 rounds, evaluated at the
+    end."""
+    from p2pfl_tpu_torch.config.schema import (
+        AdversaryConfig,
+        DataConfig,
+        ModelConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+
+    return ScenarioConfig(
+        name="femnist-cnn-byzantine-16",
+        federation="DFL",
+        topology=topology,
+        n_nodes=16,
+        data=DataConfig(dataset="femnist", partition="iid",
+                        samples_per_node=256, batch_size=64, seed=0),
+        model=ModelConfig(model="femnist-cnn"),
+        training=TrainingConfig(rounds=3, epochs_per_round=1,
+                                learning_rate=0.05, eval_every=0),
+        protocol={"train_set_size": 0},
+        aggregator=aggregator,
+        aggregator_kwargs=aggregator_kwargs or {},
+        adversary=AdversaryConfig(
+            fraction=0.25 if attack else 0.0,
+            kind="signflip" if attack else "none", scale=10.0, seed=0,
+            reputation=reputation),
+        transport="dense",
+        wire_dtype="bf16",
+        seed=0,
+    )
+
+
+def byzantine(dev) -> None:
+    import numpy as np
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+    from p2pfl_tpu_torch.datasets.data import FederatedDataset
+    from p2pfl_tpu_torch.federation.scenario import Scenario
+    from p2pfl_tpu_torch.ops import gemm
+
+    base = byzantine_config()
+    data = FederatedDataset.make(base.data, base.n_nodes)
+    variants = [
+        ("clean_fedavg", dict(attack=False)),
+        ("signflip_fedavg", {}),
+        ("signflip_krum", dict(aggregator="krum",
+                               aggregator_kwargs={"f": 4, "m": 8})),
+        ("signflip_trimmedmean", dict(aggregator="trimmedmean",
+                                      aggregator_kwargs={"beta": 4})),
+        ("signflip_fedmedian", dict(aggregator="fedmedian")),
+        ("signflip_repfedavg", dict(reputation=True)),
+    ]
+    acc = {}
+    for key, kw in variants:
+        cfg = byzantine_config(**kw)
+        sc = Scenario(cfg, dataset=data, device=dev)
+        gemm.reset_launches()
+        res = sc.run()
+        torch.cuda.synchronize(dev)
+        launches = dict(gemm.launches)
+        acc[key] = res.final_accuracy
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in tree_leaves(sc.fed.states.params))
+        print(f"  {key:22s} s/round {[round(t, 4) for t in res.round_times_s]}"
+              f" test accuracy {res.final_accuracy:.4f} finite {finite} "
+              f"malicious {np.flatnonzero(sc.malicious).tolist()}",
+              flush=True)
+        missing = [k for k in DENSE_PATH if launches[k] <= 0]
+        if missing:
+            fail(f"{key}: kernels never launched: {missing}")
+        if key != "signflip_fedavg" and not finite:
+            fail(f"{key}: params are not finite")
+        if cfg.adversary.reputation:
+            trust = np.asarray(res.history[0]["trust"])
+            cut = cfg.adversary.reputation_cutoff
+            print(f"  trust after round 1 {np.round(trust, 4).tolist()} "
+                  f"(cutoff {cut})", flush=True)
+            if not (np.all(trust[sc.malicious] < cut)
+                    and np.all(trust[~sc.malicious] > cut)):
+                fail("reputation did not cut off exactly the attackers")
+        del sc
+        torch.cuda.empty_cache()
+    for key in ("signflip_krum", "signflip_trimmedmean", "signflip_fedmedian"):
+        if not acc[key] >= acc["signflip_fedavg"]:
+            fail(f"{key} accuracy {acc[key]} below undefended FedAvg's "
+                 f"{acc['signflip_fedavg']}")
+
+    # the per-row branch: TrimmedMean on a 16-node ring, one round
+    cfg = byzantine_config(aggregator="trimmedmean",
+                           aggregator_kwargs={"beta": 4}, topology="ring")
+    sc = Scenario(cfg, dataset=data, device=dev)
+    res = sc.run(rounds=1)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves(sc.fed.states.params))
+    print(f"  ring per-row trimmedmean: {res.round_times_s[0]:.4f} s, "
+          f"finite {finite}", flush=True)
+    if not finite:
+        fail("the per-row TrimmedMean round is not finite")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -685,6 +963,16 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     crossdev_headline(dev)
     launches["fedavg_accum"] = cross_launches["fedavg_accum"]
+    torch.cuda.empty_cache()
+
+    print("[5] the fused-epoch path: 5 epochs, 64 mnist-mlp nodes, 19 "
+          "steps of 32", flush=True)
+    launches["fused_mlp_train_epoch"] = fused_epoch_path(dev)
+    torch.cuda.empty_cache()
+
+    print("[6] Byzantine DFL: FEMNIST CNN, 16 nodes fully connected, 4 "
+          "sign-flippers, 3 rounds a variant", flush=True)
+    byzantine(dev)
 
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
@@ -692,6 +980,7 @@ def main(argv: list[str] | None = None) -> int:
         "dense_bwd": "p2pfl_tpu/ops/pallas_gemm.py:249",
         "sgd_accum": "p2pfl_tpu/ops/pallas_gemm.py:384",
         "fedavg_accum": "p2pfl_tpu/ops/pallas_gemm.py:408",
+        "fused_mlp_train_epoch": "p2pfl_tpu/ops/fused_train.py:167",
     }
     sources = {
         "stream_gemm": "p2pfl_tpu_torch/ops/csrc/stream_gemm.cu",
@@ -699,12 +988,14 @@ def main(argv: list[str] | None = None) -> int:
         "dense_bwd": "p2pfl_tpu_torch/ops/csrc/dense_bwd.cu",
         "sgd_accum": "p2pfl_tpu_torch/ops/csrc/sgd.cu",
         "fedavg_accum": "p2pfl_tpu_torch/ops/csrc/sgd_accum.cu",
+        "fused_mlp_train_epoch": "p2pfl_tpu_torch/ops/csrc/fused_train.cu",
     }
     kernels = []
     for k in replaces:
-        # per training step (K5: per cohort step): the sum over the
-        # instances the path runs; launches from the path's own run (K1-K4
-        # the stacked federation, K5 the cross-device round)
+        # per training step (K5: per cohort step; K6: per epoch): the sum
+        # over the instances the path runs; launches from the path's own
+        # run (K1-K4 the stacked federation, K5 the cross-device round, K6
+        # the fused-epoch path)
         mine = [r for r in rows if r["kernel"] == k and r["on_path"]]
         top = max(mine, key=lambda r: r["bound_ms"])
         kernels.append({
@@ -715,7 +1006,9 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": top["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in mine),
+            "library_ms": (None if any(r["library_ms"] is None
+                                       for r in mine)
+                           else sum(r["library_ms"] for r in mine)),
         })
     if args.out is not None:
         (args.out / "chip_smoke_rows.json").write_text(

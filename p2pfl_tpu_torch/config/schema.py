@@ -3,18 +3,17 @@
 The counterpart of ``p2pfl_tpu/config/schema.py``. ``DataConfig``,
 ``ModelConfig``, ``TrainingConfig`` and ``NodeConfig`` are copies of the
 JAX package's dataclasses (they import nothing but the standard
-library), and so is ``CrossDeviceConfig`` with all its validation.
-``ScenarioConfig`` has the same fields, so ``ScenarioConfig.load``
-reads a scenario file that ``p2pfl_tpu`` wrote. The combinations the
-JAX package refuses with the cross-device regime raise the same
-``ValueError`` here, before anything else is checked. The sections
-this port does not run yet (adversary, privacy, lora, elastic, faults,
-the sparse transport, the staged exchange, robust aggregators, other
-optimizers and objectives, checkpoints, metric logging and the socket
-plane) are kept as plain dicts and rejected in ``__post_init__`` with
-a ``NotImplementedError`` that names the ``ROADMAP.md`` item that
-ports them: a scenario the port would silently run differently never
-starts.
+library), and so are ``CrossDeviceConfig`` and ``AdversaryConfig``
+with all their validation. ``ScenarioConfig`` has the same fields, so
+``ScenarioConfig.load`` reads a scenario file that ``p2pfl_tpu`` wrote.
+The combinations the JAX package refuses with the cross-device regime
+raise the same ``ValueError`` here, before anything else is checked.
+The sections this port does not run yet (privacy, lora, elastic,
+faults, the sparse transport, the staged exchange, other optimizers
+and objectives, checkpoints, metric logging and the socket plane) are
+kept as plain dicts and rejected in ``__post_init__`` with a
+``NotImplementedError`` that names the ``ROADMAP.md`` item that ports
+them: a scenario the port would silently run differently never starts.
 """
 
 from __future__ import annotations
@@ -170,6 +169,43 @@ class CrossDeviceConfig:
         return self.clients_per_round // self.cohort_size
 
 
+@dataclasses.dataclass
+class AdversaryConfig:
+    """Attack injection and the reputation defense (a copy of the JAX
+    package's class): ``fraction`` of the nodes (drawn from ``seed``;
+    ``nodes`` lists explicit indices instead) apply attack ``kind`` at
+    strength ``scale``; ``reputation`` turns on trust-weighted
+    aggregation with EWMA ``reputation_alpha`` and hard cutoff
+    ``reputation_cutoff``."""
+
+    fraction: float = 0.0
+    kind: str = "none"  # none|signflip|scale|noise|freerider|labelflip
+    scale: float = 10.0
+    seed: int = 0
+    nodes: list[int] = dataclasses.field(default_factory=list)
+    reputation: bool = False
+    reputation_alpha: float = 0.7
+    reputation_cutoff: float = 0.15
+
+    def __post_init__(self):
+        known = ("none", "signflip", "scale", "noise", "freerider",
+                 "labelflip")
+        if self.kind not in known:
+            raise ValueError(
+                f"unknown attack kind {self.kind!r}; have {known}"
+            )
+        if not 0.0 <= self.fraction <= 1.0:
+            raise ValueError(
+                f"adversary fraction must be in [0, 1], got {self.fraction}"
+            )
+
+    @property
+    def active(self) -> bool:
+        return self.kind != "none" and (
+            self.fraction > 0.0 or bool(self.nodes)
+        )
+
+
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to p2pfl_tpu_torch yet "
@@ -199,9 +235,10 @@ class ScenarioConfig:
     protocol: dict[str, Any] = dataclasses.field(default_factory=dict)
     aggregator: str = "fedavg"
     aggregator_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
+    adversary: AdversaryConfig = dataclasses.field(
+        default_factory=AdversaryConfig)
     # sections this port does not run: plain dicts, checked below
     network: dict[str, Any] = dataclasses.field(default_factory=dict)
-    adversary: dict[str, Any] = dataclasses.field(default_factory=dict)
     elastic: dict[str, Any] = dataclasses.field(default_factory=dict)
     cross_device: CrossDeviceConfig = dataclasses.field(
         default_factory=CrossDeviceConfig)
@@ -252,10 +289,7 @@ class ScenarioConfig:
         combination the JAX package refuses is refused the same way."""
         if not self.cross_device.active:
             return
-        adv = self.adversary
-        if (adv.get("kind", "none") != "none"
-                and (adv.get("fraction", 0.0) > 0.0 or adv.get("nodes"))
-                or adv.get("reputation", False)):
+        if self.adversary.active or self.adversary.reputation:
             raise ValueError(
                 "cross_device composes with no adversary/reputation "
                 "config yet: sampled clients are stateless rows, so "
@@ -292,12 +326,6 @@ class ScenarioConfig:
             )
 
     def _reject_unported(self) -> None:
-        adv = self.adversary
-        if (adv.get("kind", "none") != "none"
-                and (adv.get("fraction", 0.0) > 0.0 or adv.get("nodes"))):
-            raise _unported("adversary (attack injection)", "A6")
-        if adv.get("reputation", False):
-            raise _unported("adversary.reputation", "A6")
         if self.privacy.get("dp", False):
             raise _unported("privacy.dp (DP-FedAvg)", "A7")
         if self.privacy.get("secagg", False):
@@ -315,9 +343,6 @@ class ScenarioConfig:
             raise _unported("transport='sparse'", "A12")
         if self.exchange_overlap == "staged":
             raise _unported("exchange_overlap='staged'", "A13")
-        if self.aggregator.lower().replace("_", "").replace("-", "") \
-                != "fedavg" or self.aggregator_kwargs:
-            raise _unported(f"aggregator {self.aggregator!r}", "A14")
         if self.training.optimizer.lower() != "sgd":
             raise _unported(f"optimizer {self.training.optimizer!r}", "A15")
         if self.model.objective != "classification":
@@ -369,6 +394,7 @@ class ScenarioConfig:
             ("data", DataConfig),
             ("model", ModelConfig),
             ("training", TrainingConfig),
+            ("adversary", AdversaryConfig),
             ("cross_device", CrossDeviceConfig),
         ]:
             if field in d and isinstance(d[field], dict):

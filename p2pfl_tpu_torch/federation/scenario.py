@@ -3,9 +3,12 @@
 The counterpart of ``p2pfl_tpu/federation/scenario.py`` for what this
 port runs:
 
-- ``Scenario``: the dense FedAvg round over stacked nodes, DFL, CFL and
-  SDFL plans, the train-set vote cap, periodic evaluation, and
-  ``transport`` ``auto``/``dense`` (both mean the one dense mix here);
+- ``Scenario``: the dense round over stacked nodes, DFL, CFL and SDFL
+  plans, every registered aggregator (one shared robust aggregate for
+  CFL/SDFL and fully connected DFL), attack injection and label flips
+  on the malicious rows, reputation-weighted mixing, the train-set vote
+  cap, periodic evaluation, and ``transport`` ``auto``/``dense`` (both
+  mean the one dense mix here);
 - ``CrossDeviceScenario``: the sampled K-of-N cross-device regime, a
   cohort scan through ``n_slots`` slots, materialized or streamed.
 
@@ -27,8 +30,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from p2pfl_tpu_torch.adversary import (
+    AttackSpec,
+    ReputationMonitor,
+    flip_labels,
+    malicious_indices,
+)
 from p2pfl_tpu_torch.config.schema import ScenarioConfig
-from p2pfl_tpu_torch.core.aggregators import FedAvg
+from p2pfl_tpu_torch.core.aggregators import get_aggregator
 from p2pfl_tpu_torch.datasets.data import CrossDeviceData, FederatedDataset
 from p2pfl_tpu_torch.device import resolve_device
 from p2pfl_tpu_torch.federation.sampling import sample_cohorts
@@ -107,26 +116,56 @@ class Scenario:
         self.fns = _step_fns(self.model, config)
         self.topology = generate_topology(config.topology, n,
                                           **config.topology_kwargs)
+        self.aggregator = get_aggregator(config.aggregator,
+                                         **config.aggregator_kwargs)
         self.roles = [nc.role for nc in config.nodes]
         self.leader = next(
             (i for i, nc in enumerate(config.nodes)
              if nc.role in ("aggregator", "server")), 0)
         self._rng = np.random.default_rng(config.seed)
+        self._base_trains = np.array(
+            [r in ("trainer", "aggregator", "server") for r in self.roles])
+
+        # the malicious cohort, the attack and the trust monitor, from
+        # the config alone
+        adv = config.adversary
+        self.malicious = (
+            malicious_indices(n, adv.fraction, adv.seed, tuple(adv.nodes))
+            if adv.active else np.zeros(n, bool))
+        self.attack = (AttackSpec(kind=adv.kind, scale=adv.scale,
+                                  seed=adv.seed) if adv.active else None)
+        self.reputation = (
+            ReputationMonitor(n, alpha=adv.reputation_alpha,
+                              cutoff=adv.reputation_cutoff)
+            if adv.reputation else None)
 
         dev = self.device
         x, y, smask, nsamp = self.dataset.stacked()
+        if self.attack is not None and self.attack.kind == "labelflip":
+            # data poisoning: the malicious rows' train labels flip
+            y = np.array(y, copy=True)
+            for i in np.flatnonzero(self.malicious):
+                y[i] = flip_labels(y[i], self.dataset.num_classes)
         self._data_args = (
             torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
             torch.from_numpy(smask).to(dev), torch.from_numpy(nsamp).to(dev),
         )
         self._x_test = torch.from_numpy(self.dataset.x_test).to(dev)
         self._y_test = torch.from_numpy(self.dataset.y_test).to(dev)
+        # one shared robust aggregate where every aggregating row is the
+        # same: CFL/SDFL (the leader's row) and fully connected DFL
+        fully = bool(np.all(self.topology.adjacency | np.eye(n, dtype=bool)))
         self._round_fn = build_round_fn(
-            self.fns, aggregator=FedAvg(),
+            self.fns, aggregator=self.aggregator,
             epochs=config.training.epochs_per_round,
             exchange_dtype=_exchange_dtype(config),
+            shared_aggregate=(config.federation in ("CFL", "SDFL")
+                              or (config.federation == "DFL" and fully)),
             # DFL plans adopt their own row: the adopt gather is elided
             identity_adopt=config.federation == "DFL",
+            attack=self.attack,
+            malicious=self.malicious,
+            update_stats=self.reputation is not None,
         )
         self._eval_fn = build_eval_fn(self.fns)
         self.fed = init_federation(self.fns, torch.from_numpy(x[0, :1]), n,
@@ -169,8 +208,15 @@ class Scenario:
         plan = make_round_plan(self.topology, self.roles,
                                self.config.federation, self.leader)
         trains = plan.trains if trains_override is None else trains_override
+        mix = plan.mix
+        if self.reputation is not None:
+            # w = mix * n_samples: scaling column j by node j's trust
+            # reweights its contribution everywhere; a zeroed column is
+            # a masked row for the robust aggregators
+            mix = (mix.astype(np.float32)
+                   * self.reputation.weights_vector()[None, :])
         dev = self.device
-        return (torch.from_numpy(plan.mix).to(dev),
+        return (torch.from_numpy(mix).to(dev),
                 torch.from_numpy(plan.adopt).long().to(dev),
                 torch.from_numpy(trains).to(dev))
 
@@ -209,6 +255,16 @@ class Scenario:
             round_times.append(dt)
             rec = {"round": r, "round_time_s": dt,
                    "train_loss": metrics["train_loss"].double().cpu().tolist()}
+            if self.reputation is not None:
+                # round r ran on the trust of round r-1; fold in this
+                # round's scores for the next. Nodes that did not
+                # contribute keep their trust.
+                contrib = np.logical_and(
+                    self._base_trains if trains_vote is None
+                    else trains_vote, alive)
+                self.reputation.observe(
+                    metrics["trust_obs"].double().cpu().numpy(), contrib)
+                rec["trust"] = [float(t) for t in self.reputation.trust]
             if cfg.training.eval_every and (r + 1) % cfg.training.eval_every == 0:
                 ev = self.evaluate()
                 ev_round = r

@@ -186,6 +186,63 @@ torch::Tensor fedavg_accum(torch::Tensor p, torch::Tensor acc,
   return acc_out;
 }
 
+// K6: trains `state` (w0, b0, w1, b1, w2, b2 and their traces, f32, the
+// caller's copies) in place; returns the per-node mean loss.
+torch::Tensor fused_mlp_train_epoch(std::vector<torch::Tensor> state,
+                                    torch::Tensor bx, torch::Tensor by,
+                                    int64_t batch, double lr, double beta) {
+  TORCH_CHECK(state.size() == 12, "state holds 6 params and 6 traces");
+  check(bx, "bx", at::kFloat, 3);
+  TORCH_CHECK(by.is_cuda() && by.dim() == 3 && by.size(2) == 1 &&
+                  by.is_contiguous(),
+              "by must be a contiguous [n, rows, 1] CUDA tensor");
+  TORCH_CHECK(by.scalar_type() == at::kInt || by.scalar_type() == at::kLong,
+              "by must be int32 or int64, got ", by.scalar_type());
+  same_device(bx, by);
+  const int64_t n = bx.size(0), rows = bx.size(1), d_in = bx.size(2);
+  const int64_t d1 = state[0].size(-1), d2 = state[2].size(-1);
+  const int64_t C = state[4].size(-1);
+  const std::vector<std::vector<int64_t>> shapes = {
+      {n, d_in, d1}, {n, 1, d1}, {n, d1, d2}, {n, 1, d2}, {n, d2, C},
+      {n, 1, C}};
+  for (int i = 0; i < 12; ++i) {
+    check(state[i], "state", at::kFloat, 3);
+    same_device(bx, state[i]);
+    TORCH_CHECK(state[i].sizes() == at::IntArrayRef(shapes[i % 6]),
+                "fused epoch leaf ", i % 6, (i < 6 ? " (params)" : " (trace)"),
+                " has shape ", state[i].sizes(), ", want ",
+                at::IntArrayRef(shapes[i % 6]));
+  }
+  TORCH_CHECK(by.size(0) == n && by.size(1) == rows, "by shape ", by.sizes(),
+              " for bx ", bx.sizes());
+  TORCH_CHECK(batch > 0 && rows % batch == 0, "rows (", rows,
+              ") must be a positive multiple of batch (", batch, ")");
+  const c10::cuda::CUDAGuard guard(bx.device());
+  auto f32 = bx.options();
+  auto loss = torch::empty({n}, f32);
+  const int B = as_int(batch, "batch");
+  auto scratch = torch::empty(
+      {n, p2pfl::fused_mlp_scratch_floats(B, as_int(d1, "d1"),
+                                          as_int(d2, "d2"), as_int(C, "C"))},
+      f32);
+  float* params[6];
+  float* mom[6];
+  for (int i = 0; i < 6; ++i) {
+    params[i] = state[i].data_ptr<float>();
+    mom[i] = state[i + 6].data_ptr<float>();
+  }
+  p2pfl::launch_fused_mlp_epoch(
+      bx.data_ptr<float>(), by.data_ptr(),
+      by.scalar_type() == at::kLong ? 1 : 0, params, mom,
+      scratch.data_ptr<float>(), loss.data_ptr<float>(), as_int(n, "n"),
+      as_int(rows, "rows"), as_int(rows / batch, "steps"), B,
+      as_int(d_in, "d_in"), as_int(d1, "d1"), as_int(d2, "d2"),
+      as_int(C, "C"), static_cast<float>(lr), static_cast<float>(beta),
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return loss;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -195,4 +252,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sgd", &sgd, "K4: SGD-with-momentum step over [n, numel]");
   m.def("sgd_accum", &sgd_accum, "K5: K4 plus acc + w * p' over [n, numel]");
   m.def("fedavg_accum", &fedavg_accum, "K5 null form: acc + w * p");
+  m.def("fused_mlp_train_epoch", &fused_mlp_train_epoch,
+        "K6: one SGD-with-momentum epoch of a 3-layer MLP per node");
 }

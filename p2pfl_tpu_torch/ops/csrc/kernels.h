@@ -50,4 +50,17 @@ void launch_fedavg_accum(const void* p, const float* acc, const float* w,
                          float* acc_out, int p_bf16, long long n,
                          long long numel, cudaStream_t stream);
 
+// K6: one SGD-with-momentum epoch of a 3-layer ReLU MLP per node, over
+// n nodes. params / mom: 6 f32 tensors each (w0 [n,d_in,d1], b0 [n,d1],
+// w1 [n,d1,d2], b1 [n,d2], w2 [n,d2,C], b2 [n,C]), trained in place;
+// bx [n, rows, d_in] f32, by [n, rows] int32 (by_int64 = 0) or int64;
+// rows = steps * batch. `scratch` holds n * fused_mlp_scratch_floats(...)
+// floats; loss [n] receives each node's mean loss over the steps.
+long long fused_mlp_scratch_floats(int batch, int d1, int d2, int C);
+void launch_fused_mlp_epoch(const float* bx, const void* by, int by_int64,
+                            float* const* params, float* const* mom,
+                            float* scratch, float* loss, int n, int rows,
+                            int steps, int batch, int d_in, int d1, int d2,
+                            int C, float lr, float beta, cudaStream_t stream);
+
 }  // namespace p2pfl

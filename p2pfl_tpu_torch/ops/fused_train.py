@@ -1,0 +1,146 @@
+"""K6: one SGD-with-momentum epoch of a stack of 3-layer ReLU MLPs.
+
+The counterpart of ``p2pfl_tpu/ops/fused_train.py``. For every node of
+a stacked ``[n, ...]`` federation, one call runs a whole local epoch:
+for each of ``steps`` batches, the forward pass, softmax cross-entropy
+(mean over the batch), the backward pass, then ``m = beta * m + g`` and
+``p = p - lr * m`` on every leaf, biases included. The returned loss is
+each node's mean over the steps.
+
+- ``fused_mlp_train_epoch_plain``: the epoch in plain PyTorch, batched
+  over the node axis with ``torch.bmm`` in f32.
+- ``fused_mlp_train_epoch``: the wrapper. CPU tensors go to the plain
+  version; CUDA tensors go to the hand-written kernel
+  (``csrc/fused_train.cu``: one thread-block cluster per node, the
+  node's params and trace in the output tensors in device memory,
+  phases separated by cluster barriers) or raise. The kernel takes f32
+  params, trace and inputs and int32 or int64 labels.
+
+Layouts are the JAX package's: ``params`` and ``momentum_state`` are
+tuples ``(w0 [n,d_in,d1], b0 [n,1,d1], w1 [n,d1,d2], b1 [n,1,d2],
+w2 [n,d2,C], b2 [n,1,C])``, ``bx [n, steps*batch, d_in]`` and ``by
+[n, steps*batch, 1]``. ``mlp_params_to_tuple`` and
+``tuple_to_mlp_params`` bridge the port's stacked ``mnist-mlp`` tree.
+The JAX package never wires this epoch into a round; neither does the
+port: its path is its own entry point.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from p2pfl_tpu_torch.ops import _build
+from p2pfl_tpu_torch.ops.gemm import _on_cpu, launches
+
+__all__ = ["fused_mlp_train_epoch", "fused_mlp_train_epoch_plain",
+           "mlp_params_to_tuple", "tuple_to_mlp_params"]
+
+
+def _epoch_shape(rows: int, batch_size: int) -> tuple[int, int]:
+    """``(steps, batch)`` for ``rows`` rows a node: a shard smaller than
+    one batch is one step of all its rows; otherwise ``rows`` must be a
+    multiple of ``batch_size``."""
+    steps = rows // batch_size
+    if steps == 0:
+        steps, batch_size = 1, rows
+    if rows % batch_size:
+        raise ValueError(
+            f"data rows ({rows}) must be a multiple of batch_size "
+            f"({batch_size}) — pass the steps*batch truncation, or the "
+            "epoch would silently train at a different batch size")
+    return steps, batch_size
+
+
+def fused_mlp_train_epoch_plain(params, momentum_state, bx, by, lr: float,
+                                momentum: float = 0.9,
+                                batch_size: int = 32):
+    """The epoch in plain PyTorch (f32 products and sums); returns
+    ``(params', momentum', loss [n])``, each leaf in its input dtype."""
+    n, rows, _ = bx.shape
+    steps, b = _epoch_shape(rows, int(batch_size))
+    lr, beta = float(lr), float(momentum)
+    p = [t.float() for t in params]
+    m = [t.float() for t in momentum_state]
+    n_classes = p[4].shape[-1]
+    classes = torch.arange(n_classes, device=bx.device)
+    x_all, y_all = bx.float(), by[..., 0].long()
+    loss_sum = torch.zeros(n, dtype=torch.float32, device=bx.device)
+    for s in range(steps):
+        x = x_all[:, s * b:(s + 1) * b]
+        onehot = (classes == y_all[:, s * b:(s + 1) * b, None]).float()
+        w0, b0, w1, b1, w2, b2 = p
+        h0 = torch.relu(torch.bmm(x, w0) + b0)
+        h1 = torch.relu(torch.bmm(h0, w1) + b1)
+        z = torch.bmm(h1, w2) + b2
+        z = z - z.amax(-1, keepdim=True)
+        ez = torch.exp(z)
+        se = ez.sum(-1, keepdim=True)
+        logp = z - torch.log(se)
+        loss_sum = loss_sum + -(onehot * logp).sum((1, 2)) / b
+        dlogits = (ez / se - onehot) / b
+        dh1 = torch.bmm(dlogits, w2.transpose(1, 2)) * (h1 > 0)
+        dh0 = torch.bmm(dh1, w1.transpose(1, 2)) * (h0 > 0)
+        grads = (torch.bmm(x.transpose(1, 2), dh0), dh0.sum(1, keepdim=True),
+                 torch.bmm(h0.transpose(1, 2), dh1), dh1.sum(1, keepdim=True),
+                 torch.bmm(h1.transpose(1, 2), dlogits),
+                 dlogits.sum(1, keepdim=True))
+        m = [beta * mi + gi for mi, gi in zip(m, grads)]
+        p = [pi - lr * mi for pi, mi in zip(p, m)]
+    return (tuple(a.to(t.dtype) for a, t in zip(p, params)),
+            tuple(a.to(t.dtype) for a, t in zip(m, momentum_state)),
+            loss_sum / steps)
+
+
+def _check_kernel_operands(params, momentum_state, bx, by) -> None:
+    if len(params) != 6 or len(momentum_state) != 6:
+        raise ValueError("params and momentum_state are 6-tuples "
+                         "(w0, b0, w1, b1, w2, b2)")
+    for t in (*params, *momentum_state, bx):
+        if t.dtype != torch.float32:
+            raise ValueError(
+                f"the fused epoch kernel takes float32 params, trace and "
+                f"inputs, got {t.dtype} (other dtypes: ROADMAP.md queue A, "
+                "item A19)")
+    if by.dtype not in (torch.int32, torch.int64):
+        raise ValueError(
+            f"the fused epoch kernel takes int32 or int64 labels, got "
+            f"{by.dtype} (ROADMAP.md queue A, item A19)")
+
+
+def fused_mlp_train_epoch(params, momentum_state, bx, by, lr: float,
+                          momentum: float = 0.9, batch_size: int = 32):
+    """K6 (``csrc/fused_train.cu``): one SGD-with-momentum epoch per
+    node; returns ``(params', momentum', loss [n])``. The inputs are
+    not modified: the kernel trains copies of them in place."""
+    if _on_cpu(*params, *momentum_state, bx, by):
+        return fused_mlp_train_epoch_plain(params, momentum_state, bx, by,
+                                           lr, momentum, batch_size)
+    _check_kernel_operands(params, momentum_state, bx, by)
+    _, rows, _ = bx.shape
+    _, b = _epoch_shape(rows, int(batch_size))
+    state = [torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+             for t in (*params, *momentum_state)]
+    loss = _build.kernels().fused_mlp_train_epoch(
+        state, bx.contiguous(), by.contiguous(), b, float(lr),
+        float(momentum))
+    launches["fused_mlp_train_epoch"] += 1
+    return tuple(state[:6]), tuple(state[6:]), loss
+
+
+def mlp_params_to_tuple(stacked_params):
+    """The port's stacked 3-Dense tree (``{"params": {"Dense_i":
+    {"kernel", "bias"}}}``, leading node axis) -> ``(w0, b0, w1, b1,
+    w2, b2)`` with biases ``[n, 1, d]`` (views, no copies)."""
+    p = stacked_params["params"]
+    out = []
+    for i in range(3):
+        d = p[f"Dense_{i}"]
+        out += [d["kernel"], d["bias"][:, None, :]]
+    return tuple(out)
+
+
+def tuple_to_mlp_params(t):
+    """Inverse of :func:`mlp_params_to_tuple`."""
+    return {"params": {f"Dense_{i}": {"kernel": t[2 * i],
+                                      "bias": t[2 * i + 1][:, 0, :]}
+                       for i in range(3)}}

@@ -49,6 +49,7 @@ __all__ = [
 launches: dict[str, int] = {
     "stream_gemm": 0, "stream_wgrad": 0, "dense_bwd": 0, "sgd_accum": 0,
     "sgd_accum_acc": 0, "fedavg_accum": 0,
+    "fused_mlp_train_epoch": 0,  # K6, ops/fused_train.py
 }
 
 

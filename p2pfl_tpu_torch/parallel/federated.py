@@ -1,10 +1,12 @@
 """The federated rounds over the node axis, on one device.
 
 The counterpart of ``p2pfl_tpu/parallel/federated.py`` for the dense
-FedAvg path and the cross-device round (``build_round_fn_cross_device``,
-``build_cross_device_stream_fns``, below). The dense round: every node trains its local epochs (one ``train_epochs``
-call over the stacked ``[n, ...]`` state), then each node's aggregate
-is row ``i`` of ``W @ params`` with ``W`` the row-normalised product of
+round (FedAvg, the robust aggregators, attack injection and trust
+observations) and the cross-device round (``build_round_fn_cross_device``,
+``build_cross_device_stream_fns``, below). The dense round: every node
+trains its local epochs (one ``train_epochs`` call over the stacked
+``[n, ...]`` state); with FedAvg each node's aggregate is then row
+``i`` of ``W @ params`` with ``W`` the row-normalised product of
 the round plan's mixing matrix, the sample counts and the alive and
 training masks — one ``[n, n] @ [n, d]`` matmul per leaf, a plain
 PyTorch op as it was an XLA dot. Round plans are the JAX package's:
@@ -26,7 +28,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from p2pfl_tpu_torch.core.aggregators import FedAvg
+from p2pfl_tpu_torch.adversary.attacks import AttackSpec, poison_stacked
+from p2pfl_tpu_torch.adversary.reputation import spmd_trust_obs
+from p2pfl_tpu_torch.core.aggregators import Aggregator, FedAvg
 from p2pfl_tpu_torch.core.pytree import Params, tree_map
 from p2pfl_tpu_torch.learning.learner import StepFns, TrainState
 from p2pfl_tpu_torch.ops import gemm
@@ -125,22 +129,42 @@ def reseed_params(fed: FederatedState, fns: StepFns,
 
 def build_round_fn(
     fns: StepFns,
-    aggregator: FedAvg | None = None,
+    aggregator: Aggregator | None = None,
     epochs: int = 1,
     exchange_dtype: torch.dtype | None = None,
+    shared_aggregate: bool = False,
     identity_adopt: bool = False,
+    attack: AttackSpec | None = None,
+    malicious: np.ndarray | None = None,
+    update_stats: bool = False,
 ) -> Callable:
     """Build ``round_fn(fed, x, y, mask, n_samples, mix, adopt, trains)
-    -> (fed, metrics)``: the FedAvg fast path of the JAX package.
+    -> (fed, metrics)``.
 
+    FedAvg takes the fast path: per leaf, row ``i`` of ``W @ params``.
     ``exchange_dtype`` (bf16) rounds the weights and the parameters
     entering the mix; the sums stay f32. ``identity_adopt=True`` is the
     caller's promise that every plan adopts its own row (DFL): the adopt
-    gather is skipped and the keep-select folds into the mix.
+    gather is skipped.
+
+    A robust aggregator (Krum, FedMedian, TrimmedMean) aggregates the
+    stack at the exchange dtype, weighted by the sample counts, over the
+    rows each mixing row lets in (``row_w > 0``): once per row, or, with
+    ``shared_aggregate=True`` (every aggregating row identical: fully
+    connected DFL, CFL, SDFL), once over the union of the rows and
+    handed to every node.
+
+    ``attack`` and ``malicious`` (a host ``[n]`` bool mask) poison the
+    malicious rows' trained params against their round-start params
+    before any mix, their own row included (``poison_stacked``, keyed by
+    ``fed.round``). ``update_stats=True`` adds ``metrics["trust_obs"]``:
+    each node's score of its post-attack delta over the contributing
+    cohort, for the host's ``ReputationMonitor``.
     """
-    if aggregator is not None and type(aggregator) is not FedAvg:
-        raise NotImplementedError(
-            "only FedAvg is ported (ROADMAP.md queue A, item A14)")
+    aggregator = aggregator or FedAvg()
+    fedavg_fast = type(aggregator) is FedAvg
+    attack_active = (attack is not None and malicious is not None
+                     and bool(np.any(malicious)) and attack.poisons_updates)
 
     def mixed(wn: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         flat = p.reshape(p.shape[0], -1)
@@ -150,31 +174,68 @@ def build_round_fn(
         out = torch.matmul(wn.float(), flat.float())  # [n,n]@[n,d], f32
         return out.reshape(p.shape).to(p.dtype)
 
+    def robust(params: Params, w: torch.Tensor,
+               n_samples: torch.Tensor) -> Params:
+        """Per-row (or shared) robust aggregates, in params' dtypes."""
+        stack_ex = params if exchange_dtype is None else tree_map(
+            lambda p: p.to(exchange_dtype), params)
+        counts = n_samples.float()
+        if shared_aggregate:
+            out = aggregator.aggregate(stack_ex, counts,
+                                       mask=w.amax(0) > 0)
+            return tree_map(lambda o, p: o.to(p.dtype)[None].expand(p.shape),
+                            out, params)
+        rows = [aggregator.aggregate(stack_ex, counts, mask=row_w > 0)
+                for row_w in w]
+        return tree_map(
+            lambda p, *os: torch.stack([o.to(p.dtype) for o in os]),
+            params, *rows)
+
     def round_fn(fed: FederatedState, x, y, smask, n_samples, mix, adopt,
                  trains):
         alive = fed.alive
+        ref_params = fed.states.params  # round-start params (delta ref)
         states, train_metrics = _train_and_select(
             fns, fed.states, alive, trains, x, y, smask, epochs)
+        if attack_active:
+            states = dataclasses.replace(states, params=poison_stacked(
+                states.params, ref_params, malicious, fed.round, attack))
         contrib = torch.logical_and(trains, alive)
         w = mix * (n_samples.float() * contrib.float())[None, :]
-        denom = w.sum(1, keepdim=True).clamp(min=1e-9)
-        wn = w / denom
         got_any = w.sum(1) > 0
-        if identity_adopt:
-            keep = torch.logical_and(alive, got_any)
-            params = tree_map(lambda p: _where_node(keep, mixed(wn, p), p),
-                              states.params)
+        if fedavg_fast:
+            wn = w / w.sum(1, keepdim=True).clamp(min=1e-9)
+            if identity_adopt:
+                keep = torch.logical_and(alive, got_any)
+                params = tree_map(
+                    lambda p: _where_node(keep, mixed(wn, p), p),
+                    states.params)
+            else:
+                keep = torch.logical_and(alive, got_any[adopt])
+                params = tree_map(
+                    lambda p: _where_node(keep, mixed(wn, p)[adopt], p),
+                    states.params)
         else:
-            keep = torch.logical_and(alive, got_any[adopt])
-            params = tree_map(
-                lambda p: _where_node(keep, mixed(wn, p)[adopt], p),
-                states.params)
+            agg = robust(states.params, w, n_samples)
+            if identity_adopt:
+                keep = torch.logical_and(alive, got_any)
+            else:
+                if not shared_aggregate:  # shared rows are identical
+                    agg = tree_map(lambda a: a[adopt], agg)
+                keep = torch.logical_and(alive, got_any[adopt])
+            params = tree_map(lambda a, p: _where_node(keep, a, p), agg,
+                              states.params)
+        metrics = {"train_loss": train_metrics["loss"], "alive": alive}
+        if update_stats:
+            # scored on the post-attack params: what each node sent
+            metrics["trust_obs"] = spmd_trust_obs(states.params, ref_params,
+                                                  contrib)
         fed = FederatedState(
             states=dataclasses.replace(states, params=params),
             alive=alive,
             round=fed.round + 1,
         )
-        return fed, {"train_loss": train_metrics["loss"], "alive": alive}
+        return fed, metrics
 
     return round_fn
 

@@ -4,7 +4,8 @@
   result keys;
 - without ``--platform cpu`` and without a card it exits non-zero with
   a message, and runs nothing on the CPU;
-- importing every module of the port, and what ``chip_smoke.py``
+- importing every module of the port (the adversary package and the
+  fused epoch included), and what ``chip_smoke.py``
   imports, in a fresh interpreter loads none of ``jax``, ``flax``,
   ``optax`` or ``p2pfl_tpu`` (top-level names compared exactly: the
   port's own name starts with ``p2pfl_tpu``).
@@ -56,6 +57,10 @@ def test_port_never_imports_jax_or_the_jax_package():
             ROOT / "p2pfl_tpu_torch").with_suffix("").parts)
         for p in (ROOT / "p2pfl_tpu_torch").rglob("*.py")
         if p.name != "__init__.py")
+    # the adversary package and the fused epoch are among them
+    assert {"p2pfl_tpu_torch.adversary.attacks",
+            "p2pfl_tpu_torch.adversary.reputation",
+            "p2pfl_tpu_torch.ops.fused_train"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

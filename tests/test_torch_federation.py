@@ -160,7 +160,7 @@ def test_unported_sections_are_rejected_with_their_roadmap_item(tmp_path):
     cases = [
         ({"faults": [{"node": 1, "round": 0, "kind": "crash"}]}, "A11"),
         ({"transport": "sparse"}, "A12"),
-        ({"aggregator": "krum"}, "A14"),
+        ({"training": {"optimizer": "adam"}}, "A15"),
         ({"checkpoint_dir": str(tmp_path)}, "A17"),
     ]
     for override, item in cases:

@@ -14,7 +14,17 @@ counts included). Tolerances: bf16 outputs (K1, K3) one bf16 ulp of an
 f32 sum, rtol 2**-7 and atol 1e-2; f32 sums (K2) rtol 1e-4 and atol
 1e-2, and two runs bit-identical (no atomics); the SGD step (K4) and
 the SGD step with the FedAvg accumulate and its null form (K5) the same
-bits as their plain versions, and at gate 0 the params unchanged.
+bits as their plain versions, and at gate 0 the params unchanged. The
+fused MLP epoch (K6) is held to its plain version (``torch.bmm`` in
+f32, TF32 off; the two sum in other orders) and gives the same bits on
+two runs. From one state (one step, a short shard, narrow widths) every
+element is within the JAX test's tolerance: params and trace rtol 2e-4,
+atol 2e-5; loss rtol 1e-4, atol 1e-5. Over the headline's 19 steps a
+ReLU whose pre-activation lies within the two versions' rounding
+difference of zero can take the other gate in one of them, and that
+unit's column trains on apart: there at most 1e-3 of a leaf's elements
+may lie off the elementwise tolerance, none by more than 1e-2, each
+leaf within relative L2 5e-3, and the loss within its tolerance.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from p2pfl_tpu_torch.ops import gemm
+from p2pfl_tpu_torch.ops import fused_train, gemm
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +161,74 @@ def test_k5_wrappers_raise_on_mixed_devices(dev):
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         gemm.sgd_accum(p, p, p, torch.ones(2, device=dev), momentum=0.9,
                        acc=p, weight=torch.ones(2))
+
+
+K6_STATE_TOL = dict(rtol=2e-4, atol=2e-5)
+K6_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
+K6_FLIP_FRACTION, K6_FLIP_ATOL, K6_FLIP_REL_L2 = 1e-3, 1e-2, 5e-3
+
+
+def _mlp_epoch_inputs(dev, n, d_in, d1, d2, c, rows, seed=20):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [(n, d_in, d1), (n, 1, d1), (n, d1, d2), (n, 1, d2),
+              (n, d2, c), (n, 1, c)]
+    params = tuple(torch.randn(s, generator=g, device=dev) * 0.05
+                   for s in shapes)
+    mom = tuple(torch.randn(s, generator=g, device=dev) * 0.01
+                for s in shapes)
+    bx = torch.randn((n, rows, d_in), generator=g, device=dev)
+    by = torch.randint(0, c, (n, rows, 1), generator=g, device=dev,
+                       dtype=torch.int32)
+    return params, mom, bx, by
+
+
+@pytest.mark.parametrize("n,d_in,d1,d2,c,rows,batch", [
+    (64, 784, 256, 128, 10, 608, 32),  # the headline shape, 19 steps
+    (64, 784, 256, 128, 10, 32, 32),  # its first step
+    (3, 50, 20, 13, 7, 40, 8),  # ragged widths, empty column slices
+    (2, 784, 256, 128, 10, 20, 32),  # a shard shorter than one batch
+])
+def test_fused_mlp_epoch_matches_plain_and_is_deterministic(
+        dev, n, d_in, d1, d2, c, rows, batch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, mom, bx, by = _mlp_epoch_inputs(dev, n, d_in, d1, d2, c, rows)
+    before_p = [t.clone() for t in params + mom]
+    start = gemm.launches["fused_mlp_train_epoch"]
+    kp, km, kl = fused_train.fused_mlp_train_epoch(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
+    assert gemm.launches["fused_mlp_train_epoch"] == start + 1
+    assert all(torch.equal(a, b) for a, b in zip(params + mom, before_p))
+    pp, pm, pl = fused_train.fused_mlp_train_epoch_plain(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
+    for a, b in zip(kp + km, pp + pm):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        if rows <= batch or n < 64:  # from one state
+            torch.testing.assert_close(a, b, **K6_STATE_TOL)
+            continue
+        d = (a - b).abs()
+        off = d > K6_STATE_TOL["atol"] + K6_STATE_TOL["rtol"] * b.abs()
+        assert int(off.sum()) <= K6_FLIP_FRACTION * a.numel()
+        assert float(d.max()) <= K6_FLIP_ATOL
+        assert float((a - b).norm() / b.norm()) <= K6_FLIP_REL_L2
+    torch.testing.assert_close(kl, pl, **K6_LOSS_TOL)
+    again = fused_train.fused_mlp_train_epoch(
+        params, mom, bx, by.long(), 0.05, 0.9, batch_size=batch)
+    for a, b in zip(kp + km + (kl,), again[0] + again[1] + (again[2],)):
+        assert torch.equal(a, b)
+
+
+def test_fused_mlp_epoch_refusals(dev):
+    params, mom, bx, by = _mlp_epoch_inputs(dev, 2, 16, 8, 8, 4, 24)
+    with pytest.raises(ValueError, match="multiple of batch_size"):
+        fused_train.fused_mlp_train_epoch(params, mom, bx, by, 0.05,
+                                          batch_size=16)
+    half = tuple(t.to(torch.bfloat16) for t in params)
+    with pytest.raises(ValueError, match="A19"):
+        fused_train.fused_mlp_train_epoch(half, mom, bx, by, 0.05,
+                                          batch_size=8)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        fused_train.fused_mlp_train_epoch(params, mom, bx, by.float(), 0.05,
+                                          batch_size=8)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        fused_train.fused_mlp_train_epoch(params, mom, bx.cpu(), by, 0.05,
+                                          batch_size=8)
