@@ -14,9 +14,12 @@ one, or when run outside a checkout of this repository). Phases:
    mnist-mlp at full width, 19 steps of 32 MNIST-surrogate rows, plus
    one step, a shard shorter than a batch and the ragged-rows refusal),
    held against its plain PyTorch version on the same inputs with a
-   stated tolerance (K6 also twice, bit for bit), and timed with CUDA
-   events beside the plain version, one PyTorch library call where
-   there is one, and the card's bound.
+   stated tolerance (K1, K2, K3 and K6 also twice, bit for bit; K3 also
+   at the cross-device (8 x 20) and Byzantine (16 x 64) shapes), and
+   timed with CUDA events beside the plain version, one PyTorch library
+   call where there is one, and the card's bound, with the achieved
+   TB/s and TFLOP/s and the share of the bound; for K1 and K3 also the
+   host's time to enqueue one call.
 3. End to end, the stacked federation: the port's ``Scenario`` on the
    full-width FEMNIST CNN, 8 nodes on a ring, DFL, FedAvg, bf16 wire,
    750 samples a node, batch 336, 3 rounds on the seeded synthetic
@@ -160,25 +163,49 @@ def kernel_checks(dev, peak) -> dict:
     rows = []
 
     def record(kernel, inst, err, ok, tol, ms, plain_ms, lib_ms, nbytes,
-               flops, fpeak, on_path=True):
+               flops, fpeak, on_path=True, summed=True):
         bms, by = bound(nbytes, flops, fpeak)
         rows.append(dict(kernel=kernel, instance=inst, max_abs_err=err,
                          ok=ok, tol=tol, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                         bytes=nbytes, flops=flops, on_path=on_path))
+                         bytes=nbytes, flops=flops, on_path=on_path,
+                         summed=summed))
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"  {kernel:13s} {inst:12s} max_abs_err={err:.3g} ({tol}) "
               f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
               f"{plain_ms:.4f} ms  library {lib}  bound "
-              f"{bms:.4f} ms ({by})", flush=True)
+              f"{bms:.4f} ms ({by}); {nbytes / ms / 1e9:.3f} TB/s, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bms / ms:.1f}% of "
+              "the bound", flush=True)
 
-    # K1 stream_gemm: bf16 out, one bf16 ulp of an f32 sum
+    def same_bits(name, fn):
+        """Two runs of a kernel on the same inputs give the same bits."""
+        a, b = fn(), fn()
+        a, b = (a if isinstance(a, tuple) else (a,)), (
+            b if isinstance(b, tuple) else (b,))
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            fail(f"{name} is not deterministic")
+
+    def host_us(fn, calls: int = 50) -> float:
+        """Host time to enqueue one call (the device is left to catch
+        up after the clock stops)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / calls * 1e6
+
+    # K1 stream_gemm: bf16 out, one bf16 ulp of an f32 sum; two runs
+    # give the same bits
     k1_tol = dict(rtol=2.0 ** -7, atol=1e-2)
     for inst, (m, k, nn_), on_path in [("conv1_fwd", (m1, 25, 32), True),
                                        ("conv1_dgrad", (m1, 32, 25), False),
                                        ("conv2_fwd", (m2, 800, 64), True)]:
         x, w = rand(n, m, k), rand(n, k, nn_)
         got = gemm.stream_gemm(x, w)
+        same_bits(f"stream_gemm {inst}", lambda: gemm.stream_gemm(x, w))
         err, ok = within(got, gemm.stream_gemm_plain(x, w), **k1_tol)
         record("stream_gemm", inst, err, ok, k1_tol,
                time_ms(lambda: gemm.stream_gemm(x, w)),
@@ -186,6 +213,8 @@ def kernel_checks(dev, peak) -> dict:
                time_ms(lambda: torch.bmm(x, w)),
                2 * n * (m * k + k * nn_ + m * nn_), 2 * n * m * k * nn_,
                bf16_peak, on_path)
+        print(f"    host {host_us(lambda: gemm.stream_gemm(x, w)):.1f} us "
+              "a call", flush=True)
         del x, w, got
 
     # K2 stream_wgrad: f32 sums over M rows in another order
@@ -194,9 +223,7 @@ def kernel_checks(dev, peak) -> dict:
                               ("conv2_wgrad", (m2, 800, 64))]:
         x, g = rand(n, m, k), rand(n, m, nn_)
         got = gemm.stream_wgrad(x, g)
-        again = gemm.stream_wgrad(x, g)
-        if not torch.equal(got, again):
-            fail(f"stream_wgrad {inst} is not deterministic")
+        same_bits(f"stream_wgrad {inst}", lambda: gemm.stream_wgrad(x, g))
         err, ok = within(got, gemm.stream_wgrad_plain(x, g), **k2_tol)
         xt = x.transpose(1, 2)
         record("stream_wgrad", inst, err, ok, k2_tol,
@@ -205,23 +232,32 @@ def kernel_checks(dev, peak) -> dict:
                time_ms(lambda: torch.bmm(xt, g)),
                2 * n * (m * k + m * nn_) + 4 * n * k * nn_,
                2 * n * m * k * nn_, bf16_peak)
-        del x, g, got, again, xt
+        del x, g, got, xt
 
-    # K3 dense_bwd: bf16 outputs, as K1
+    # K3 dense_bwd: bf16 outputs, as K1. The ring step (the instance the
+    # kernels line sums), the cross-device cohort step (8 slots x 20) and
+    # the Byzantine step (16 nodes x 64)
     d_in, h = 3136, 2048
-    x, w, g = rand(n, b, d_in), rand(n, d_in, h), rand(n, b, h)
-    dx, dw = gemm.dense_bwd(x, w, g)
-    pdx, pdw = gemm.dense_bwd_plain(x, w, g)
-    e1, ok1 = within(dx, pdx, **k1_tol)
-    e2, ok2 = within(dw, pdw, **k1_tol)
-    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
-    record("dense_bwd", "dense1_bwd", max(e1, e2), ok1 and ok2, k1_tol,
-           time_ms(lambda: gemm.dense_bwd(x, w, g)),
-           time_ms(lambda: gemm.dense_bwd_plain(x, w, g)),
-           time_ms(lambda: (torch.bmm(g, wt), torch.bmm(xt, g))),
-           2 * n * (2 * b * d_in + 2 * d_in * h + b * h),
-           4 * n * b * d_in * h, bf16_peak)
-    del x, w, g, dx, dw, pdx, pdw, wt, xt
+    for inst, (nk, bk), summed in [("dense1_bwd", (n, b), True),
+                                   ("crossdev_bwd", (8, 20), False),
+                                   ("byzantine_bwd", (16, 64), False)]:
+        x, w, g = rand(nk, bk, d_in), rand(nk, d_in, h), rand(nk, bk, h)
+        dx, dw = gemm.dense_bwd(x, w, g)
+        same_bits(f"dense_bwd {inst}", lambda: gemm.dense_bwd(x, w, g))
+        pdx, pdw = gemm.dense_bwd_plain(x, w, g)
+        e1, ok1 = within(dx, pdx, **k1_tol)
+        e2, ok2 = within(dw, pdw, **k1_tol)
+        wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+        record("dense_bwd", inst, max(e1, e2), ok1 and ok2, k1_tol,
+               time_ms(lambda: gemm.dense_bwd(x, w, g)),
+               time_ms(lambda: gemm.dense_bwd_plain(x, w, g)),
+               time_ms(lambda: (torch.bmm(g, wt), torch.bmm(xt, g))),
+               2 * nk * (2 * bk * d_in + 2 * d_in * h + bk * h),
+               4 * nk * bk * d_in * h, bf16_peak, summed=summed)
+        print(f"    host {host_us(lambda: gemm.dense_bwd(x, w, g)):.1f} us "
+              "a call", flush=True)
+        del x, w, g, dx, dw, pdx, pdw, wt, xt
+    torch.cuda.empty_cache()
 
     # K4 sgd_accum over every FEMNIST-CNN leaf, f32 trace; nodes 1, 3,
     # 5, 7 gated off (lr 0) must keep their params bit for bit
@@ -993,10 +1029,13 @@ def main(argv: list[str] | None = None) -> int:
     kernels = []
     for k in replaces:
         # per training step (K5: per cohort step; K6: per epoch): the sum
-        # over the instances the path runs; launches from the path's own
+        # over the instances the path runs (K3: the ring step's; its
+        # cross-device and Byzantine shapes are printed and kept in the
+        # rows, not summed); launches from the path's own
         # run (K1-K4 the stacked federation, K5 the cross-device round, K6
         # the fused-epoch path)
-        mine = [r for r in rows if r["kernel"] == k and r["on_path"]]
+        mine = [r for r in rows
+                if r["kernel"] == k and r["on_path"] and r["summed"]]
         top = max(mine, key=lambda r: r["bound_ms"])
         kernels.append({
             "name": k, "route": "cuda", "source": sources[k],

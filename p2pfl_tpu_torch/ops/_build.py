@@ -5,6 +5,11 @@
 (git-ignored) the first time a kernel is launched in a process, and
 returns the loaded module. Nothing is compiled when the package is
 imported, so the CPU-only tests import every module without ``nvcc``.
+
+``SOURCES`` are the translation units handed to the build; the
+``csrc/*.cuh`` headers they include are not listed (``load`` would hand
+a ``.cuh`` to ``nvcc`` as a translation unit of its own; ninja tracks
+them through the compiler's dependency files).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-// One 64x64 output tile of a bf16 GEMM with f32 accumulation, shared by
-// the stream-GEMM, wgrad and dense-backward kernels.
+// One 64x64 output tile of a bf16 GEMM with f32 accumulation: the tile
+// routine of the wgrad kernel (K2), and K1's fallback for the shapes
+// its Hopper branches do not take (stream_gemm.cu).
 //
 // C(m, n) = sum_k A(m, k) * B(k, n). Each operand is a strided view, so
 // one tile routine serves every layout the kernels need (x, x^T, w,

@@ -1,0 +1,73 @@
+"""Phase 4 of ``chip_smoke.py`` (the cross-device round) from several
+checkouts in turn, on one card, to compare their round wall times.
+
+    python scripts/torch_crossdev_ab.py TREE [TREE ...]
+
+Each TREE is the root of a checkout of this repository (for an A/B,
+the parent and the change in turns: parent, change, change, parent).
+For each, in its own process with the TREE first on ``sys.path``, it
+builds that tree's kernels and runs its ``chip_smoke.cross_device``:
+3 materialized rounds, a streamed and a 2-chunk round, and one
+profiled round. The lines that phase prints are passed through; the
+last line is one JSON object with each run's round wall times and the
+profiled round's wall and device-busy milliseconds.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+_RUN = """
+import sys, torch
+sys.path.insert(0, {tree!r})
+import chip_smoke
+from p2pfl_tpu_torch.ops import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.kernels()
+chip_smoke.cross_device(torch.device("cuda", 0), None)
+"""
+
+
+def run(tree: pathlib.Path) -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUN.format(tree=str(tree))], cwd=tree,
+        capture_output=True, text=True, check=False)
+    sys.stdout.write(proc.stdout)
+    if proc.returncode != 0:
+        sys.stdout.write(proc.stderr[-4000:])
+        raise SystemExit(f"cross-device phase failed in {tree}")
+    rounds = [float(s) for s in re.findall(
+        r"round \d+: ([0-9.]+) s wall", proc.stdout)]
+    prof = re.search(r"profiled cross-device round \(no evaluation\): "
+                     r"([0-9.]+) ms wall, device busy ([0-9.]+) ms",
+                     proc.stdout)
+    return {"tree": str(tree), "round_s": rounds,
+            "profiled_wall_ms": float(prof.group(1)) if prof else None,
+            "profiled_busy_ms": float(prof.group(2)) if prof else None}
+
+
+def main(argv: list[str]) -> int:
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_crossdev_ab: no CUDA device", file=sys.stderr)
+        return 1
+    results = []
+    for tree in argv:
+        root = pathlib.Path(tree).resolve()
+        print(f"== {root}", flush=True)
+        results.append(run(root))
+    print(json.dumps({"runs": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

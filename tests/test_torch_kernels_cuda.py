@@ -10,7 +10,8 @@ with a reason). On the card, run them with
 installed.)
 
 Shapes are the FEMNIST CNN's widths at a reduced batch (ragged row
-counts included). Tolerances: bf16 outputs (K1, K3) one bf16 ulp of an
+counts included), and K1 and K3 also at every shape their paths give
+them, where two runs must give the same bits. Tolerances: bf16 outputs (K1, K3) one bf16 ulp of an
 f32 sum, rtol 2**-7 and atol 1e-2; f32 sums (K2) rtol 1e-4 and atol
 1e-2, and two runs bit-identical (no atomics); the SGD step (K4) and
 the SGD step with the FedAvg accumulate and its null form (K5) the same
@@ -64,6 +65,29 @@ def test_stream_gemm_matches_plain(dev, m, k, n):
                                **BF16_TOL)
 
 
+# Every (K, N) the models give K1 (FEMNIST and MNIST CNN conv1 and conv2,
+# the ResNet stem's K = 27 at 32 and 64 filters, conv1's dgrad
+# (32, 25)), at row counts that are ragged against the kernels' 128-
+# and 256-row tiles and not multiples of 8 (so a node's rows start off a
+# 16-byte boundary and the copies' element-wise tails run), the
+# evaluation's M = 512 * 784 and 512 * 196, and one shape neither
+# Hopper branch takes (K = 48, N = 16: the guarded fallback).
+@pytest.mark.parametrize("nodes,m,k,n", [
+    (3, 2 * 784 + 13, 9, 32), (3, 2 * 784 + 13, 25, 32),
+    (3, 2 * 784 + 13, 27, 32), (3, 2 * 784 + 13, 27, 64),
+    (3, 3 * 196 + 7, 288, 64), (3, 3 * 196 + 7, 800, 64),
+    (3, 2 * 784 + 13, 32, 25), (8, 512 * 784, 25, 32),
+    (8, 512 * 196, 800, 64), (3, 3 * 196 + 7, 48, 16)])
+def test_stream_gemm_widths_match_plain_bit_stable(dev, nodes, m, k, n):
+    x, w = _rand(dev, 30, nodes, m, k), _rand(dev, 31, nodes, k, n)
+    got = gemm.stream_gemm(x, w)
+    assert got.shape == (nodes, m, n) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(),
+                               gemm.stream_gemm_plain(x, w).float(),
+                               **BF16_TOL)
+    assert torch.equal(got, gemm.stream_gemm(x, w))
+
+
 @pytest.mark.parametrize("m,k,n", [(784 * 3, 25, 32), (4096 * 2 + 7, 25, 32),
                                    (196 * 3 + 5, 800, 64)])
 def test_stream_wgrad_matches_plain_and_is_deterministic(dev, m, k, n):
@@ -83,6 +107,25 @@ def test_dense_bwd_matches_plain(dev, b, d, h):
     pdx, pdw = gemm.dense_bwd_plain(x, w, g)
     torch.testing.assert_close(dx.float(), pdx.float(), **BF16_TOL)
     torch.testing.assert_close(dw.float(), pdw.float(), **BF16_TOL)
+
+
+# K3 at the path's shapes: the ring step (8 x 336), the cross-device
+# cohort step (8 slots x 20), the MNIST CNN's dense1 (H = 512) and the
+# Byzantine step (16 nodes x 64); two runs give the same bits.
+@pytest.mark.parametrize("nodes,b,d,h", [
+    (8, 336, 3136, 2048), (8, 20, 3136, 2048), (2, 64, 3136, 512),
+    (16, 64, 3136, 2048)])
+def test_dense_bwd_path_shapes_match_plain_bit_stable(dev, nodes, b, d, h):
+    x, w, g = (_rand(dev, 32, nodes, b, d), _rand(dev, 33, nodes, d, h),
+               _rand(dev, 34, nodes, b, h))
+    before = gemm.launches["dense_bwd"]
+    dx, dw = gemm.dense_bwd(x, w, g)
+    assert gemm.launches["dense_bwd"] == before + 1
+    pdx, pdw = gemm.dense_bwd_plain(x, w, g)
+    torch.testing.assert_close(dx.float(), pdx.float(), **BF16_TOL)
+    torch.testing.assert_close(dw.float(), pdw.float(), **BF16_TOL)
+    dx2, dw2 = gemm.dense_bwd(x, w, g)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
 @pytest.mark.parametrize("trace", [torch.float32, torch.bfloat16])
