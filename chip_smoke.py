@@ -8,34 +8,41 @@ one, or when run outside a checkout of this repository). Phases:
 1. Device: the card's name and power limit; the kernels are built from
    ``p2pfl_tpu_torch/ops/csrc`` (the build time is printed).
 2. Kernels: each hand-written kernel (K1 stream_gemm, K2 stream_wgrad,
-   K3 dense_bwd, K4 sgd_accum, K5 sgd_accum(acc=)/fedavg_accum, K6
-   fused_mlp_train_epoch) at the shapes of its path (8 nodes x 336
-   FEMNIST-CNN samples; K5 every leaf at 8 slots; K6 64 nodes of
-   mnist-mlp at full width, 19 steps of 32 MNIST-surrogate rows, plus
-   one step, a shard shorter than a batch and the ragged-rows refusal),
-   held against its plain PyTorch version on the same inputs with a
-   stated tolerance (K1, K2, K3 and K6 also twice, bit for bit; K3 also
-   at the cross-device (8 x 20) and Byzantine (16 x 64) shapes), and
-   timed with CUDA events beside the plain version, one PyTorch library
-   call where there is one, and the card's bound, with the achieved
-   TB/s and TFLOP/s and the share of the bound; for K1 and K3 also the
-   host's time to enqueue one call.
+   K3 dense_bwd, K4 sgd_accum_many, K5 sgd_accum_many(accs=)/
+   fedavg_accum_many, K6 fused_mlp_train_epoch) at the shapes of its
+   path (8 nodes x 336 FEMNIST-CNN samples; K4 and K5 all 8 leaves at 8
+   slots in one call, the path's instance, then each leaf alone; K6 64
+   nodes of mnist-mlp at full width, 19 steps of 32 MNIST-surrogate
+   rows, plus one step, a shard shorter than a batch and the
+   ragged-rows refusal), held against its plain PyTorch version on the
+   same inputs with a stated tolerance (K1-K6 also twice, bit for bit;
+   K4 and K5 their plain versions' bits, gated-off params unchanged,
+   one launch a call; K3 also at the cross-device (8 x 20) and
+   Byzantine (16 x 64) shapes), and timed with CUDA events beside the
+   plain version, one PyTorch library call where there is one (for K4
+   one ``torch._fused_sgd_`` over all leaves, for K5 one
+   ``torch._foreach_addcmul``), and the card's bound, with the achieved
+   TB/s and TFLOP/s and the share of the bound; for K1, K3, K4 and K5
+   also the host's time to enqueue one call, and for K4 and K5 the
+   kernel's own device time from a profiled run.
 3. End to end, the stacked federation: the port's ``Scenario`` on the
    full-width FEMNIST CNN, 8 nodes on a ring, DFL, FedAvg, bf16 wire,
    750 samples a node, batch 336, 3 rounds on the seeded synthetic
    surrogate. The launch counts are zeroed just before and read just
-   after: every kernel of the path must have run. One training step is
-   then run through the kernels and through the plain versions from the
-   same state and compared, and one more round is traced with
+   after: every kernel of the path must have run, K4 once a training
+   step. One training step is then run through the kernels and
+   through the plain versions from the same state and compared, and
+   one more round is traced with
    ``torch.profiler`` (device time by operation, the device's busy
    share).
 4. End to end, the cross-device round: ``CrossDeviceScenario`` on the
    full-width FEMNIST CNN, 3,550 clients (LEAF FEMNIST's writer count),
    32 sampled a round in 4 cohorts of 8 slots, 20 samples a client,
    3 rounds and an evaluation; launch counts as in phase 3, K5
-   included; the train loss must fall. From the same seed, one streamed
-   round must equal the first materialized round bit for bit, and one
-   round in 2 chunks must run and stay finite. One more round is
+   included (K4 and K5 once a cohort step); the train loss must fall.
+   From the same seed, one streamed round must equal the first
+   materialized round bit for bit, and one round in 2 chunks must run
+   and stay finite. One more round is
    profiled. Then the JAX package's own cross-device headline shape
    (mnist-mlp, 10,000 clients, 256 a round, cohorts of 32) for 2
    rounds: the second round's wall time and clients per second.
@@ -47,7 +54,8 @@ one, or when run outside a checkout of this repository). Phases:
    connected, DFL, iid, 256 samples a node, batch 64, lr 0.05, bf16
    wire, 4 sign-flippers at scale 10, 3 rounds each under FedAvg (clean
    and attacked), Krum(f=4, m=8), TrimmedMean(beta=4), FedMedian and
-   reputation-weighted FedAvg; K1-K4 must launch in every variant, the
+   reputation-weighted FedAvg; K1-K4 must launch in every variant (K4
+   once a training step), the
    defended params stay finite, reputation must cut off exactly the
    attackers after round 1, and the robust aggregators must reach at
    least the attacked FedAvg's accuracy. One TrimmedMean round on a
@@ -259,14 +267,20 @@ def kernel_checks(dev, peak) -> dict:
         del x, w, g, dx, dw, pdx, pdw, wt, xt
     torch.cuda.empty_cache()
 
-    # K4 sgd_accum over every FEMNIST-CNN leaf, f32 trace; nodes 1, 3,
-    # 5, 7 gated off (lr 0) must keep their params bit for bit
+    # K4 and K5 over the FEMNIST CNN's 8 leaves at 8 slots: first the
+    # step with every leaf in one call (the path's instance, which the
+    # kernels line reports), then each leaf alone (one-leaf launches of
+    # the same kernel, kept so that the Dense_0.kernel comparison with
+    # the library carries on). Nodes 1, 3, 5, 7 gated off (lr 0) must
+    # keep their params bit for bit. Explicit roundings in the kernel:
+    # the same bits as the plain versions are required of the step
+    # instances; the per-leaf rows allow 4 f32 ulp.
     shapes = FEMNIST_CNN_LEAVES
     lr = torch.tensor([0.05, 0.0] * (n // 2), device=dev)
     off = lr == 0
-    # explicit roundings in the kernel: the same bits are expected; the
-    # check allows 4 f32 ulp
+    w = torch.rand(n, generator=gen, device=dev) / (4 * n)
     k4_tol = dict(rtol=4 * 2.0 ** -23, atol=0.0)
+    step_checks(rows, record, same_bits, rand, lr, w, f32_peak)
     for inst, shp in shapes.items():
         p, m, gr = (rand(n, *shp, dtype=torch.float32) for _ in range(3))
         kp, km = gemm.sgd_accum(p, m, gr, lr, momentum=0.9)
@@ -276,7 +290,7 @@ def kernel_checks(dev, peak) -> dict:
         if not torch.equal(kp[off], p[off]):
             fail(f"sgd_accum {inst}: gate 0 changed the params")
         numel = p.numel()
-        flat = [t.reshape(n, -1) for t in (p, gr, m)]
+        flat = [t.reshape(n, -1).clone() for t in (p, gr, m)]
         record("sgd_accum", inst, max(e_p, e_m), ok_p and ok_m, k4_tol,
                time_ms(lambda: gemm.sgd_accum(p, m, gr, lr, momentum=0.9)),
                time_ms(lambda: gemm.sgd_accum_plain(p, m, gr, lr,
@@ -285,26 +299,10 @@ def kernel_checks(dev, peak) -> dict:
                    [flat[0]], [flat[1]], [flat[2]], weight_decay=0.0,
                    momentum=0.9, lr=0.05, dampening=0.0, nesterov=False,
                    maximize=False, is_first_step=False)),
-               20 * numel, 4 * numel, f32_peak)
+               20 * numel, 4 * numel, f32_peak, summed=False)
         del p, m, gr, kp, km, pp, pm, flat
-    # the bf16 trace variant on the largest leaf
-    p, gr = (rand(n, 3136, 2048, dtype=torch.float32) for _ in range(2))
-    m = rand(n, 3136, 2048)
-    kp, km = gemm.sgd_accum(p, m, gr, lr, momentum=0.9)
-    pp, pm = gemm.sgd_accum_plain(p, m, gr, lr, momentum=0.9)
-    if not (torch.equal(kp, pp) and torch.equal(km, pm)):
-        fail("sgd_accum with a bf16 trace differs from its plain version")
-    if not torch.equal(kp[off], p[off]):
-        fail("sgd_accum (bf16 trace): gate 0 changed the params")
-    del p, gr, m, kp, km, pp, pm
     torch.cuda.empty_cache()
 
-    # K5 over every FEMNIST-CNN leaf at 8 slots: the null form (the
-    # cross-device round's per-step accumulate) with p in f32 and in
-    # bf16, and the general form with an f32 and a bf16 trace, slots 1,
-    # 3, 5, 7 at lr 0. The kernel rounds as its plain version does: the
-    # same bits are expected, the check allows 4 f32 ulp.
-    w = torch.rand(n, generator=gen, device=dev) / (4 * n)
     for inst, shp in shapes.items():
         for pdt in (torch.float32, torch.bfloat16):
             p = rand(n, *shp, dtype=pdt)
@@ -321,33 +319,8 @@ def kernel_checks(dev, peak) -> dict:
                    time_ms(lambda: gemm.fedavg_accum_plain(p, acc, w)),
                    time_ms(lambda: torch.addcmul(af, wc, pf.float())),
                    numel * (p.element_size() + 8), 2 * numel, f32_peak,
-                   on_path=pdt == torch.float32)
+                   on_path=pdt == torch.float32, summed=False)
             del p, acc, got, pf, af
-        for tdt in (torch.float32, torch.bfloat16):
-            p, gr = (rand(n, *shp, dtype=torch.float32) for _ in range(2))
-            m = rand(n, *shp, dtype=tdt)
-            acc = rand(n, *shp, dtype=torch.float32)
-            kp, km, ka = gemm.sgd_accum(p, m, gr, lr, momentum=0.9,
-                                        acc=acc, weight=w)
-            pp, pm, pa = gemm.sgd_accum_plain(p, m, gr, lr, momentum=0.9,
-                                              acc=acc, weight=w)
-            errs = [within(a, b, **k4_tol)
-                    for a, b in ((kp, pp), (km, pm), (ka, pa))]
-            if not torch.equal(kp[off], p[off]):
-                fail(f"sgd_accum(acc=) {inst}: lr 0 changed the params")
-            numel = p.numel()
-            tb = m.element_size()
-            record("sgd_accum_acc", f"{inst}.{str(tdt)[6:]}",
-                   max(e for e, _ in errs), all(o for _, o in errs),
-                   k4_tol,
-                   time_ms(lambda: gemm.sgd_accum(p, m, gr, lr,
-                                                  momentum=0.9, acc=acc,
-                                                  weight=w)),
-                   time_ms(lambda: gemm.sgd_accum_plain(
-                       p, m, gr, lr, momentum=0.9, acc=acc, weight=w)),
-                   None, numel * (20 + 2 * tb), 6 * numel, f32_peak,
-                   on_path=False)
-            del p, gr, m, acc, kp, km, ka, pp, pm, pa
     torch.cuda.empty_cache()
 
     # K6 fused_mlp_train_epoch at its headline shape (f32 products: the
@@ -408,6 +381,209 @@ def kernel_checks(dev, peak) -> dict:
         fail("kernels outside tolerance: " + ", ".join(
             f"{r['kernel']}/{r['instance']}" for r in bad))
     return rows
+
+
+def step_checks(rows, record, same_bits, rand, lr, w, f32_peak) -> None:
+    """K4 and K5 with the FEMNIST CNN's 8 leaves at 8 slots in one call
+    (``gemm.sgd_accum_many`` / ``fedavg_accum_many``): the step (f32
+    and bf16 trace), the step with the accumulate (off the path) and
+    the null accumulate (f32 and bf16 p). Each must give the list plain
+    version's bits, leave every gated-off leaf bit for bit, launch once
+    and give the same bits on two runs; each is timed by events beside
+    its plain version, the list library call (K4: one
+    ``torch._fused_sgd_`` over all leaves; K5 null: one
+    ``torch._foreach_addcmul`` with ``[n, 1, ...]`` weight views) and
+    its bound, with the host's time to enqueue a call, and profiled for
+    the kernel's own device time."""
+    import torch
+
+    from p2pfl_tpu_torch.ops import gemm
+
+    shapes = list(FEMNIST_CNN_LEAVES.values())
+    n = lr.shape[0]
+    off = lr == 0
+
+    def leaves(dtype):
+        return [rand(n, *s, dtype=dtype) for s in shapes]
+
+    def check(name, got, want, ps, gated):
+        for g, v in zip(got, want):
+            if not all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(g, v)):
+                fail(f"{name}: differs from its list plain version")
+        if gated and not all(torch.equal(kp[off], p[off])
+                             for kp, p in zip(got[0], ps)):
+            fail(f"{name}: gate 0 changed the params")
+
+    def launched(key, fn):
+        before = gemm.launches[key]
+        fn()
+        torch.cuda.synchronize()
+        if gemm.launches[key] != before + 1:
+            fail(f"{key}: {gemm.launches[key] - before} launches for one "
+                 "call over every leaf")
+
+    def flat(out):
+        """A call's outputs as one tuple (a tuple of lists, or a list)."""
+        return tuple(t for o in out for t in o) if isinstance(
+            out, tuple) else tuple(out)
+
+    values = n * sum(math.prod(s) for s in shapes)
+    for tdt, on_path in ((torch.float32, True), (torch.bfloat16, False)):
+        ps, gs, ms = leaves(torch.float32), leaves(torch.float32), leaves(tdt)
+        name = f"sgd_accum step_all_leaves.{str(tdt)[6:]}"
+
+        def kern():
+            return gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9)
+
+        def plain():
+            return gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9)
+
+        check(name, kern(), plain(), ps, True)
+        same_bits(name, lambda: flat(kern()))
+        launched("sgd_accum", kern)
+        lib, lib_fn = None, None
+        if tdt == torch.float32:
+            # in place, on copies: the library's optimizer step
+            cp, cg, cm = ([t.clone() for t in x] for x in (ps, gs, ms))
+
+            def lib_fn():
+                torch._fused_sgd_(cp, cg, cm, weight_decay=0.0,
+                                  momentum=0.9, lr=0.05, dampening=0.0,
+                                  nesterov=False, maximize=False,
+                                  is_first_step=False)
+
+            lib = time_ms(lib_fn)
+        record("sgd_accum", f"step_all_leaves.{str(tdt)[6:]}", 0.0, True,
+               "same bits", time_ms(kern), time_ms(plain), lib,
+               values * (12 + 2 * ms[0].element_size()), 4 * values,
+               f32_peak, on_path=on_path, summed=on_path)
+        step_host_device(rows, kern, lib_fn=lib_fn)
+        del ps, gs, ms, lib_fn
+        torch.cuda.empty_cache()
+
+    for tdt in (torch.float32, torch.bfloat16):
+        ps, gs, ms = leaves(torch.float32), leaves(torch.float32), leaves(tdt)
+        accs = leaves(torch.float32)
+        name = f"sgd_accum_acc step_all_leaves.{str(tdt)[6:]}"
+
+        def kern():
+            return gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9,
+                                       accs=accs, weight=w)
+
+        def plain():
+            return gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9,
+                                             accs=accs, weight=w)
+
+        check(name, kern(), plain(), ps, True)
+        same_bits(name, lambda: flat(kern()))
+        launched("sgd_accum_acc", kern)
+        record("sgd_accum_acc", f"step_all_leaves.{str(tdt)[6:]}", 0.0,
+               True, "same bits", time_ms(kern), time_ms(plain), None,
+               values * (20 + 2 * ms[0].element_size()), 6 * values,
+               f32_peak, on_path=False, summed=False)
+        step_host_device(rows, kern)
+        del ps, gs, ms, accs
+        torch.cuda.empty_cache()
+
+    for pdt, on_path in ((torch.float32, True), (torch.bfloat16, False)):
+        ps, accs = leaves(pdt), leaves(torch.float32)
+        name = f"fedavg_accum step_all_leaves.{str(pdt)[6:]}"
+
+        def kern():
+            return gemm.fedavg_accum_many(ps, accs, w)
+
+        def plain():
+            return gemm.fedavg_accum_many_plain(ps, accs, w)
+
+        check(name, (kern(),), (plain(),), ps, False)
+        same_bits(name, lambda: flat(kern()))
+        launched("fedavg_accum", kern)
+        lib, lib_fn = None, None
+        if pdt == torch.float32:
+            wv = [w.view((-1,) + (1,) * (p.dim() - 1)) for p in ps]
+
+            def lib_fn():
+                return torch._foreach_addcmul(accs, wv, ps)
+
+            if not all(torch.equal(a, b) for a, b in zip(lib_fn(), plain())):
+                print("    (the library call's sums differ in bits from "
+                      "the plain version's)", flush=True)
+            lib = time_ms(lib_fn)
+        record("fedavg_accum", f"step_all_leaves.{str(pdt)[6:]}", 0.0, True,
+               "same bits", time_ms(kern), time_ms(plain), lib,
+               values * (ps[0].element_size() + 8), 2 * values, f32_peak,
+               on_path=on_path, summed=on_path)
+        step_host_device(rows, kern, lib_fn=lib_fn)
+        del ps, accs
+        torch.cuda.empty_cache()
+
+
+def step_host_device(rows, kern, lib_fn=None, reps: int = 10) -> None:
+    """The host's time to enqueue one all-leaves call on an idle card,
+    and a profiled run of ``reps`` calls: the kernel's own device time a
+    call and its launches a call (and the library call's, where given),
+    which the event times (host and device together) do not separate."""
+    us, piped = enqueue_us(kern), enqueue_us(kern, idle=False)
+    dev_ms, count = device_time(kern, reps, "stream_kernel")
+    line = (f"    host {us:.1f} us a call on an idle card, {piped:.1f} us "
+            f"back to back; device {dev_ms:.4f} ms a call in {count:g} "
+            "launch(es) (profiled)")
+    extra = dict(host_us=us, host_us_back_to_back=piped, device_ms=dev_ms,
+                 device_launches=count)
+    if lib_fn is not None:
+        lib_ms, lib_count = device_time(lib_fn, reps, None)
+        line += (f"; library device {lib_ms:.4f} ms a call in "
+                 f"{lib_count:g} launch(es)")
+        extra.update(library_device_ms=lib_ms, library_launches=lib_count)
+    print(line, flush=True)
+    rows[-1].update(extra)
+
+
+def enqueue_us(fn, calls: int = 10, idle: bool = True) -> float:
+    """Host time of one call: each call finding the card idle
+    (synchronized before it), or ``calls`` calls back to back, as a
+    training loop issues them (too few to fill the launch queue)."""
+    import torch
+
+    torch.cuda.synchronize()
+    total, t0 = 0.0, time.perf_counter()
+    for _ in range(calls):
+        if idle:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        fn()
+        if idle:
+            total += time.perf_counter() - t0
+    if not idle:
+        total = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / calls * 1e6
+
+
+def device_time(fn, reps: int, name: str | None) -> tuple[float, float]:
+    """Device time (ms) and kernel launches a call of ``fn`` over
+    ``reps`` profiled calls: of the kernels whose name holds ``name``,
+    or of every kernel when ``name`` is None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0
+           and (name is None or name in e.key)]
+    if not evs:
+        fail(f"the profiler saw no device time for {name or 'the call'}")
+    return (sum(e.self_device_time_total for e in evs) / 1e3 / reps,
+            sum(e.count for e in evs) / reps)
 
 
 def mlp_epoch_inputs(dev):
@@ -590,6 +766,7 @@ def end_to_end(dev):
     missing = [k for k in DENSE_PATH if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    check_k4_per_step(sc, cfg, launches, len(res.history))
 
     # one step, kernels vs plain, from the trained state
     st = sc.fed.states
@@ -611,6 +788,18 @@ def end_to_end(dev):
     if loss_err > 1e-2 or upd_err > 5e-2:
         fail("kernel step and plain step disagree")
     return launches, sc
+
+
+def check_k4_per_step(sc, cfg, launches, rounds: int) -> None:
+    """K4 launches once a training step, over every leaf."""
+    rows = sc._data_args[0].shape[1]
+    steps = (rounds * cfg.training.epochs_per_round
+             * (rows // min(cfg.data.batch_size, rows)))
+    print(f"  K4 launches {launches['sgd_accum']} for {steps} training "
+          "steps", flush=True)
+    if launches["sgd_accum"] != steps:
+        fail(f"sgd_accum launched {launches['sgd_accum']} times in "
+             f"{steps} training steps")
 
 
 def profile_round(run, out: pathlib.Path | None,
@@ -728,6 +917,13 @@ def cross_device(dev, out: pathlib.Path | None):
     missing = [k for k in CROSS_PATH if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the cross-device path: {missing}")
+    # one K4 launch a training step and one K5 launch a cohort step,
+    # each over every leaf (a client's 20 samples are one batch)
+    cohort_steps = len(hist) * cfg.cross_device.cohort_size
+    if not launches["sgd_accum"] == launches["fedavg_accum"] == cohort_steps:
+        fail(f"{cohort_steps} cohort steps launched K4 "
+             f"{launches['sgd_accum']} and K5 {launches['fedavg_accum']} "
+             "times")
 
     # from the same seed: a streamed round and a round in two chunks
     streamed = CrossDeviceScenario(crossdev_config(prefetch="stream"),
@@ -915,6 +1111,7 @@ def byzantine(dev) -> None:
         missing = [k for k in DENSE_PATH if launches[k] <= 0]
         if missing:
             fail(f"{key}: kernels never launched: {missing}")
+        check_k4_per_step(sc, cfg, launches, len(res.history))
         if key != "signflip_fedavg" and not finite:
             fail(f"{key}: params are not finite")
         if cfg.adversary.reputation:
@@ -1031,7 +1228,8 @@ def main(argv: list[str] | None = None) -> int:
         # per training step (K5: per cohort step; K6: per epoch): the sum
         # over the instances the path runs (K3: the ring step's; its
         # cross-device and Byzantine shapes are printed and kept in the
-        # rows, not summed); launches from the path's own
+        # rows, not summed; K4 and K5: the one call over all leaves);
+        # launches from the path's own
         # run (K1-K4 the stacked federation, K5 the cross-device round, K6
         # the fused-epoch path)
         mine = [r for r in rows

@@ -10,7 +10,8 @@ is an index gather (the JAX package's one-hot matmul works around a TPU
 gather and computes the same permutation).
 
 The optimizer is ``optax.sgd`` with momentum written out through the K4
-kernel (``ops.gemm.sgd_accum``), not ``torch.optim``. The per-node
+kernel (``ops.gemm.sgd_accum_many``, one launch a step for every leaf),
+not ``torch.optim``. The per-node
 update gate keeps the JAX contract (``learner.py`` ``apply_update``): a
 gated-off node's gradients are zeroed with ``where`` (so a non-finite
 gradient cannot leak in), its learning rate is multiplied by 0, its
@@ -96,7 +97,8 @@ def make_step_fns(
 
     def apply_update(state: TrainState, grads: Params,
                      gate: torch.Tensor | None) -> TrainState:
-        """Explicit weight decay, the update gate, one K4 step a leaf."""
+        """Explicit weight decay, the update gate, one K4 launch over
+        every leaf."""
         if weight_decay:
             grads = tree_map(lambda g, p: g + weight_decay * p, grads,
                              state.params)
@@ -109,14 +111,15 @@ def make_step_fns(
                 lambda g: torch.where(_per_node(on, g), g,
                                       torch.zeros_like(g)), grads)
             lr = lr * gate
-        out = tree_map(
-            lambda p, m, g: gemm.sgd_accum(p, m, g, lr, momentum=momentum),
-            state.params, state.opt_state, grads)
-        # tree_map recurses into dicts only: each leaf of `out` is the
-        # (p', m') pair of one parameter
+        # one K4 launch for every leaf (opt_state and grads are built
+        # from params, so their leaves come in the same order)
+        ps, ms = gemm.sgd_accum_many(
+            tree_leaves(state.params), tree_leaves(state.opt_state),
+            tree_leaves(grads), lr, momentum=momentum)
         return dataclasses.replace(
-            state, params=tree_map(lambda o: o[0], out),
-            opt_state=tree_map(lambda o: o[1], out), step=state.step + 1)
+            state, params=tree_unflatten(state.params, ps),
+            opt_state=tree_unflatten(state.opt_state, ms),
+            step=state.step + 1)
 
     def train_step(state: TrainState, bx, by, bm,
                    gate: torch.Tensor | None = None):

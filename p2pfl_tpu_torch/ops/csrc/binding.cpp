@@ -12,14 +12,37 @@
 
 namespace {
 
+// Error messages are built here without iostreams: an integer formatted
+// into c10::str's ostringstream crashed this extension with a
+// segmentation fault on the card's PyTorch build, so every check passes
+// one std::string.
+std::string piece(const char* s) { return s; }
+std::string piece(const std::string& s) { return s; }
+std::string piece(at::ScalarType t) { return c10::toString(t); }
+std::string piece(const c10::Device& d) { return d.str(); }
+std::string piece(at::IntArrayRef a) {
+  std::string s = "[";
+  for (size_t i = 0; i < a.size(); ++i)
+    s += (i ? ", " : "") + std::to_string(a[i]);
+  return s + "]";
+}
+template <typename I, std::enable_if_t<std::is_integral_v<I>, int> = 0>
+std::string piece(I v) {
+  return std::to_string(v);
+}
+template <typename... A>
+std::string msg(const A&... a) {
+  return (std::string() + ... + piece(a));
+}
+
 void check(const torch::Tensor& t, const char* name, at::ScalarType dtype,
            int64_t dim) {
-  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
-  TORCH_CHECK(t.scalar_type() == dtype, name, " must be ", dtype, ", got ",
-              t.scalar_type());
-  TORCH_CHECK(t.dim() == dim, name, " must have ", dim, " dims, got ",
-              t.dim());
-  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  TORCH_CHECK(t.is_cuda(), msg(name, " must be a CUDA tensor"));
+  TORCH_CHECK(t.scalar_type() == dtype,
+              msg(name, " must be ", dtype, ", got ", t.scalar_type()));
+  TORCH_CHECK(t.dim() == dim,
+              msg(name, " must have ", dim, " dims, got ", t.dim()));
+  TORCH_CHECK(t.is_contiguous(), msg(name, " must be contiguous"));
 }
 
 void same_device(const torch::Tensor& a, const torch::Tensor& b) {
@@ -27,7 +50,8 @@ void same_device(const torch::Tensor& a, const torch::Tensor& b) {
 }
 
 int as_int(int64_t v, const char* name) {
-  TORCH_CHECK(v >= 0 && v <= INT32_MAX, name, " out of int range: ", v);
+  TORCH_CHECK(v >= 0 && v <= INT32_MAX,
+              msg(name, " out of int range: ", v));
   return static_cast<int>(v);
 }
 
@@ -36,7 +60,7 @@ torch::Tensor stream_gemm(torch::Tensor x, torch::Tensor w) {
   check(w, "w", at::kBFloat16, 3);
   same_device(x, w);
   TORCH_CHECK(x.size(0) == w.size(0) && x.size(2) == w.size(1),
-              "stream_gemm shapes ", x.sizes(), " @ ", w.sizes());
+              msg("stream_gemm shapes ", x.sizes(), " @ ", w.sizes()));
   const c10::cuda::CUDAGuard guard(x.device());
   auto out = torch::empty({x.size(0), x.size(1), w.size(2)}, x.options());
   if (out.numel() == 0) return out;
@@ -53,7 +77,7 @@ torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g) {
   check(g, "g", at::kBFloat16, 3);
   same_device(x, g);
   TORCH_CHECK(x.size(0) == g.size(0) && x.size(1) == g.size(1),
-              "stream_wgrad shapes ", x.sizes(), " ^T@ ", g.sizes());
+              msg("stream_wgrad shapes ", x.sizes(), " ^T@ ", g.sizes()));
   const c10::cuda::CUDAGuard guard(x.device());
   const int n = as_int(x.size(0), "n"), M = as_int(x.size(1), "M");
   const int K = as_int(x.size(2), "K"), N = as_int(g.size(2), "N");
@@ -80,8 +104,8 @@ std::vector<torch::Tensor> dense_bwd(torch::Tensor x, torch::Tensor w,
   TORCH_CHECK(x.size(0) == w.size(0) && x.size(0) == g.size(0) &&
                   x.size(2) == w.size(1) && x.size(1) == g.size(1) &&
                   w.size(2) == g.size(2),
-              "dense_bwd shapes x ", x.sizes(), " w ", w.sizes(), " g ",
-              g.sizes());
+              msg("dense_bwd shapes x ", x.sizes(), " w ", w.sizes(), " g ",
+                  g.sizes()));
   const c10::cuda::CUDAGuard guard(x.device());
   auto dx = torch::empty_like(x);
   auto dw = torch::empty_like(w);
@@ -95,95 +119,185 @@ std::vector<torch::Tensor> dense_bwd(torch::Tensor x, torch::Tensor w,
   return {dx, dw};
 }
 
-std::vector<torch::Tensor> sgd(torch::Tensor p, torch::Tensor m,
-                               torch::Tensor g, torch::Tensor lr,
-                               double decay) {
-  check(p, "p", at::kFloat, 2);
-  check(g, "g", at::kFloat, 2);
-  check(lr, "lr", at::kFloat, 1);
-  TORCH_CHECK(m.is_cuda() && m.dim() == 2 && m.is_contiguous(),
-              "m must be a contiguous 2-D CUDA tensor");
-  TORCH_CHECK(m.scalar_type() == at::kFloat ||
-                  m.scalar_type() == at::kBFloat16,
-              "m must be float32 or bfloat16");
-  same_device(p, m);
-  same_device(p, g);
-  same_device(p, lr);
-  TORCH_CHECK(p.sizes() == m.sizes() && p.sizes() == g.sizes() &&
-                  lr.size(0) == p.size(0),
-              "sgd shapes p ", p.sizes(), " m ", m.sizes(), " g ", g.sizes(),
-              " lr ", lr.sizes());
-  const c10::cuda::CUDAGuard guard(p.device());
-  auto p_out = torch::empty_like(p);
-  auto m_out = torch::empty_like(m);
-  p2pfl::launch_sgd(p.data_ptr<float>(), m.data_ptr(), g.data_ptr<float>(),
-                    lr.data_ptr<float>(), p_out.data_ptr<float>(),
-                    m_out.data_ptr(), static_cast<float>(decay),
-                    m.scalar_type() == at::kBFloat16 ? 1 : 0, p.size(0),
-                    p.size(1), at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return {p_out, m_out};
+// K4 and K5 over a list of leaves (csrc/multi_tensor.cuh). Each leaf is
+// a parameter stacked over the n slots of lr / w; one dtype combination
+// a list. Non-contiguous operands are copied; an operand whose base is
+// not aligned to its vector width (a view with a storage offset) takes
+// the kernel's scalar path. Each kind of output is one allocation, which
+// the leaves' outputs view at offsets of whole 256-byte lines (one
+// allocation, not one a leaf, is what the host pays for). Empty leaves
+// get empty outputs and no work. Returns (p', m', acc') — a form's
+// unused outputs empty — and the number of launches: one per
+// kMaxStreamLeaves non-empty leaves.
+using Leaves = std::vector<torch::Tensor>;
+using ManyOut = std::tuple<Leaves, Leaves, Leaves, int64_t>;
+
+enum Form { kStep, kStepAccum, kAccum };
+
+void on_device(const torch::Tensor& t, const c10::Device& dev,
+               const char* name) {
+  TORCH_CHECK_VALUE(t.device() == dev,
+                    msg("operands must all be on CPU or all on CUDA (one "
+                        "device): ", name, " is on ", t.device(), ", p on ",
+                        dev));
 }
 
-void check_float_or_bf16(const torch::Tensor& t, const char* name) {
-  TORCH_CHECK(t.is_cuda() && t.dim() == 2 && t.is_contiguous(), name,
-              " must be a contiguous 2-D CUDA tensor");
-  TORCH_CHECK(t.scalar_type() == at::kFloat ||
-                  t.scalar_type() == at::kBFloat16,
-              name, " must be float32 or bfloat16, got ", t.scalar_type());
+void float_or_bf16(at::ScalarType t, const char* name) {
+  TORCH_CHECK_VALUE(t == at::kFloat || t == at::kBFloat16,
+                    msg(name, " must be float32 or bfloat16, got ", t));
 }
 
-std::vector<torch::Tensor> sgd_accum(torch::Tensor p, torch::Tensor m,
-                                     torch::Tensor g, torch::Tensor lr,
-                                     torch::Tensor acc, torch::Tensor w,
-                                     double decay) {
-  check_float_or_bf16(p, "p");
-  check_float_or_bf16(m, "m");
-  check(g, "g", p.scalar_type(), 2);
-  check(lr, "lr", at::kFloat, 1);
-  check(acc, "acc", at::kFloat, 2);
-  check(w, "w", at::kFloat, 1);
-  for (const auto* t : {&m, &g, &lr, &acc, &w}) same_device(p, *t);
-  TORCH_CHECK(p.sizes() == m.sizes() && p.sizes() == g.sizes() &&
-                  p.sizes() == acc.sizes() && lr.size(0) == p.size(0) &&
-                  w.size(0) == p.size(0),
-              "sgd_accum shapes p ", p.sizes(), " m ", m.sizes(), " g ",
-              g.sizes(), " acc ", acc.sizes(), " lr ", lr.sizes(), " w ",
-              w.sizes());
-  const c10::cuda::CUDAGuard guard(p.device());
-  auto p_out = torch::empty_like(p);
-  auto m_out = torch::empty_like(m);
-  auto acc_out = torch::empty_like(acc);
-  p2pfl::launch_sgd_accum(
-      p.data_ptr(), m.data_ptr(), g.data_ptr(), lr.data_ptr<float>(),
-      acc.data_ptr<float>(), w.data_ptr<float>(), p_out.data_ptr(),
-      m_out.data_ptr(), acc_out.data_ptr<float>(), static_cast<float>(decay),
-      p.scalar_type() == at::kBFloat16 ? 1 : 0,
-      m.scalar_type() == at::kBFloat16 ? 1 : 0, p.size(0), p.size(1),
-      at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return {p_out, m_out, acc_out};
+void per_slot(const torch::Tensor& v, const c10::Device& dev,
+              const char* name) {
+  on_device(v, dev, name);
+  TORCH_CHECK_VALUE(v.scalar_type() == at::kFloat && v.dim() == 1 &&
+                        v.is_contiguous(),
+                    msg(name, " must be a contiguous 1-D float32 tensor, "
+                        "got ", v.scalar_type(), " ", v.sizes()));
 }
 
-torch::Tensor fedavg_accum(torch::Tensor p, torch::Tensor acc,
-                           torch::Tensor w) {
-  check_float_or_bf16(p, "p");
-  check(acc, "acc", at::kFloat, 2);
-  check(w, "w", at::kFloat, 1);
-  same_device(p, acc);
-  same_device(p, w);
-  TORCH_CHECK(p.sizes() == acc.sizes() && w.size(0) == p.size(0),
-              "fedavg_accum shapes p ", p.sizes(), " acc ", acc.sizes(),
-              " w ", w.sizes());
-  const c10::cuda::CUDAGuard guard(p.device());
-  auto acc_out = torch::empty_like(acc);
-  p2pfl::launch_fedavg_accum(p.data_ptr(), acc.data_ptr<float>(),
-                             w.data_ptr<float>(), acc_out.data_ptr<float>(),
-                             p.scalar_type() == at::kBFloat16 ? 1 : 0,
-                             p.size(0), p.size(1),
-                             at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return acc_out;
+// `like`'s shape, contiguous, `offset` values into the flat `buf`
+torch::Tensor view_of(const torch::Tensor& buf, const torch::Tensor& like,
+                      int64_t offset) {
+  std::vector<int64_t> strides(like.dim());
+  int64_t stride = 1;
+  for (int64_t d = like.dim() - 1; d >= 0; --d) {
+    strides[d] = stride;
+    stride *= like.size(d);
+  }
+  return buf.as_strided(like.sizes(), strides, offset);
+}
+
+ManyOut stream_many(Form form, const Leaves& ps, const Leaves& ms,
+                    const Leaves& gs, const Leaves& accs,
+                    const torch::Tensor* lr, const torch::Tensor* w,
+                    double decay) {
+  const bool step = form != kAccum, accum = form != kStep;
+  const size_t k = ps.size();
+  TORCH_CHECK_VALUE((!step || (ms.size() == k && gs.size() == k)) &&
+                        (!accum || accs.size() == k),
+                    "leaf lists of unequal lengths");
+  Leaves p_out, m_out, acc_out;
+  if (k == 0) return {p_out, m_out, acc_out, 0};
+  const c10::Device dev = ps[0].device();
+  TORCH_CHECK_VALUE(dev.is_cuda(), msg("operands must all be on CPU or all "
+                                       "on CUDA: p is on ", dev));
+  const at::ScalarType pdt = ps[0].scalar_type();
+  const at::ScalarType tdt = step ? ms[0].scalar_type() : at::kFloat;
+  float_or_bf16(pdt, "p");
+  float_or_bf16(tdt, "m");
+  const torch::Tensor& slots = step ? *lr : *w;
+  if (step) per_slot(*lr, dev, "lr");
+  if (accum) per_slot(*w, dev, "weight");
+  TORCH_CHECK_VALUE(!(step && accum) || lr->size(0) == w->size(0),
+                    msg("lr ", lr->sizes(), " and weight ", w->sizes(),
+                        " differ in slots"));
+  const int64_t n = slots.size(0);
+  const c10::cuda::CUDAGuard guard(dev);
+  Leaves keep;  // contiguous copies, alive until the launches are queued
+  auto operand = [&](const torch::Tensor& t, const torch::Tensor& p,
+                     at::ScalarType dtype, const char* name) {
+    on_device(t, dev, name);
+    TORCH_CHECK_VALUE(t.scalar_type() == dtype,
+                      msg(name, " must be ", dtype, " as the list's first, "
+                          "got ", t.scalar_type()));
+    TORCH_CHECK_VALUE(t.sizes() == p.sizes(), msg(name, " has shape ",
+                                                  t.sizes(), ", p ",
+                                                  p.sizes()));
+    if (t.is_contiguous()) return t.data_ptr();
+    keep.push_back(t.contiguous());
+    return keep.back().data_ptr();
+  };
+  // the inputs, and each leaf's offset in the flat outputs
+  std::vector<p2pfl::StreamLeaf> leaves(k);
+  std::vector<int64_t> offset(k);
+  int64_t total = 0;
+  for (size_t i = 0; i < k; ++i) {
+    const torch::Tensor& p = ps[i];
+    on_device(p, dev, "p");
+    TORCH_CHECK_VALUE(p.scalar_type() == pdt,
+                      msg("one dtype for every p of a list: ", pdt, " and ",
+                          p.scalar_type()));
+    TORCH_CHECK_VALUE(p.dim() >= 1 && p.size(0) == n,
+                      msg("leaf ", i, " has shape ", p.sizes(), ", want ", n,
+                          " slots first"));
+    p2pfl::StreamLeaf& leaf = leaves[i];
+    leaf.n = n;
+    leaf.numel = n == 0 ? 0 : p.numel() / n;
+    leaf.p = operand(p, p, pdt, "p");
+    if (step) {
+      leaf.m = operand(ms[i], p, tdt, "m");
+      leaf.g = operand(gs[i], p, pdt, "g");
+    }
+    if (accum)
+      leaf.acc = static_cast<const float*>(
+          operand(accs[i], p, at::kFloat, "acc"));
+    offset[i] = total;
+    total += (p.numel() + 63) / 64 * 64;
+  }
+  const auto flat = [&](at::ScalarType dtype) {
+    return torch::empty({total}, ps[0].options().dtype(dtype));
+  };
+  torch::Tensor p_flat, m_flat, acc_flat;
+  if (step) {
+    p_flat = flat(pdt);
+    m_flat = flat(tdt);
+  }
+  if (accum) acc_flat = flat(at::kFloat);
+  std::vector<p2pfl::StreamLeaf> table;
+  for (size_t i = 0; i < k; ++i) {
+    p2pfl::StreamLeaf& leaf = leaves[i];
+    if (step) {
+      p_out.push_back(view_of(p_flat, ps[i], offset[i]));
+      m_out.push_back(view_of(m_flat, ps[i], offset[i]));
+      leaf.p_out = p_out.back().data_ptr();
+      leaf.m_out = m_out.back().data_ptr();
+    }
+    if (accum) {
+      acc_out.push_back(view_of(acc_flat, ps[i], offset[i]));
+      leaf.acc_out = acc_out.back().data_ptr<float>();
+    }
+    if (ps[i].numel() > 0) table.push_back(leaf);
+  }
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  const int p_bf16 = pdt == at::kBFloat16, t_bf16 = tdt == at::kBFloat16;
+  int64_t launched = 0;
+  for (size_t first = 0; first < table.size();
+       first += p2pfl::kMaxStreamLeaves) {
+    const int count = static_cast<int>(std::min<size_t>(
+        p2pfl::kMaxStreamLeaves, table.size() - first));
+    const p2pfl::StreamLeaf* chunk = table.data() + first;
+    if (form == kStep)
+      p2pfl::launch_sgd(chunk, count, lr->data_ptr<float>(),
+                        static_cast<float>(decay), p_bf16, t_bf16, stream);
+    else if (form == kStepAccum)
+      p2pfl::launch_sgd_accum(chunk, count, lr->data_ptr<float>(),
+                              w->data_ptr<float>(),
+                              static_cast<float>(decay), p_bf16, t_bf16,
+                              stream);
+    else
+      p2pfl::launch_fedavg_accum(chunk, count, w->data_ptr<float>(), p_bf16,
+                                 stream);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    ++launched;
+  }
+  return {p_out, m_out, acc_out, launched};
+}
+
+ManyOut sgd(const Leaves& ps, const Leaves& ms, const Leaves& gs,
+            const torch::Tensor& lr, double decay) {
+  return stream_many(kStep, ps, ms, gs, {}, &lr, nullptr, decay);
+}
+
+ManyOut sgd_accum(const Leaves& ps, const Leaves& ms, const Leaves& gs,
+                  const torch::Tensor& lr, const Leaves& accs,
+                  const torch::Tensor& w, double decay) {
+  return stream_many(kStepAccum, ps, ms, gs, accs, &lr, &w, decay);
+}
+
+ManyOut fedavg_accum(const Leaves& ps, const Leaves& accs,
+                     const torch::Tensor& w) {
+  return stream_many(kAccum, ps, {}, {}, accs, nullptr, &w, 0.0);
 }
 
 // K6: trains `state` (w0, b0, w1, b1, w2, b2 and their traces, f32, the
@@ -197,7 +311,7 @@ torch::Tensor fused_mlp_train_epoch(std::vector<torch::Tensor> state,
                   by.is_contiguous(),
               "by must be a contiguous [n, rows, 1] CUDA tensor");
   TORCH_CHECK(by.scalar_type() == at::kInt || by.scalar_type() == at::kLong,
-              "by must be int32 or int64, got ", by.scalar_type());
+              msg("by must be int32 or int64, got ", by.scalar_type()));
   same_device(bx, by);
   const int64_t n = bx.size(0), rows = bx.size(1), d_in = bx.size(2);
   const int64_t d1 = state[0].size(-1), d2 = state[2].size(-1);
@@ -209,14 +323,16 @@ torch::Tensor fused_mlp_train_epoch(std::vector<torch::Tensor> state,
     check(state[i], "state", at::kFloat, 3);
     same_device(bx, state[i]);
     TORCH_CHECK(state[i].sizes() == at::IntArrayRef(shapes[i % 6]),
-                "fused epoch leaf ", i % 6, (i < 6 ? " (params)" : " (trace)"),
-                " has shape ", state[i].sizes(), ", want ",
-                at::IntArrayRef(shapes[i % 6]));
+                msg("fused epoch leaf ", i % 6,
+                    (i < 6 ? " (params)" : " (trace)"), " has shape ",
+                    state[i].sizes(), ", want ",
+                    at::IntArrayRef(shapes[i % 6])));
   }
-  TORCH_CHECK(by.size(0) == n && by.size(1) == rows, "by shape ", by.sizes(),
-              " for bx ", bx.sizes());
-  TORCH_CHECK(batch > 0 && rows % batch == 0, "rows (", rows,
-              ") must be a positive multiple of batch (", batch, ")");
+  TORCH_CHECK(by.size(0) == n && by.size(1) == rows,
+              msg("by shape ", by.sizes(), " for bx ", bx.sizes()));
+  TORCH_CHECK(batch > 0 && rows % batch == 0,
+              msg("rows (", rows, ") must be a positive multiple of batch (",
+                  batch, ")"));
   const c10::cuda::CUDAGuard guard(bx.device());
   auto f32 = bx.options();
   auto loss = torch::empty({n}, f32);
@@ -249,9 +365,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stream_gemm", &stream_gemm, "K1: [n,M,K] @ [n,K,N], bf16");
   m.def("stream_wgrad", &stream_wgrad, "K2: [n,M,K]^T @ [n,M,N] -> f32");
   m.def("dense_bwd", &dense_bwd, "K3: fused dx, dw of y = x @ w");
-  m.def("sgd", &sgd, "K4: SGD-with-momentum step over [n, numel]");
-  m.def("sgd_accum", &sgd_accum, "K5: K4 plus acc + w * p' over [n, numel]");
-  m.def("fedavg_accum", &fedavg_accum, "K5 null form: acc + w * p");
+  m.def("sgd", &sgd, "K4: SGD-with-momentum step over a list of leaves");
+  m.def("sgd_accum", &sgd_accum,
+        "K5: K4 plus acc + w * p' over a list of leaves");
+  m.def("fedavg_accum", &fedavg_accum,
+        "K5 null form: acc + w * p over a list of leaves");
+  m.attr("max_stream_leaves") = p2pfl::kMaxStreamLeaves;
   m.def("fused_mlp_train_epoch", &fused_mlp_train_epoch,
         "K6: one SGD-with-momentum epoch of a 3-layer MLP per node");
 }

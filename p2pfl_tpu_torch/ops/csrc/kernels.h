@@ -28,27 +28,42 @@ void launch_dense_bwd(const void* x, const void* w, const void* g,
                       void* dx, void* dw, int n, int B, int D, int H,
                       cudaStream_t stream);
 
-// K4: one SGD-with-momentum step over [n, numel] leaves; p and g f32,
-// the trace f32 (trace_bf16 = 0) or bf16 (trace_bf16 = 1), lr [n] f32.
-void launch_sgd(const float* p, const void* m, const float* g,
-                const float* lr, float* p_out, void* m_out, float decay,
-                int trace_bf16, long long n, long long numel,
+// One leaf of a K4/K5 launch: a parameter stacked over n slots (nodes
+// or cohort slots), [n, numel] contiguous. Operands a form does not use
+// are null; outputs are the binding's fresh tensors.
+struct StreamLeaf {
+  const void* p;
+  const void* m;
+  const void* g;
+  const float* acc;
+  void* p_out;
+  void* m_out;
+  float* acc_out;
+  long long n, numel;
+};
+
+// Leaves one K4/K5 launch takes: their table is a kernel parameter
+// (4 KB at most). The binding splits a longer list into launches.
+constexpr int kMaxStreamLeaves = 48;
+
+// K4: one SGD-with-momentum step over `count` (1..kMaxStreamLeaves)
+// non-empty leaves in one launch; p and g f32 (p_bf16 = 0) or bf16
+// (p_bf16 = 1), the trace f32 (trace_bf16 = 0) or bf16, lr [n] f32 (the
+// learning rate times the update gate), shared by every leaf.
+void launch_sgd(const StreamLeaf* leaves, int count, const float* lr,
+                float decay, int p_bf16, int trace_bf16,
                 cudaStream_t stream);
 
 // K5, general form: K4's step plus acc_out = acc + w[slot] * f32(p_out)
-// over [n, numel]; p and g f32 (p_bf16 = 0) or bf16 (p_bf16 = 1), the
-// trace f32 or bf16, lr, w [n] f32, acc f32.
-void launch_sgd_accum(const void* p, const void* m, const void* g,
-                      const float* lr, const float* acc, const float* w,
-                      void* p_out, void* m_out, float* acc_out, float decay,
-                      int p_bf16, int trace_bf16, long long n,
-                      long long numel, cudaStream_t stream);
+// over `count` leaves in one launch; w [n] f32, acc f32.
+void launch_sgd_accum(const StreamLeaf* leaves, int count, const float* lr,
+                      const float* w, float decay, int p_bf16,
+                      int trace_bf16, cudaStream_t stream);
 
 // K5, null form (fedavg_accum): acc_out = acc + w[slot] * f32(p) over
-// [n, numel]; p f32 or bf16, acc f32, w [n] f32.
-void launch_fedavg_accum(const void* p, const float* acc, const float* w,
-                         float* acc_out, int p_bf16, long long n,
-                         long long numel, cudaStream_t stream);
+// `count` leaves in one launch; p f32 or bf16, acc f32, w [n] f32.
+void launch_fedavg_accum(const StreamLeaf* leaves, int count, const float* w,
+                         int p_bf16, cudaStream_t stream);
 
 // K6: one SGD-with-momentum epoch of a 3-layer ReLU MLP per node, over
 // n nodes. params / mom: 6 f32 tensors each (w0 [n,d_in,d1], b0 [n,d1],

@@ -11,11 +11,15 @@ FEMNIST-CNN rounds run:
   [n,M,N]`` summed in f32 — conv1 and conv2 weight gradients.
 - ``dense_bwd`` (K3, replaces ``_dense_bwd``): ``dx = g @ w^T`` and
   ``dw = x^T @ g`` in one launch — the dense1 backward.
-- ``sgd_accum`` (K4, replaces ``_sgd``): one SGD-with-momentum step.
-- ``sgd_accum(acc=, weight=)`` and ``fedavg_accum`` (K5, replaces
-  ``_sgd_acc``): K4 plus the weighted FedAvg accumulate
+- ``sgd_accum_many`` (K4, replaces ``_sgd``): one SGD-with-momentum
+  step over every leaf of a training step in one launch.
+- ``sgd_accum_many(accs=, weight=)`` and ``fedavg_accum_many`` (K5,
+  replaces ``_sgd_acc``): K4 plus the weighted FedAvg accumulate
   ``acc + w[slot] * p'``, and its null form ``acc + w[slot] * p`` — the
-  cross-device round's per-step accumulate.
+  cross-device round's per-step accumulate, one launch for all leaves.
+  ``sgd_accum`` and ``fedavg_accum`` are their one-leaf cases, with the
+  signatures of the JAX package's ``pallas_gemm.sgd_accum`` and
+  ``fedavg_accum``.
 
 Every kernel takes the node axis as its leading dimension; the JAX
 package's ``vmap`` over nodes is that axis written out. Beside each
@@ -31,6 +35,8 @@ can show that it went through the kernels.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from p2pfl_tpu_torch.ops import _build
@@ -40,7 +46,9 @@ __all__ = [
     "stream_wgrad", "stream_wgrad_plain",
     "dense_bwd", "dense_bwd_plain",
     "sgd_accum", "sgd_accum_plain",
+    "sgd_accum_many", "sgd_accum_many_plain",
     "fedavg_accum", "fedavg_accum_plain",
+    "fedavg_accum_many", "fedavg_accum_many_plain",
     "patches_matmul", "conv2_matmul", "dense_matmul",
     "launches", "reset_launches",
 ]
@@ -62,11 +70,11 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     """True when every operand lies on the CPU (the plain version's
     only use); False when all lie on a CUDA device. Anything else
     raises: the kernels run on CUDA tensors and nowhere else."""
-    kinds = {t.device.type for t in ts}
-    if kinds == {"cpu"}:
+    if all(t.is_cpu for t in ts):
         return True
-    if kinds == {"cuda"}:
+    if all(t.is_cuda for t in ts):
         return False
+    kinds = sorted({t.device.type for t in ts})
     raise ValueError(f"operands must all be on CPU or all on CUDA: {kinds}")
 
 
@@ -140,6 +148,7 @@ def dense_bwd(x: torch.Tensor, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+@functools.cache
 def _decay(momentum: float, trace_dtype: torch.dtype) -> float:
     # optax multiplies the trace by the momentum in the trace's dtype
     return float(torch.tensor(momentum, dtype=trace_dtype))
@@ -172,35 +181,65 @@ def sgd_accum_plain(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
     return p_new, m_new.to(m.dtype), acc_new
 
 
+def sgd_accum_many_plain(ps: list, ms: list, gs: list, lr: torch.Tensor, *,
+                         momentum: float, accs: list | None = None,
+                         weight: torch.Tensor | None = None):
+    """:func:`sgd_accum_plain` leaf by leaf over lists of leaves that
+    share ``lr`` (and ``weight``): lists ``(ps', ms')``, with ``accs``
+    and ``weight`` also ``accs'``."""
+    _check_step_lists(ps, ms, gs, accs, weight)
+    if accs is None:
+        out = [sgd_accum_plain(p, m, g, lr, momentum=momentum)
+               for p, m, g in zip(ps, ms, gs)]
+    else:
+        out = [sgd_accum_plain(p, m, g, lr, momentum=momentum, acc=a,
+                               weight=weight)
+               for p, m, g, a in zip(ps, ms, gs, accs)]
+    width = 2 if accs is None else 3
+    return tuple([o[k] for o in out] for k in range(width))
+
+
+def sgd_accum_many(ps: list, ms: list, gs: list, lr: torch.Tensor, *,
+                   momentum: float, accs: list | None = None,
+                   weight: torch.Tensor | None = None):
+    """K4 (``csrc/sgd.cu``): the step of :func:`sgd_accum_many_plain`
+    over every leaf in one launch (one per 48 leaves). Each leaf is a
+    parameter stacked over the slots of ``lr [n]`` f32; p and g f32 or
+    bf16, the trace f32 or bf16, one dtype combination a list. With
+    ``accs`` and ``weight [n]``, K5 (``csrc/sgd_accum.cu``): the step
+    and the accumulate in one pass. At lr 0 (update gate 0) p comes
+    back bit-exact. New tensors are returned, nothing is updated in
+    place; on the card each kind of output is one allocation that the
+    leaves' outputs view."""
+    _check_step_lists(ps, ms, gs, accs, weight)
+    if not ps or ps[0].is_cpu:
+        extra = () if accs is None else (*accs, weight)
+        _on_cpu(*ps, *ms, *gs, lr, *extra)  # raises for a mix
+        return sgd_accum_many_plain(ps, ms, gs, lr, momentum=momentum,
+                                    accs=accs, weight=weight)
+    # the binding checks that every operand lies on p's CUDA device
+    decay = _decay(momentum, ms[0].dtype)
+    if accs is None:
+        p_new, m_new, _, n = _build.kernels().sgd(ps, ms, gs, lr, decay)
+        launches["sgd_accum"] += n
+        return p_new, m_new
+    p_new, m_new, acc_new, n = _build.kernels().sgd_accum(
+        ps, ms, gs, lr, accs, weight, decay)
+    launches["sgd_accum_acc"] += n
+    return p_new, m_new, acc_new
+
+
 def sgd_accum(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
               lr: torch.Tensor, *, momentum: float,
               acc: torch.Tensor | None = None,
               weight: torch.Tensor | None = None):
-    """K4 (``csrc/sgd.cu``): the step of :func:`sgd_accum_plain` in one
-    pass over ``[n, numel]``, p and g f32, m f32 or bf16, lr ``[n]`` f32.
-    With ``acc`` and ``weight``, K5 (``csrc/sgd_accum.cu``): the step and
-    the accumulate in one pass, p and g f32 or bf16. At lr 0 (update
-    gate 0) p comes back bit-exact."""
-    if (acc is None) != (weight is None):
-        raise ValueError("acc and weight go together")
-    if acc is None:
-        if _on_cpu(p, m, g, lr):
-            return sgd_accum_plain(p, m, g, lr, momentum=momentum)
-        n = p.shape[0]
-        p_new, m_new = _build.kernels().sgd(
-            p.reshape(n, -1), m.reshape(n, -1), g.reshape(n, -1), lr,
-            _decay(momentum, m.dtype))
-        launches["sgd_accum"] += 1
-        return p_new.view(p.shape), m_new.view(m.shape)
-    if _on_cpu(p, m, g, lr, acc, weight):
-        return sgd_accum_plain(p, m, g, lr, momentum=momentum, acc=acc,
-                               weight=weight)
-    n = p.shape[0]
-    p_new, m_new, acc_new = _build.kernels().sgd_accum(
-        p.reshape(n, -1), m.reshape(n, -1), g.reshape(n, -1), lr,
-        acc.reshape(n, -1), weight, _decay(momentum, m.dtype))
-    launches["sgd_accum_acc"] += 1
-    return p_new.view(p.shape), m_new.view(m.shape), acc_new.view(acc.shape)
+    """K4 (``csrc/sgd.cu``) over one leaf: :func:`sgd_accum_plain`'s
+    step, the one-leaf case of :func:`sgd_accum_many`. With ``acc`` and
+    ``weight``, K5 (``csrc/sgd_accum.cu``): the step and the accumulate
+    in one pass. At lr 0 (update gate 0) p comes back bit-exact."""
+    out = sgd_accum_many([p], [m], [g], lr, momentum=momentum,
+                         accs=None if acc is None else [acc], weight=weight)
+    return tuple(leaves[0] for leaves in out)
 
 
 def fedavg_accum_plain(p: torch.Tensor, acc: torch.Tensor,
@@ -211,18 +250,45 @@ def fedavg_accum_plain(p: torch.Tensor, acc: torch.Tensor,
     return acc + _per_slot(weight, p) * p.float()
 
 
+def fedavg_accum_many_plain(ps: list, accs: list,
+                            weight: torch.Tensor) -> list:
+    """:func:`fedavg_accum_plain` leaf by leaf."""
+    _same_lengths(ps, accs)
+    return [fedavg_accum_plain(p, a, weight) for p, a in zip(ps, accs)]
+
+
+def fedavg_accum_many(ps: list, accs: list, weight: torch.Tensor) -> list:
+    """K5's null form (``csrc/sgd_accum.cu``): ``acc' = acc +
+    weight[slot] * f32(p)`` for every leaf in one launch (one per 48
+    leaves); p f32 or bf16 (one dtype a list), acc f32 of p's shape,
+    weight ``[n]`` f32. Returns the new accumulators."""
+    _same_lengths(ps, accs)
+    if not ps or ps[0].is_cpu:
+        _on_cpu(*ps, *accs, weight)  # raises for a mix
+        return fedavg_accum_many_plain(ps, accs, weight)
+    _, _, acc_new, n = _build.kernels().fedavg_accum(ps, accs, weight)
+    launches["fedavg_accum"] += n
+    return acc_new
+
+
 def fedavg_accum(p: torch.Tensor, acc: torch.Tensor,
                  weight: torch.Tensor) -> torch.Tensor:
-    """K5's null form (``csrc/sgd_accum.cu``): ``acc' = acc +
-    weight[slot] * f32(p)`` in one pass over ``[n, numel]``; p f32 or
-    bf16, acc f32 of p's shape, weight ``[n]`` f32. Returns ``acc'``."""
-    if _on_cpu(p, acc, weight):
-        return fedavg_accum_plain(p, acc, weight)
-    n = p.shape[0]
-    acc_new = _build.kernels().fedavg_accum(
-        p.reshape(n, -1), acc.reshape(n, -1), weight)
-    launches["fedavg_accum"] += 1
-    return acc_new.view(acc.shape)
+    """K5's null form over one leaf, the one-leaf case of
+    :func:`fedavg_accum_many`: ``acc' = acc + weight[slot] * f32(p)``;
+    p f32 or bf16, acc f32 of p's shape, weight ``[n]`` f32."""
+    return fedavg_accum_many([p], [acc], weight)[0]
+
+
+def _same_lengths(*lists) -> None:
+    lengths = [len(x) for x in lists]
+    if len(set(lengths)) != 1:
+        raise ValueError(f"leaf lists of unequal lengths {lengths}")
+
+
+def _check_step_lists(ps, ms, gs, accs, weight) -> None:
+    if (accs is None) != (weight is None):
+        raise ValueError("acc and weight go together")
+    _same_lengths(ps, ms, gs, *(() if accs is None else (accs,)))
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,12 @@ import torch
 from p2pfl_tpu_torch.adversary.attacks import AttackSpec, poison_stacked
 from p2pfl_tpu_torch.adversary.reputation import spmd_trust_obs
 from p2pfl_tpu_torch.core.aggregators import Aggregator, FedAvg
-from p2pfl_tpu_torch.core.pytree import Params, tree_map
+from p2pfl_tpu_torch.core.pytree import (
+    Params,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from p2pfl_tpu_torch.learning.learner import StepFns, TrainState
 from p2pfl_tpu_torch.ops import gemm
 from p2pfl_tpu_torch.topology.topology import Topology
@@ -257,10 +262,10 @@ def cross_device_wn(c_sizes: torch.Tensor, c_alive: torch.Tensor):
 
 def _cross_device_plan(params0: Params, fused_accumulate: bool) -> Params:
     """Per leaf: True sends the per-step accumulate through K5
-    (``gemm.fedavg_accum``, per-slot f32 accumulators). Under the fused
-    layout that is every leaf with a per-slot axis (ndim >= 2) — on the
-    card always, as the JAX package's route with ``P2PFL_PALLAS_GEMM=on``;
-    a per-slot scalar takes the row product. The unfused layout is the
+    (``gemm.fedavg_accum_many``, per-slot f32 accumulators). Under the
+    fused layout that is every leaf with a per-slot axis (ndim >= 2) — on
+    the card always, as the JAX package's route with
+    ``P2PFL_PALLAS_GEMM=on``; a per-slot scalar takes the row product. The unfused layout is the
     reference product and never takes K5."""
     return tree_map(lambda p: fused_accumulate and p.dim() >= 2, params0)
 
@@ -294,6 +299,9 @@ def _cross_device_body(fns: StepFns, epochs: int,
     def cast(p):
         return p if mix_dtype is None else p.to(mix_dtype)
 
+    k5 = tree_leaves(plan)  # per leaf, in tree_leaves order: K5 or not
+    k5_idx = [i for i, use_k5 in enumerate(k5) if use_k5]
+
     def body(carry, x_t, y_t, m_t, alive_t, wn_t):
         opt_state, rng, step, acc = carry
         n_slots = alive_t.shape[0]
@@ -306,17 +314,24 @@ def _cross_device_body(fns: StepFns, epochs: int,
         # dtype as the JAX package's [n, n] weight matrix is
         w_row = cast(wn_t).float()
 
-        def leaf_acc(a, p, use_k5):
-            if use_k5:
-                # acc[s] += wn[s] * p[s] in one pass (the weights stay f32)
-                return gemm.fedavg_accum(cast(p), a, wn_t)
+        def row_acc(a, p):
             flat = cast(p.reshape(n_slots, -1)).float()
             if fused_accumulate:
                 return a + torch.matmul(w_row[None, :], flat)  # [1,n]@[n,d]
             w_t = w_row[None, :].expand(n_slots, n_slots)
             return a + torch.matmul(w_t, flat)  # [n,n]@[n,d], f32
 
-        acc = tree_map(leaf_acc, acc, states_t.params, plan)
+        ps, accs = tree_leaves(states_t.params), tree_leaves(acc)
+        new = [a if use_k5 else row_acc(a, p)
+               for a, p, use_k5 in zip(accs, ps, k5)]
+        if k5_idx:
+            # acc[s] += wn[s] * p[s] for every K5 leaf in one launch (the
+            # weights stay f32)
+            for i, a in zip(k5_idx, gemm.fedavg_accum_many(
+                    [cast(ps[i]) for i in k5_idx],
+                    [accs[i] for i in k5_idx], wn_t)):
+                new[i] = a
+        acc = tree_unflatten(acc, new)
         carry = (states_t.opt_state, states_t.rng, states_t.step, acc)
         return carry, tm["loss"]
 

@@ -15,7 +15,11 @@ them, where two runs must give the same bits. Tolerances: bf16 outputs (K1, K3) 
 f32 sum, rtol 2**-7 and atol 1e-2; f32 sums (K2) rtol 1e-4 and atol
 1e-2, and two runs bit-identical (no atomics); the SGD step (K4) and
 the SGD step with the FedAvg accumulate and its null form (K5) the same
-bits as their plain versions, and at gate 0 the params unchanged. The
+bits as their plain versions, and at gate 0 the params unchanged; over
+lists of leaves (the FEMNIST CNN's, mnist-mlp's, ragged slot sizes, an
+unaligned or non-contiguous operand, more leaves than one launch holds)
+one launch a list of 48 leaves, the same bits as the per-leaf plain
+versions, on two runs. The
 fused MLP epoch (K6) is held to its plain version (``torch.bmm`` in
 f32, TF32 off; the two sum in other orders) and gives the same bits on
 two runs. From one state (one step, a short shard, narrow widths) every
@@ -204,6 +208,178 @@ def test_k5_wrappers_raise_on_mixed_devices(dev):
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         gemm.sgd_accum(p, p, p, torch.ones(2, device=dev), momentum=0.9,
                        acc=p, weight=torch.ones(2))
+
+
+# K4 and K5 over lists of leaves, one launch a list (48 leaves at most a
+# launch): the FEMNIST CNN's and mnist-mlp's leaf sets, and leaves of 62,
+# 10 and 1 values a slot, whose slot boundaries fall inside a 4-value
+# vector. The same bits as the per-leaf plain versions, gate 0 (lr 0)
+# leaves every leaf's params bit for bit, two runs give the same bits.
+_LEAF_SETS = {
+    "femnist_cnn": [(5, 5, 1, 32), (32,), (5, 5, 32, 64), (64,),
+                    (3136, 2048), (2048,), (2048, 62), (62,)],
+    "mnist_mlp": [(784, 256), (256,), (256, 128), (128,), (128, 10),
+                  (10,)],
+    "ragged": [(62,), (10,), (1,), (3, 7), (4097,)],
+}
+_SLOT_LR = [0.05, 0.0, 0.1, 0.0]
+_SLOT_W = [0.1, 0.2, 0.3, 0.4]
+
+
+def _leaves(dev, seed, shapes, dtype, n=4):
+    return [_rand(dev, seed + i, n, *s, dtype=dtype)
+            for i, s in enumerate(shapes)]
+
+
+def _equal_lists(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trace", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("leaf_set", sorted(_LEAF_SETS))
+def test_sgd_accum_many_one_launch_bits_gate_and_reruns(dev, leaf_set,
+                                                        trace, pdt):
+    shapes = _LEAF_SETS[leaf_set]
+    ps, gs = _leaves(dev, 40, shapes, pdt), _leaves(dev, 60, shapes, pdt)
+    ms = _leaves(dev, 80, shapes, trace)
+    lr = torch.tensor(_SLOT_LR, device=dev)
+    before = gemm.launches["sgd_accum"]
+    got = gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9)
+    assert gemm.launches["sgd_accum"] == before + 1
+    want = gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9)
+    for g, w in zip(got, want):
+        _equal_lists(g, w)
+    off = lr == 0
+    for p, kp in zip(ps, got[0]):
+        assert torch.equal(kp[off], p[off])
+    again = gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9)
+    for g, w in zip(got, again):
+        _equal_lists(g, w)
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trace", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("leaf_set", sorted(_LEAF_SETS))
+def test_sgd_accum_many_acc_one_launch_bits_gate_and_reruns(dev, leaf_set,
+                                                            trace, pdt):
+    shapes = _LEAF_SETS[leaf_set]
+    ps, gs = _leaves(dev, 41, shapes, pdt), _leaves(dev, 61, shapes, pdt)
+    ms = _leaves(dev, 81, shapes, trace)
+    accs = _leaves(dev, 101, shapes, torch.float32)
+    lr = torch.tensor(_SLOT_LR, device=dev)
+    w = torch.tensor(_SLOT_W, device=dev)
+    before = gemm.launches["sgd_accum_acc"]
+    got = gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9, accs=accs,
+                              weight=w)
+    assert gemm.launches["sgd_accum_acc"] == before + 1
+    want = gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9,
+                                     accs=accs, weight=w)
+    for g, v in zip(got, want):
+        _equal_lists(g, v)
+    off = lr == 0
+    for p, kp in zip(ps, got[0]):
+        assert torch.equal(kp[off], p[off])
+    again = gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9, accs=accs,
+                                weight=w)
+    for g, v in zip(got, again):
+        _equal_lists(g, v)
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("leaf_set", sorted(_LEAF_SETS))
+def test_fedavg_accum_many_one_launch_bits_and_reruns(dev, leaf_set, pdt):
+    shapes = _LEAF_SETS[leaf_set]
+    ps = _leaves(dev, 42, shapes, pdt)
+    accs = _leaves(dev, 102, shapes, torch.float32)
+    w = torch.tensor(_SLOT_W, device=dev)
+    before = gemm.launches["fedavg_accum"]
+    got = gemm.fedavg_accum_many(ps, accs, w)
+    assert gemm.launches["fedavg_accum"] == before + 1
+    _equal_lists(got, gemm.fedavg_accum_many_plain(ps, accs, w))
+    _equal_lists(got, gemm.fedavg_accum_many(ps, accs, w))
+
+
+def test_many_unaligned_leaf_takes_the_scalar_path(dev):
+    # a view one value into its storage: its base is off the 16-byte
+    # vector boundary, so that leaf takes the scalar path of the launch
+    n, numel = 4, 4096 + 6
+    base = _rand(dev, 43, n * numel + 1, dtype=torch.float32)
+    p = base[1:].view(n, numel)
+    assert p.data_ptr() % 16 != 0
+    ps = [p, _rand(dev, 44, n, 62, dtype=torch.float32)]
+    ms = [_rand(dev, 45, n, numel, dtype=torch.float32),
+          _rand(dev, 46, n, 62, dtype=torch.float32)]
+    gs = [_rand(dev, 47, n, numel, dtype=torch.float32),
+          _rand(dev, 48, n, 62, dtype=torch.float32)]
+    accs = [_rand(dev, 49, n, numel, dtype=torch.float32),
+            _rand(dev, 50, n, 62, dtype=torch.float32)]
+    lr = torch.tensor(_SLOT_LR, device=dev)
+    w = torch.tensor(_SLOT_W, device=dev)
+    for got, want in (
+            (gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9),
+             gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9)),
+            (gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9, accs=accs,
+                                 weight=w),
+             gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9,
+                                       accs=accs, weight=w)),
+            ((gemm.fedavg_accum_many(ps, accs, w),),
+             (gemm.fedavg_accum_many_plain(ps, accs, w),))):
+        for g, v in zip(got, want):
+            _equal_lists(g, v)
+    # an unaligned accumulator, and a non-contiguous p (the binding
+    # copies it)
+    acc_u = _rand(dev, 51, n * numel + 2, dtype=torch.float32)[2:].view(
+        n, numel)
+    p_t = _rand(dev, 53, numel, n, dtype=torch.float32).t()
+    got = gemm.fedavg_accum_many([ps[1], p_t], [accs[1], acc_u], w)
+    _equal_lists(got, gemm.fedavg_accum_many_plain(
+        [ps[1], p_t], [accs[1], acc_u], w))
+
+
+def test_many_more_leaves_than_one_launch_holds(dev):
+    k = 2 * 48 + 5  # three launches of 48, 48 and 5 leaves
+    shapes = [((i * 37) % 300 + 1,) for i in range(k)]
+    ps, gs = (_leaves(dev, 200, shapes, torch.float32),
+              _leaves(dev, 400, shapes, torch.float32))
+    ms = _leaves(dev, 600, shapes, torch.bfloat16)
+    accs = _leaves(dev, 800, shapes, torch.float32)
+    lr = torch.tensor(_SLOT_LR, device=dev)
+    w = torch.tensor(_SLOT_W, device=dev)
+    gemm.reset_launches()
+    got = gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9)
+    acc = gemm.fedavg_accum_many(ps, accs, w)
+    assert gemm.launches["sgd_accum"] == 3
+    assert gemm.launches["fedavg_accum"] == 3
+    for g, v in zip(got, gemm.sgd_accum_many_plain(ps, ms, gs, lr,
+                                                   momentum=0.9)):
+        _equal_lists(g, v)
+    _equal_lists(acc, gemm.fedavg_accum_many_plain(ps, accs, w))
+
+
+def test_many_empty_lists_and_leaves_and_refusals(dev):
+    lr = torch.tensor(_SLOT_LR, device=dev)
+    w = torch.tensor(_SLOT_W, device=dev)
+    gemm.reset_launches()
+    assert gemm.sgd_accum_many([], [], [], lr, momentum=0.9) == ([], [])
+    assert gemm.fedavg_accum_many([], [], w) == []
+    empty = torch.zeros(4, 0, 3, device=dev)
+    got = gemm.sgd_accum_many([empty], [empty], [empty], lr, momentum=0.9)
+    assert got[0][0].shape == empty.shape and got[1][0].shape == empty.shape
+    assert gemm.launches["sgd_accum"] == 0
+    p = _rand(dev, 52, 4, 9, dtype=torch.float32)
+    # one dtype combination a list
+    with pytest.raises(ValueError, match="one dtype"):
+        gemm.fedavg_accum_many([p, p.bfloat16()], [p, p], w)
+    with pytest.raises(ValueError, match="slots first"):
+        gemm.fedavg_accum_many([p[:3]], [p[:3]], w)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        gemm.sgd_accum_many([p], [p.cpu()], [p], lr, momentum=0.9)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        gemm.fedavg_accum_many([p], [p], w.cpu())
 
 
 K6_STATE_TOL = dict(rtol=2e-4, atol=2e-5)
