@@ -17,14 +17,17 @@ one, or when run outside a checkout of this repository). Phases:
    ragged-rows refusal), held against its plain PyTorch version on the
    same inputs with a stated tolerance (K1-K6 also twice, bit for bit;
    K4 and K5 their plain versions' bits, gated-off params unchanged,
-   one launch a call; K3 also at the cross-device (8 x 20) and
-   Byzantine (16 x 64) shapes), and timed with CUDA events beside the
-   plain version, one PyTorch library call where there is one (for K4
-   one ``torch._fused_sgd_`` over all leaves, for K5 one
-   ``torch._foreach_addcmul``), and the card's bound, with the achieved
-   TB/s and TFLOP/s and the share of the bound; for K1, K3, K4 and K5
-   also the host's time to enqueue one call, and for K4 and K5 the
-   kernel's own device time from a profiled run.
+   one launch a call; K2 and K3 also at the cross-device (8 x 20) and
+   Byzantine (16 x 64) shapes, K2's conv1 and conv2 apart, each with
+   its slice plan), and timed with CUDA events beside the plain
+   version, one PyTorch library call where there is one (for K2
+   ``torch.bmm``, for K4 one ``torch._fused_sgd_`` over all leaves, for
+   K5 one ``torch._foreach_addcmul``), and the card's bound, with the
+   achieved TB/s and TFLOP/s and the share of the bound; for K1-K6 also
+   the host's time to enqueue one call, and for K2, K4, K5 and K6 the
+   kernel's own device time from a profiled run (K2's beside
+   ``torch.bmm``'s). K6 prints its instantiation (on chip or
+   L2-resident), the clusters the card holds at once and its waves.
 3. End to end, the stacked federation: the port's ``Scenario`` on the
    full-width FEMNIST CNN, 8 nodes on a ring, DFL, FedAvg, bf16 wire,
    750 samples a node, batch 336, 3 rounds on the seeded synthetic
@@ -225,22 +228,43 @@ def kernel_checks(dev, peak) -> dict:
               "a call", flush=True)
         del x, w, got
 
-    # K2 stream_wgrad: f32 sums over M rows in another order
+    # K2 stream_wgrad: f32 sums over M rows in another order. conv1 and
+    # conv2 at the ring step (the instances the kernels line sums), the
+    # cross-device cohort step (8 slots x 20) and the Byzantine step (16
+    # nodes x 64), each with its slice plan, the host's time to enqueue
+    # a call and its profiled device time beside torch.bmm's
     k2_tol = dict(rtol=1e-4, atol=1e-2)
-    for inst, (m, k, nn_) in [("conv1_wgrad", (m1, 25, 32)),
-                              ("conv2_wgrad", (m2, 800, 64))]:
-        x, g = rand(n, m, k), rand(n, m, nn_)
+    for inst, (nk, m, k, nn_), summed in [
+            ("conv1_wgrad", (n, m1, 25, 32), True),
+            ("conv2_wgrad", (n, m2, 800, 64), True),
+            ("crossdev_conv1_wgrad", (8, 20 * 784, 25, 32), False),
+            ("crossdev_conv2_wgrad", (8, 20 * 196, 800, 64), False),
+            ("byzantine_conv1_wgrad", (16, 64 * 784, 25, 32), False),
+            ("byzantine_conv2_wgrad", (16, 64 * 196, 800, 64), False)]:
+        x, g = rand(nk, m, k), rand(nk, m, nn_)
         got = gemm.stream_wgrad(x, g)
         same_bits(f"stream_wgrad {inst}", lambda: gemm.stream_wgrad(x, g))
         err, ok = within(got, gemm.stream_wgrad_plain(x, g), **k2_tol)
         xt = x.transpose(1, 2)
+        plan = gemm.wgrad_plan(nk, m, k, nn_)
         record("stream_wgrad", inst, err, ok, k2_tol,
                time_ms(lambda: gemm.stream_wgrad(x, g)),
                time_ms(lambda: gemm.stream_wgrad_plain(x, g)),
                time_ms(lambda: torch.bmm(xt, g)),
-               2 * n * (m * k + m * nn_) + 4 * n * k * nn_,
-               2 * n * m * k * nn_, bf16_peak)
+               2 * nk * (m * k + m * nn_) + 4 * nk * k * nn_,
+               2 * nk * m * k * nn_, bf16_peak, summed=summed)
+        rows[-1].update(plan=plan._asdict())
+        print(f"    plan: {plan.route} route, {plan.slices} slices of "
+              f"{plan.rows} rows a node, {plan.tiles} tiles a slice, "
+              f"{nk * plan.slices * plan.tiles} blocks", flush=True)
+        host_device(rows, lambda: gemm.stream_wgrad(x, g), "wgrad",
+                    lib_fn=lambda: torch.bmm(xt, g))
+        r = rows[-1]
+        print(f"    faster than torch.bmm: by events "
+              f"{r['ms'] < r['library_ms']}, on the device "
+              f"{r['device_ms'] < r['library_device_ms']}", flush=True)
         del x, g, got, xt
+    torch.cuda.empty_cache()
 
     # K3 dense_bwd: bf16 outputs, as K1. The ring step (the instance the
     # kernels line sums), the cross-device cohort step (8 slots x 20) and
@@ -373,6 +397,12 @@ def kernel_checks(dev, peak) -> dict:
            time_ms(lambda: epoch(fused_train.fused_mlp_train_epoch_plain),
                    reps=10),
            None, nbytes, flops, f32_peak)
+    rows[-1].update(k6_plan(n6, MLP_BATCH, d_in, d1, d2, n_cls))
+    host_device(rows, lambda: epoch(fused_train.fused_mlp_train_epoch),
+                "mlp_epoch", reps=5)
+    r = rows[-1]
+    print(f"    kernel / plain {r['ms'] / r['plain_ms']:.3f} (events)",
+          flush=True)
     del params, mom, bx, by, got, again
     torch.cuda.empty_cache()
 
@@ -458,7 +488,7 @@ def step_checks(rows, record, same_bits, rand, lr, w, f32_peak) -> None:
                "same bits", time_ms(kern), time_ms(plain), lib,
                values * (12 + 2 * ms[0].element_size()), 4 * values,
                f32_peak, on_path=on_path, summed=on_path)
-        step_host_device(rows, kern, lib_fn=lib_fn)
+        host_device(rows, kern, "stream_kernel", lib_fn=lib_fn)
         del ps, gs, ms, lib_fn
         torch.cuda.empty_cache()
 
@@ -482,7 +512,7 @@ def step_checks(rows, record, same_bits, rand, lr, w, f32_peak) -> None:
                True, "same bits", time_ms(kern), time_ms(plain), None,
                values * (20 + 2 * ms[0].element_size()), 6 * values,
                f32_peak, on_path=False, summed=False)
-        step_host_device(rows, kern)
+        host_device(rows, kern, "stream_kernel")
         del ps, gs, ms, accs
         torch.cuda.empty_cache()
 
@@ -514,18 +544,19 @@ def step_checks(rows, record, same_bits, rand, lr, w, f32_peak) -> None:
                "same bits", time_ms(kern), time_ms(plain), lib,
                values * (ps[0].element_size() + 8), 2 * values, f32_peak,
                on_path=on_path, summed=on_path)
-        step_host_device(rows, kern, lib_fn=lib_fn)
+        host_device(rows, kern, "stream_kernel", lib_fn=lib_fn)
         del ps, accs
         torch.cuda.empty_cache()
 
 
-def step_host_device(rows, kern, lib_fn=None, reps: int = 10) -> None:
-    """The host's time to enqueue one all-leaves call on an idle card,
-    and a profiled run of ``reps`` calls: the kernel's own device time a
-    call and its launches a call (and the library call's, where given),
-    which the event times (host and device together) do not separate."""
+def host_device(rows, kern, name: str, lib_fn=None, reps: int = 10) -> None:
+    """The host's time to enqueue one call on an idle card, and a
+    profiled run of ``reps`` calls: the kernel's own device time a call
+    (the kernels whose name holds ``name``) and its launches a call (and
+    the library call's, where given), which the event times (host and
+    device together) do not separate."""
     us, piped = enqueue_us(kern), enqueue_us(kern, idle=False)
-    dev_ms, count = device_time(kern, reps, "stream_kernel")
+    dev_ms, count = device_time(kern, reps, name)
     line = (f"    host {us:.1f} us a call on an idle card, {piped:.1f} us "
             f"back to back; device {dev_ms:.4f} ms a call in {count:g} "
             "launch(es) (profiled)")
@@ -609,6 +640,23 @@ def mlp_epoch_inputs(dev):
     stacked = tree_map(lambda *leaves: torch.stack(leaves).to(dev), *trees)
     params = tuple(t.contiguous() for t in mlp_params_to_tuple(stacked))
     return params, tuple(torch.zeros_like(t) for t in params), bx, by
+
+
+def k6_plan(n: int, batch: int, d_in: int, d1: int, d2: int,
+            n_cls: int) -> dict:
+    """K6's instantiation at these widths, printed: on chip or
+    L2-resident, its shared memory a block, the 8-block clusters the card
+    holds at once and the waves n nodes take."""
+    from p2pfl_tpu_torch.ops import _build
+
+    inst, smem, clusters = _build.kernels().fused_mlp_epoch_plan(
+        batch, d_in, d1, d2, n_cls)
+    waves = -(-n // clusters) if clusters else None
+    print(f"    K6 instantiation {inst}: {smem} B of shared memory a block, "
+          f"{clusters} clusters resident, {n} nodes in {waves} waves",
+          flush=True)
+    return dict(instantiation=inst, smem_bytes=smem,
+                clusters_resident=clusters, waves=waves)
 
 
 def k6_compare(got, want, multi_step: bool):
@@ -1008,6 +1056,8 @@ def fused_epoch_path(dev) -> int:
     from p2pfl_tpu_torch.ops.fused_train import fused_mlp_train_epoch
 
     params, mom, bx, by = mlp_epoch_inputs(dev)
+    k6_plan(bx.shape[0], MLP_BATCH, bx.shape[2], params[0].shape[2],
+            params[2].shape[2], params[4].shape[2])
     losses, times = [], []
     gemm.reset_launches()
     for _ in range(5):

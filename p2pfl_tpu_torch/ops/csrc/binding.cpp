@@ -72,7 +72,11 @@ torch::Tensor stream_gemm(torch::Tensor x, torch::Tensor w) {
   return out;
 }
 
-torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g) {
+// K2 with the caller's slice plan (ops/gemm.py::wgrad_plan): `wide`
+// names the route, `rows` the rows of a slice, `slices` the slices of a
+// node.
+torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, bool wide,
+                           int64_t rows, int64_t slices) {
   check(x, "x", at::kBFloat16, 3);
   check(g, "g", at::kBFloat16, 3);
   same_device(x, g);
@@ -85,11 +89,27 @@ torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g) {
   auto out = torch::empty({n, K, N}, f32);
   if (out.numel() == 0) return out;
   if (M == 0) return out.zero_();
-  auto partial = torch::empty(
-      {n, static_cast<int64_t>(p2pfl::wgrad_splits(M)), K, N}, f32);
-  p2pfl::launch_stream_wgrad(x.data_ptr(), g.data_ptr(),
-                             partial.data_ptr<float>(), out.data_ptr<float>(),
-                             n, M, K, N, at::cuda::getCurrentCUDAStream());
+  const int unit = wide ? p2pfl::kWgradWideRows : p2pfl::kWgradGeneralRows;
+  TORCH_CHECK(rows > 0 && rows % unit == 0 && slices > 0 &&
+                  rows * slices >= M && rows * (slices - 1) < M,
+              msg("stream_wgrad: ", slices, " slices of ", rows,
+                  " rows do not cut M = ", M, " (rows a multiple of ", unit,
+                  ")"));
+  if (wide) {
+    const auto aligned = [](const torch::Tensor& t) {
+      return reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0;
+    };
+    TORCH_CHECK(K % 8 == 0 && N % 8 == 0 && aligned(x) && aligned(g),
+                msg("stream_wgrad: the wide route needs K (", K, ") and N (",
+                    N, ") multiples of 8 and 16-byte-aligned operands"));
+  }
+  torch::Tensor partial;
+  if (slices > 1) partial = torch::empty({n, slices, K, N}, f32);
+  p2pfl::launch_stream_wgrad(
+      x.data_ptr(), g.data_ptr(),
+      slices > 1 ? partial.data_ptr<float>() : nullptr, out.data_ptr<float>(),
+      n, M, K, N, wide ? 1 : 0, as_int(rows, "rows"),
+      as_int(slices, "slices"), at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -337,10 +357,15 @@ torch::Tensor fused_mlp_train_epoch(std::vector<torch::Tensor> state,
   auto f32 = bx.options();
   auto loss = torch::empty({n}, f32);
   const int B = as_int(batch, "batch");
-  auto scratch = torch::empty(
-      {n, p2pfl::fused_mlp_scratch_floats(B, as_int(d1, "d1"),
-                                          as_int(d2, "d2"), as_int(C, "C"))},
-      f32);
+  const p2pfl::MlpEpochPlan plan = p2pfl::fused_mlp_epoch_plan(
+      B, as_int(d_in, "d_in"), as_int(d1, "d1"), as_int(d2, "d2"),
+      as_int(C, "C"));
+  torch::Tensor scratch;
+  if (!plan.on_chip)
+    scratch = torch::empty(
+        {n, p2pfl::fused_mlp_scratch_floats(B, as_int(d1, "d1"),
+                                            as_int(d2, "d2"), as_int(C, "C"))},
+        f32);
   float* params[6];
   float* mom[6];
   for (int i = 0; i < 6; ++i) {
@@ -350,13 +375,25 @@ torch::Tensor fused_mlp_train_epoch(std::vector<torch::Tensor> state,
   p2pfl::launch_fused_mlp_epoch(
       bx.data_ptr<float>(), by.data_ptr(),
       by.scalar_type() == at::kLong ? 1 : 0, params, mom,
-      scratch.data_ptr<float>(), loss.data_ptr<float>(), as_int(n, "n"),
+      plan.on_chip ? nullptr : scratch.data_ptr<float>(),
+      loss.data_ptr<float>(), as_int(n, "n"),
       as_int(rows, "rows"), as_int(rows / batch, "steps"), B,
       as_int(d_in, "d_in"), as_int(d1, "d1"), as_int(d2, "d2"),
       as_int(C, "C"), static_cast<float>(lr), static_cast<float>(beta),
       at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return loss;
+}
+
+// K6's instantiation for these widths on the current device:
+// ("on_chip" or "l2", shared memory a block, clusters resident at once).
+std::tuple<std::string, int64_t, int64_t> fused_mlp_epoch_plan(
+    int64_t batch, int64_t d_in, int64_t d1, int64_t d2, int64_t C) {
+  const p2pfl::MlpEpochPlan plan = p2pfl::fused_mlp_epoch_plan(
+      as_int(batch, "batch"), as_int(d_in, "d_in"), as_int(d1, "d1"),
+      as_int(d2, "d2"), as_int(C, "C"));
+  return {plan.on_chip ? "on_chip" : "l2", plan.smem_bytes,
+          p2pfl::fused_mlp_clusters_resident(plan)};
 }
 
 }  // namespace
@@ -371,6 +408,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fedavg_accum", &fedavg_accum,
         "K5 null form: acc + w * p over a list of leaves");
   m.attr("max_stream_leaves") = p2pfl::kMaxStreamLeaves;
+  m.def("fused_mlp_epoch_plan", &fused_mlp_epoch_plan,
+        "K6: instantiation, shared memory a block, clusters resident");
   m.def("fused_mlp_train_epoch", &fused_mlp_train_epoch,
         "K6: one SGD-with-momentum epoch of a 3-layer MLP per node");
 }

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks of the K1 and K3 kernels, as inline
-// PTX: mbarriers, TMA tensor loads, 16-byte cp.async, wgmma descriptors
-// and instructions, and the host-side encoding of TMA descriptors
-// (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
-// the build needs no -lcuda).
+// Hopper (sm_90a) building blocks of the port's kernels (K1, K2, K3 and
+// K6), as inline PTX: mbarriers, TMA tensor loads, 16-byte cp.async,
+// wgmma descriptors and instructions, and the host-side encoding of TMA
+// descriptors (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint so the build needs no -lcuda).
 //
 // Shared-memory tiles are "boxes" of R rows x 64 bf16 (128 bytes a row,
 // the row along the operand's contiguous global axis) in the 128-byte

@@ -12,15 +12,19 @@ namespace p2pfl {
 void launch_stream_gemm(const void* x, const void* w, void* out, int n,
                         int M, int K, int N, cudaStream_t stream);
 
-// Number of depth splits K2 uses for M rows (partials buffer size).
-int wgrad_splits(int M);
-
-// K2: out[n, K, N] = x[n, M, K]^T @ g[n, M, N] in f32, summed over M
-// in `wgrad_splits(M)` fixed slices and reduced in slice order.
-// `partial` holds n * splits * K * N floats.
+// K2: out[n, K, N] = x[n, M, K]^T @ g[n, M, N] in f32, summed over M.
+// Each node's rows are cut into `slices` slices of `rows` rows (the last
+// one shorter), each summed on its own; when there is more than one,
+// `partial` (n * slices * K * N floats) holds the slices' sums, which a
+// second kernel adds in slice order. wide = 1 takes the TMA + wgmma
+// route (K and N multiples of 8, 16-byte-aligned bases; rows a multiple
+// of kWgradWideRows), wide = 0 the mma.sync route (any width; rows a
+// multiple of kWgradGeneralRows).
+constexpr int kWgradWideRows = 32;
+constexpr int kWgradGeneralRows = 256;
 void launch_stream_wgrad(const void* x, const void* g, float* partial,
-                         float* out, int n, int M, int K, int N,
-                         cudaStream_t stream);
+                         float* out, int n, int M, int K, int N, int wide,
+                         int rows, int slices, cudaStream_t stream);
 
 // K3: dx[n, B, D] = g @ w^T and dw[n, D, H] = x^T @ g in one launch;
 // x [n, B, D], w [n, D, H], g [n, B, H], all bf16.
@@ -69,8 +73,20 @@ void launch_fedavg_accum(const StreamLeaf* leaves, int count, const float* w,
 // n nodes. params / mom: 6 f32 tensors each (w0 [n,d_in,d1], b0 [n,d1],
 // w1 [n,d1,d2], b1 [n,d2], w2 [n,d2,C], b2 [n,C]), trained in place;
 // bx [n, rows, d_in] f32, by [n, rows] int32 (by_int64 = 0) or int64;
-// rows = steps * batch. `scratch` holds n * fused_mlp_scratch_floats(...)
-// floats; loss [n] receives each node's mean loss over the steps.
+// rows = steps * batch; loss [n] receives each node's mean loss over the
+// steps. The instantiation follows from the widths
+// (fused_mlp_epoch_plan): on_chip = 1 holds a node's weights in its
+// cluster's shared memory (smem_bytes a block); on_chip = 0 is the
+// L2-resident kernel, whose `scratch` holds n *
+// fused_mlp_scratch_floats(...) floats (unused otherwise).
+constexpr long long kMaxSmemBytes = 232448;  // a block's on sm_90
+struct MlpEpochPlan {
+  int on_chip, smem_bytes;
+};
+MlpEpochPlan fused_mlp_epoch_plan(int batch, int d_in, int d1, int d2,
+                                  int C);
+// Clusters of the plan's kernel resident on the current device at once.
+int fused_mlp_clusters_resident(const MlpEpochPlan& plan);
 long long fused_mlp_scratch_floats(int batch, int d1, int d2, int C);
 void launch_fused_mlp_epoch(const float* bx, const void* by, int by_int64,
                             float* const* params, float* const* mom,

@@ -357,7 +357,7 @@ __global__ void __launch_bounds__(kNThreads, 2)
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads) stream_gemm_tile_kernel(Gemm g) {
-  gemm_tile(g, blockIdx.x, 0, blockIdx.z);
+  gemm_tile(g, blockIdx.x, blockIdx.z);
 }
 
 void launch_tiles(const bf16* x, const bf16* w, void* out, int n, int M,
@@ -367,16 +367,13 @@ void launch_tiles(const bf16* x, const bf16* w, void* out, int n, int M,
   g.bt = View{w, 1, N};  // B^T(j, k) = w[k, j]
   g.a_node = static_cast<long long>(M) * K;
   g.b_node = static_cast<long long>(K) * N;
-  g.c = out;
+  g.c = static_cast<bf16*>(out);
   g.c_sm = N;
   g.c_sn = 1;
   g.c_node = static_cast<long long>(M) * N;
-  g.c_split = 0;
   g.M = M;
   g.N = N;
   g.K = K;
-  g.k_split = ((K + kBK - 1) / kBK) * kBK;
-  g.c_f32 = 0;
   const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   stream_gemm_tile_kernel<<<dim3(tiles, 1, n), kThreads, 0, stream>>>(g);
 }

@@ -1,80 +1,427 @@
-// K2. Replaces p2pfl_tpu/ops/pallas_gemm.py::_stream_wgrad (kernel body
-// _wgrad_kernel): x[M, K]^T @ g[M, N] -> [K, N] in f32, summed over M,
-// with the node axis taken directly.
+// K2. Replaces p2pfl_tpu/ops/pallas_gemm.py::_stream_wgrad (:171, kernel
+// body _wgrad_kernel :151, pallas_call :177): out[n, K, N] = x[n, M, K]^T
+// @ g[n, M, N] in f32, summed over the M rows of each node (the conv
+// weight gradients of models/cnn.py::patch_conv).
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16) at the smoke
-// shapes (n = 8, b = 336): memory. conv1 wgrad moves 240 MB (0.07 ms),
-// conv2 wgrad 912 MB (0.27 ms).
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): bytes at every
+// shape of the paths. conv1 (K = 25, N = 32) moves 114 bytes a row for
+// 1,600 operations, conv2 (K = 800, N = 64) 1,728 bytes for 102,400;
+// at the ring step (n = 8, M = 263,424 and 65,856) 240 + 912 MB,
+// 0.072 + 0.272 ms, where conv2's 54 GFLOP take 0.055 ms.
 //
-// Design: the TPU kernel summed M tiles in grid order into one resident
-// block. Here M (0.5M to 2.1M rows a call) is cut into fixed slices of
-// at most 4096 rows; each block sums one slice of one 64x64 output tile
-// into its own f32 partial, and a second kernel adds the partials of
-// each element in slice order. No float atomics, so two runs give the
-// same bits. Rows past the end of a slice or of M are zero-filled on
-// both operands while staging, so no out-of-range value (even a NaN)
-// can enter the sum. What it leaves on the table: x and g are staged
-// transposed through scalar loads, every K tile of a slice re-reads
-// that slice of g, and the partials take a second pass.
+// Design. Each node's rows are cut into slices by a plan that depends
+// on (n, M, K, N) only (ops/gemm.py::wgrad_plan): about 512 blocks over
+// the grid on the wide route and 256 on the other, and no slice shorter
+// than 1,024 rows where M allows, so the f32 partials stay small beside
+// the operands. A block
+// sums one slice of one output tile in a fixed order; when a node has
+// more than one slice, a second kernel adds the partials of each element
+// in slice order. No float atomics, no dependence on the SM count: two
+// runs give the same bits, on any H100. Nothing outside a node's rows
+// [0, M) enters its sums, so a NaN in one node stays in that node.
+//
+// Two routes, chosen by shape:
+//   - wide (rows of x and g 16-byte multiples, conv2): the product is
+//     tiled as out^T = g^T x, so g's N columns form one wgmma M tile (64)
+//     and up to 256 of x's K columns its N side; x's 64-column boxes are
+//     dealt evenly to the column chunks (conv2's 13 as 4, 3, 3, 3). A
+//     block (one producer warp, one consumer warpgroup, two blocks an SM)
+//     streams 32-row stages of its slice by TMA from 3-D maps over
+//     [n, M, .] (zero-filled past M and past K or N) into a 5-stage
+//     mbarrier ring: one g box (32 x 64, 128-byte swizzled) and the
+//     chunk's x boxes, up to 20 KB a stage. The warpgroup runs wgmma
+//     m64n256k16 with both operands MN-major straight from the boxes
+//     (K3's dw form), so x and g are read from HBM once: a slice of g is
+//     shared through L2 by the blocks of its column chunks, which sit
+//     next to each other in the grid. f32 accumulators stay in registers
+//     for the whole slice.
+//   - general (any other width; conv1, whose 50-byte x rows defeat 2-D
+//     TMA): a block covers a 32 x 32 output tile and walks its slice in
+//     256-row chunks through a 3-stage cp.async ring. Where a tile spans
+//     the whole row (K or N <= 32) and a node's rows start on a 16-byte
+//     boundary, a chunk's rows are one contiguous run, copied as it lies
+//     by 16-byte cp.async (its last vector zero-filled past the run, so
+//     nothing past a node's last row is read); otherwise the tile is
+//     copied element by element. Eight warps run mma.sync m16n8k16 on 32
+//     rows each, their fragments gathered from the raw rows by 16-bit
+//     loads, and the eight partial tiles are summed in warp order.
+// Earlier design (PR 1): one 128-thread block per 64 x 64 tile and
+// 4,096-row slice, x and g staged transposed through scalar 2-byte loads,
+// every 64-row K tile re-reading g: 3.008 ms for conv1 + conv2 at the
+// ring shape by chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W); PERF.md
+// has its time beside this design's.
+#include "hopper.cuh"
 #include "kernels.h"
-#include "tile_mma.cuh"
 
 namespace p2pfl {
+namespace {
 
-constexpr int kSliceRows = 4096;
+using sm90::bf16;
+using sm90::Operand;
 
-int wgrad_splits(int M) {
-  const int slice = ((kSliceRows + kBK - 1) / kBK) * kBK;
-  return M <= 0 ? 1 : (M + slice - 1) / slice;
+// ---------------------------------------------------------------------------
+// wide route: TMA + wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kWRows = kWgradWideRows;  // rows (depth) a stage
+constexpr int kWStages = 5;
+constexpr int kWCols = 256;                // x columns a block at most
+constexpr int kWBox = kWRows * 128;        // a 32 x 64 bf16 box
+constexpr int kWStageBytes = kWBox * (1 + kWCols / 64);
+constexpr int kWThreads = 160;             // warpgroup + producer warp
+constexpr int kWSmem = 1024 + kWStages * kWStageBytes + 2 * kWStages * 8;
+
+struct WideParams {
+  CUtensorMap g_map;  // g [n, M, N], boxes 32 rows x 64
+  CUtensorMap x_map;  // x [n, M, K], boxes 32 rows x 64
+  float* out;         // [n, slices, K, N]
+  int M, K, N, rows, slices;
+  // x's 64-column boxes are dealt to chunks_k column chunks, the first
+  // `extra` taking box_base + 1 boxes and the others box_base
+  int chunks_k, box_base, extra;
+};
+
+__global__ void __launch_bounds__(kWThreads, 2)
+    wgrad_wide_kernel(const __grid_constant__ WideParams p) {
+  extern __shared__ char raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWStages * kWStageBytes);
+  uint64_t* empty = full + kWStages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ck = blockIdx.x % p.chunks_k;
+  const int box0 = ck * p.box_base + min(ck, p.extra);
+  const int nbox = p.box_base + (ck < p.extra);
+  const int k0 = 64 * box0, k_end = min(p.K, 64 * (box0 + nbox));
+  const int n0 = (blockIdx.x / p.chunks_k) * 64;
+  const int slice = blockIdx.y, node = blockIdx.z;
+  const int row0 = slice * p.rows;
+  const int iters = (min(p.rows, p.M - row0) + kWRows - 1) / kWRows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4);  // one arrive per consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: lane 0 keeps the ring full
+    if (lane != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < iters; ++it) {
+      sm90::mbar_wait(&empty[stage], phase ^ 1);
+      char* s = smem + stage * kWStageBytes;
+      const int r = row0 + it * kWRows;
+      sm90::mbar_expect_tx(&full[stage], kWBox * (1 + nbox));
+      sm90::tma_load_3d(s, &p.g_map, &full[stage], n0, r, node);
+      for (int j = 0; j < nbox; ++j)
+        sm90::tma_load_3d(s + kWBox * (1 + j), &p.x_map, &full[stage],
+                          k0 + 64 * j, r, node);
+      if (++stage == kWStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: acc(c, k) = sum over the slice of g[m, c] x[m, k].
+  // The wgmma always spans four boxes; the columns of a box this chunk
+  // does not load hold stale values and are never stored.
+  float acc[kWCols / 2];
+#pragma unroll
+  for (int i = 0; i < kWCols / 2; ++i) acc[i] = 0.0f;
+  sm90::fence_acc(acc);
+  int stage = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int it = 0; it < iters; ++it) {
+    sm90::mbar_wait(&full[stage], phase);
+    const uint32_t a = sm90::smem_u32(smem + stage * kWStageBytes);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWRows / 16; ++kk)
+      // both MN-major: +16 rows of 128 B per k16; x's 64-wide column
+      // blocks lie one box apart
+      sm90::wgmma_m64n256<1, 1>(acc, sm90::make_desc(a + kk * 2048, kWBox),
+                                sm90::make_desc(a + kWBox + kk * 2048, kWBox));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    // the stage before this one has been read
+    sm90::mbar_arrive_if(&empty[prev], prev >= 0 && lane == 0);
+    prev = stage;
+    if (++stage == kWStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_acc(acc);
+
+  // d[4j + 2h + e] holds (c, k) = (16w + l/4 + 8h, 8j + 2(l%4) + e); a
+  // warp's store covers 8 consecutive c of 4 rows k: whole 32-byte sectors
+  float* out = p.out + (static_cast<long long>(node) * p.slices + slice) *
+                           static_cast<long long>(p.K) * p.N;
+#pragma unroll
+  for (int j = 0; j < kWCols / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + 16 * warp + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = k0 + 8 * j + 2 * (lane & 3) + e;
+        if (c < p.N && k < k_end)
+          out[static_cast<long long>(k) * p.N + c] = acc[4 * j + 2 * h + e];
+      }
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(Gemm g) {
-  gemm_tile(g, blockIdx.x, blockIdx.y, blockIdx.z);
+// ---------------------------------------------------------------------------
+// general route: cp.async runs + mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kGRows = kWgradGeneralRows;  // rows a chunk
+constexpr int kGStages = 3;
+constexpr int kGThreads = 256;             // eight warps, 32 rows each
+constexpr int kGOperand = kGRows * 32 * 2;  // an operand's chunk, bytes
+constexpr int kGSmem = kGStages * 2 * kGOperand;
+
+struct GeneralParams {
+  const bf16* x;
+  const bf16* g;
+  float* out;  // [n, slices, K, N]
+  int M, K, N, rows, slices, tiles_k;
+};
+
+// One operand's [rows, 32] block of a chunk in a stage. When the tile
+// spans the whole row (width <= 32) and the node's rows start on a
+// 16-byte boundary, the chunk's rows are one contiguous run, copied as
+// it lies by 16-byte cp.async (the last vector zero-filled past the
+// run's end, so nothing past it is read): element (m, k) at m * width +
+// k. Otherwise the block is copied element by element with zeros past
+// the operand's width: (m, k) at m * 32 + k.
+struct Run {
+  const bf16* base;  // the node's operand
+  int width, col0;
+  bool fast;
+  int ld, cols;  // row stride in the stage; columns of the tile in it
+
+  __device__ __forceinline__ void issue(char* dst, int r0, int rows) const {
+    if (fast) {
+      const char* src = reinterpret_cast<const char*>(
+          base + static_cast<long long>(r0) * width);
+      const int bytes = rows * width * 2;
+      for (int v = 16 * threadIdx.x; v < bytes; v += 16 * kGThreads) {
+        const int n = bytes - v < 16 ? bytes - v : 16;
+        asm volatile(
+            "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                sm90::smem_u32(dst + v)),
+            "l"(src + v), "r"(n)
+            : "memory");
+      }
+    } else {
+      bf16* d = reinterpret_cast<bf16*>(dst);
+      for (int i = threadIdx.x; i < rows * 32; i += kGThreads) {
+        const int r = i >> 5, c = col0 + (i & 31);
+        d[i] = c < width ? base[static_cast<long long>(r0 + r) * width + c]
+                         : __float2bfloat16(0.0f);
+      }
+    }
+  }
+};
+
+// two bf16 of the stage, (m, k) and (m + 1, k), as one mma register;
+// zero for rows >= valid and columns >= cols
+__device__ __forceinline__ uint32_t pair(const unsigned short* s, int ld,
+                                         int m, int k, int valid, int cols) {
+  const bool in = k < cols;
+  const uint32_t lo = in && m < valid ? s[m * ld + k] : 0;
+  const uint32_t hi = in && m + 1 < valid ? s[(m + 1) * ld + k] : 0;
+  return lo | (hi << 16);
 }
 
-// out[node, i] = sum over s in order of partial[node, s, i]
-__global__ void split_reduce_kernel(const float* partial, float* out,
-                                    int splits, long long per_node,
-                                    long long total) {
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kGThreads, 2)
+    wgrad_general_kernel(const GeneralParams p) {
+  extern __shared__ __align__(16) char gsm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int k0 = (blockIdx.x % p.tiles_k) * 32;
+  const int n0 = (blockIdx.x / p.tiles_k) * 32;
+  const int slice = blockIdx.y, node = blockIdx.z;
+  const int row0 = slice * p.rows;
+  const int row_end = min(row0 + p.rows, p.M);
+  const int chunks = (row_end - row0 + kGRows - 1) / kGRows;
+
+  Run rx, rg;
+  rx.base = p.x + static_cast<long long>(node) * p.M * p.K;
+  rx.width = p.K;
+  rx.col0 = k0;
+  rx.fast = p.K <= 32 && reinterpret_cast<uintptr_t>(rx.base) % 16 == 0;
+  rx.ld = rx.fast ? p.K : 32;
+  rx.cols = min(32, p.K - k0);
+  rg.base = p.g + static_cast<long long>(node) * p.M * p.N;
+  rg.width = p.N;
+  rg.col0 = n0;
+  rg.fast = p.N <= 32 && reinterpret_cast<uintptr_t>(rg.base) % 16 == 0;
+  rg.ld = rg.fast ? p.N : 32;
+  rg.cols = min(32, p.N - n0);
+
+  auto issue = [&](int c) {
+    if (c < chunks) {
+      char* st = gsm + (c % kGStages) * 2 * kGOperand;
+      const int r0 = row0 + c * kGRows, rows = min(kGRows, row_end - r0);
+      rx.issue(st, r0, rows);
+      rg.issue(st + kGOperand, r0, rows);
+    }
+    sm90::cp_async_commit();
+  };
+
+  // acc[I][J]: C(k, n) for k in 16I + [0, 16), n in 8J + [0, 8)
+  float acc[2][4][4] = {};
+  for (int c = 0; c < kGStages - 1; ++c) issue(c);
+  for (int c = 0; c < chunks; ++c) {
+    issue(c + kGStages - 1);
+    sm90::cp_async_wait<kGStages - 1>();
+    __syncthreads();
+    const char* st = gsm + (c % kGStages) * 2 * kGOperand;
+    const unsigned short* xs = reinterpret_cast<const unsigned short*>(st);
+    const unsigned short* gs =
+        reinterpret_cast<const unsigned short*>(st + kGOperand);
+    const int valid = min(kGRows, row_end - row0 - c * kGRows);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int m = 32 * warp + 16 * ks + 2 * tig;
+      // A(k, m) = x[m, k]: rows k = 16I + gid (+8), depth m (+8)
+      uint32_t a[2][4];
+#pragma unroll
+      for (int I = 0; I < 2; ++I) {
+        const int k = 16 * I + gid;
+        a[I][0] = pair(xs, rx.ld, m, k, valid, rx.cols);
+        a[I][1] = pair(xs, rx.ld, m, k + 8, valid, rx.cols);
+        a[I][2] = pair(xs, rx.ld, m + 8, k, valid, rx.cols);
+        a[I][3] = pair(xs, rx.ld, m + 8, k + 8, valid, rx.cols);
+      }
+      // B(m, n) = g[m, n]: depth m (+8), column n = 8J + gid
+#pragma unroll
+      for (int J = 0; J < 4; ++J) {
+        const int n = 8 * J + gid;
+        const uint32_t b0 = pair(gs, rg.ld, m, n, valid, rg.cols);
+        const uint32_t b1 = pair(gs, rg.ld, m + 8, n, valid, rg.cols);
+#pragma unroll
+        for (int I = 0; I < 2; ++I) mma16816(acc[I][J], a[I], b0, b1);
+      }
+    }
+    __syncthreads();  // the stage is free for the chunk after next
+  }
+  sm90::cp_async_wait<0>();
+
+  // the eight warps' tiles, summed in warp order
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(gsm);  // [8][32][32]
+#pragma unroll
+  for (int I = 0; I < 2; ++I)
+#pragma unroll
+    for (int J = 0; J < 4; ++J)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 16 * I + gid + 8 * (e >> 1);
+        const int c = 8 * J + 2 * tig + (e & 1);
+        red[(warp * 32 + k) * 32 + c] = acc[I][J][e];
+      }
+  __syncthreads();
+  float* out = p.out + (static_cast<long long>(node) * p.slices + slice) *
+                           static_cast<long long>(p.K) * p.N;
+  for (int i = threadIdx.x; i < 32 * 32; i += kGThreads) {
+    const int k = k0 + (i >> 5), c = n0 + (i & 31);
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kGThreads / 32; ++w) s += red[w * 1024 + i];
+    if (k < p.K && c < p.N) out[static_cast<long long>(k) * p.N + c] = s;
+  }
+}
+
+// out[node, e] = sum over s in order of partial[node, s, e]
+__global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
+                                    float* __restrict__ out, int slices,
+                                    long long per_node, long long total) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long node = i / per_node, e = i % per_node;
-    const float* p = partial + node * splits * per_node + e;
+    const float* q = partial + node * slices * per_node + e;
     float s = 0.0f;
-    for (int k = 0; k < splits; ++k) s += p[k * per_node];
+#pragma unroll 8
+    for (int k = 0; k < slices; ++k) s += q[k * per_node];
     out[i] = s;
   }
 }
 
+}  // namespace
+
 void launch_stream_wgrad(const void* x, const void* g, float* partial,
-                         float* out, int n, int M, int K, int N,
-                         cudaStream_t stream) {
-  const int splits = wgrad_splits(M);
-  Gemm p;
-  // A(i, j) = x[j, i]: rows i over K, depth j over M
-  p.a = View{static_cast<const bf16*>(x), 1, K};
-  // B^T(c, j) = g[j, c]
-  p.bt = View{static_cast<const bf16*>(g), 1, N};
-  p.a_node = static_cast<long long>(M) * K;
-  p.b_node = static_cast<long long>(M) * N;
-  p.c = partial;
-  p.c_sm = N;
-  p.c_sn = 1;
-  p.c_split = static_cast<long long>(K) * N;
-  p.c_node = p.c_split * splits;
-  p.M = K;
-  p.N = N;
-  p.K = M;
-  p.k_split = ((kSliceRows + kBK - 1) / kBK) * kBK;
-  p.c_f32 = 1;
-  const int tiles = ((K + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  wgrad_partial_kernel<<<dim3(tiles, splits, n), kThreads, 0, stream>>>(p);
-  const long long per_node = static_cast<long long>(K) * N;
-  const long long total = per_node * n;
-  const int blocks = static_cast<int>((total + 255) / 256);
-  split_reduce_kernel<<<blocks, 256, 0, stream>>>(partial, out, splits,
-                                                  per_node, total);
+                         float* out, int n, int M, int K, int N, int wide,
+                         int rows, int slices, cudaStream_t stream) {
+  float* dst = slices > 1 ? partial : out;
+  if (wide) {
+    WideParams p;
+    const long long nM = M;
+    p.g_map = sm90::make_tmap(
+        Operand{static_cast<const bf16*>(g), nM * N, N, N, M}, n, kWRows);
+    p.x_map = sm90::make_tmap(
+        Operand{static_cast<const bf16*>(x), nM * K, K, K, M}, n, kWRows);
+    p.out = dst;
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    p.rows = rows;
+    p.slices = slices;
+    const int boxes = (K + 63) / 64;
+    p.chunks_k = (boxes + kWCols / 64 - 1) / (kWCols / 64);
+    p.box_base = boxes / p.chunks_k;
+    p.extra = boxes % p.chunks_k;
+    const int tiles = p.chunks_k * ((N + 63) / 64);
+    cudaFuncSetAttribute(wgrad_wide_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+    wgrad_wide_kernel<<<dim3(tiles, slices, n), kWThreads, kWSmem, stream>>>(
+        p);
+  } else {
+    GeneralParams p;
+    p.x = static_cast<const bf16*>(x);
+    p.g = static_cast<const bf16*>(g);
+    p.out = dst;
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    p.rows = rows;
+    p.slices = slices;
+    p.tiles_k = (K + 31) / 32;
+    const int tiles = p.tiles_k * ((N + 31) / 32);
+    cudaFuncSetAttribute(wgrad_general_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+    wgrad_general_kernel<<<dim3(tiles, slices, n), kGThreads, kGSmem,
+                           stream>>>(p);
+  }
+  if (slices > 1) {
+    const long long per_node = static_cast<long long>(K) * N;
+    const long long total = per_node * n;
+    const int blocks = static_cast<int>((total + 255) / 256);
+    wgrad_reduce_kernel<<<blocks, 256, 0, stream>>>(partial, out, slices,
+                                                    per_node, total);
+  }
 }
 
 }  // namespace p2pfl

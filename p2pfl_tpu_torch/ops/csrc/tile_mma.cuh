@@ -1,14 +1,13 @@
-// One 64x64 output tile of a bf16 GEMM with f32 accumulation: the tile
-// routine of the wgrad kernel (K2), and K1's fallback for the shapes
-// its Hopper branches do not take (stream_gemm.cu).
+// One 64x64 output tile of a bf16 GEMM with f32 accumulation: K1's
+// fallback for the shapes its Hopper branches do not take
+// (stream_gemm.cu).
 //
 // C(m, n) = sum_k A(m, k) * B(k, n). Each operand is a strided view, so
 // one tile routine serves every layout the kernels need (x, x^T, w,
 // w^T, g, g^T) without a transpose pass in device memory. The block
 // stages a 64x32 tile of A and of B^T in shared memory (zero-filled
-// outside the operand and outside [k_begin, k_end), so a ragged edge or
-// another block's rows never enter the sum), then four warps each run
-// mma.sync m16n8k16 over 16 rows and all 64 columns.
+// outside the operand, so a ragged edge never enters the sum), then four
+// warps each run mma.sync m16n8k16 over 16 rows and all 64 columns.
 //
 // What this simple design leaves on the table: global loads are scalar
 // 2-byte loads (no cp.async, no TMA, no double buffering), so a block
@@ -41,12 +40,9 @@ struct Gemm {
   View a;               // A(m, k)
   View bt;              // B^T(n, k) = B(k, n)
   long long a_node, b_node;  // element strides between nodes
-  void* c;              // C(m, n) at c[m * c_sm + n * c_sn]
+  bf16* c;              // C(m, n) at c[m * c_sm + n * c_sn]
   long long c_sm, c_sn, c_node;
-  long long c_split;    // element stride between split-depth partials
   int M, N, K;
-  int k_split;          // depth handled by one blockIdx.y (a kBK multiple)
-  int c_f32;            // 1: store f32, 0: store bf16
 };
 
 __device__ __forceinline__ void stage(bf16 (*s)[kBK + kPad], View v,
@@ -75,18 +71,15 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Computes output tile `tile` (row-major over the tile grid) of depth
-// split `split` for node `node`.
-static __device__ void gemm_tile(const Gemm& g, int tile, int split,
-                                 int node) {
+// Computes output tile `tile` (row-major over the tile grid) for node
+// `node`.
+static __device__ void gemm_tile(const Gemm& g, int tile, int node) {
   __shared__ __align__(16) bf16 As[kBM][kBK + kPad];
   __shared__ __align__(16) bf16 Bs[kBN][kBK + kPad];
 
   const int tiles_n = (g.N + kBN - 1) / kBN;
   const int m0 = (tile / tiles_n) * kBM;
   const int n0 = (tile % tiles_n) * kBN;
-  const int k_begin = split * g.k_split;
-  const int k_end = min(g.K, k_begin + g.k_split);
 
   View a = g.a, bt = g.bt;
   a.p += node * g.a_node;
@@ -101,9 +94,9 @@ static __device__ void gemm_tile(const Gemm& g, int tile, int split,
   for (int j = 0; j < 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    stage(As, a, m0, g.M, k0, k_end);
-    stage(Bs, bt, n0, g.N, k0, k_end);
+  for (int k0 = 0; k0 < g.K; k0 += kBK) {
+    stage(As, a, m0, g.M, k0, g.K);
+    stage(Bs, bt, n0, g.N, k0, g.K);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
@@ -124,7 +117,7 @@ static __device__ void gemm_tile(const Gemm& g, int tile, int split,
   }
 
   // accumulator (row gid [+8], columns 2*tig, 2*tig+1) of each n8 tile
-  const long long base = node * g.c_node + split * g.c_split;
+  const long long base = node * g.c_node;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -132,11 +125,7 @@ static __device__ void gemm_tile(const Gemm& g, int tile, int split,
       const int m = m0 + wr + gid + (e >= 2 ? 8 : 0);
       const int n = n0 + j * 8 + 2 * tig + (e & 1);
       if (m < g.M && n < g.N) {
-        const long long off = base + m * g.c_sm + n * g.c_sn;
-        if (g.c_f32)
-          static_cast<float*>(g.c)[off] = acc[j][e];
-        else
-          static_cast<bf16*>(g.c)[off] = __float2bfloat16(acc[j][e]);
+        g.c[base + m * g.c_sm + n * g.c_sn] = __float2bfloat16(acc[j][e]);
       }
     }
   }

@@ -11,9 +11,10 @@ each node's mean over the steps.
   over the node axis with ``torch.bmm`` in f32.
 - ``fused_mlp_train_epoch``: the wrapper. CPU tensors go to the plain
   version; CUDA tensors go to the hand-written kernel
-  (``csrc/fused_train.cu``: one thread-block cluster per node, the
-  node's params and trace in the output tensors in device memory,
-  phases separated by cluster barriers) or raise. The kernel takes f32
+  (``csrc/fused_train.cu``: one 8-block thread-block cluster per node,
+  which holds the node's weights in shared memory for the whole epoch,
+  two cluster barriers a step; widths whose state does not fit run its
+  second, L2-resident instantiation) or raise. The kernel takes f32
   params, trace and inputs and int32 or int64 labels.
 
 Layouts are the JAX package's: ``params`` and ``momentum_state`` are

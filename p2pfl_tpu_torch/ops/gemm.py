@@ -8,7 +8,8 @@ FEMNIST-CNN rounds run:
 - ``stream_gemm`` (K1, replaces ``_stream_gemm``): ``[n,M,K] @ [n,K,N]``
   in bf16 with f32 accumulation — conv1 and conv2 forward.
 - ``stream_wgrad`` (K2, replaces ``_stream_wgrad``): ``[n,M,K]^T @
-  [n,M,N]`` summed in f32 — conv1 and conv2 weight gradients.
+  [n,M,N]`` summed in f32 — conv1 and conv2 weight gradients, in slices
+  of rows that :func:`wgrad_plan` cuts from the shape alone.
 - ``dense_bwd`` (K3, replaces ``_dense_bwd``): ``dx = g @ w^T`` and
   ``dw = x^T @ g`` in one launch — the dense1 backward.
 - ``sgd_accum_many`` (K4, replaces ``_sgd``): one SGD-with-momentum
@@ -36,6 +37,7 @@ can show that it went through the kernels.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -43,7 +45,7 @@ from p2pfl_tpu_torch.ops import _build
 
 __all__ = [
     "stream_gemm", "stream_gemm_plain",
-    "stream_wgrad", "stream_wgrad_plain",
+    "stream_wgrad", "stream_wgrad_plain", "wgrad_plan", "WgradPlan",
     "dense_bwd", "dense_bwd_plain",
     "sgd_accum", "sgd_accum_plain",
     "sgd_accum_many", "sgd_accum_many_plain",
@@ -108,11 +110,59 @@ def stream_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float().transpose(1, 2), g.float())
 
 
+#: blocks the slice plan aims for on each route, and the fewest rows it
+#: gives a slice where M allows: constants, never the card's SM count, so
+#: the plan and the sums' order are the same on every card
+WGRAD_TARGET_BLOCKS = {"wide": 512, "general": 256}
+WGRAD_MIN_SLICE_ROWS = 1024
+
+
+class WgradPlan(NamedTuple):
+    """How K2 cuts one call: ``route`` "wide" (TMA + wgmma, K and N
+    multiples of 8) or "general" (mma.sync, any width); ``tiles`` output
+    tiles (blocks) a slice; ``rows`` rows a slice (a multiple of the
+    route's stage: 32 or 256); ``slices`` slices a node, whose f32 sums
+    a second kernel adds in slice order when there are two or more."""
+    route: str
+    tiles: int
+    rows: int
+    slices: int
+
+
+@functools.cache
+def wgrad_plan(n: int, M: int, K: int, N: int,
+               route: str | None = None) -> WgradPlan:
+    """K2's slice plan, a function of the shape only: about
+    ``WGRAD_TARGET_BLOCKS[route]`` blocks over ``n`` nodes, and no slice
+    shorter than ``WGRAD_MIN_SLICE_ROWS`` rows where ``M`` allows.
+    ``route`` defaults to the shape's: "wide" when K and N are
+    multiples of 8."""
+    if route is None:
+        route = "wide" if K % 8 == 0 and N % 8 == 0 else "general"
+    if route == "wide":
+        tiles, unit = -(-K // 256) * -(-N // 64), 32
+    elif route == "general":
+        tiles, unit = -(-K // 32) * -(-N // 32), 256
+    else:
+        raise ValueError(f"unknown K2 route {route!r}")
+    M = max(M, 1)
+    want = -(-WGRAD_TARGET_BLOCKS[route] // max(n * tiles, 1))
+    slices = max(1, min(want, -(-M // WGRAD_MIN_SLICE_ROWS)))
+    rows = -(-(-(-M // slices)) // unit) * unit
+    return WgradPlan(route, tiles, rows, -(-M // rows))
+
+
 def stream_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K2 (``csrc/stream_wgrad.cu``): deterministic split-M reduction."""
+    """K2 (``csrc/stream_wgrad.cu``): slices of rows summed per block in
+    a fixed order, then in slice order (:func:`wgrad_plan`)."""
     if _on_cpu(x, g):
         return stream_wgrad_plain(x, g)
-    out = _build.kernels().stream_wgrad(x, g)
+    n, M, K = x.shape
+    plan = wgrad_plan(n, M, K, g.shape[-1])
+    if plan.route == "wide" and (x.data_ptr() % 16 or g.data_ptr() % 16):
+        plan = wgrad_plan(n, M, K, g.shape[-1], "general")
+    out = _build.kernels().stream_wgrad(x, g, plan.route == "wide",
+                                        plan.rows, plan.slices)
     launches["stream_wgrad"] += 1
     return out
 

@@ -103,6 +103,77 @@ def test_stream_wgrad_matches_plain_and_is_deterministic(dev, m, k, n):
                                **F32_SUM_TOL)
 
 
+def _wgrad_case(dev, seed, nodes, m, k, n):
+    """K2 on one shape: one launch, f32 [nodes, k, n], within
+    ``F32_SUM_TOL`` of the plain version, the same bits on a second run."""
+    x, g = _rand(dev, seed, nodes, m, k), _rand(dev, seed + 1, nodes, m, n)
+    before = gemm.launches["stream_wgrad"]
+    got = gemm.stream_wgrad(x, g)
+    assert gemm.launches["stream_wgrad"] == before + 1
+    assert got.shape == (nodes, k, n) and got.dtype == torch.float32
+    torch.testing.assert_close(got, gemm.stream_wgrad_plain(x, g),
+                               **F32_SUM_TOL)
+    assert torch.equal(got, gemm.stream_wgrad(x, g))
+
+
+def _one_row_past_a_slice(nodes, k, n, start):
+    """The first M >= start whose plan has two or more slices, the last
+    of them one row long."""
+    m = start
+    while True:
+        plan = gemm.wgrad_plan(nodes, m, k, n)
+        if plan.slices >= 2 and m % plan.rows == 1:
+            return m
+        m += 1
+
+
+# K2's row counts on both routes (conv1's widths: the mma.sync route;
+# conv2's: TMA + wgmma): one row, fewer rows than one slice or stage, and
+# one row past a slice boundary.
+@pytest.mark.parametrize("k,n", [(25, 32), (800, 64)])
+@pytest.mark.parametrize("rows", ["one", "below_a_slice", "one_past_a_slice"])
+def test_stream_wgrad_row_counts(dev, rows, k, n):
+    m = {"one": 1, "below_a_slice": 200,
+         "one_past_a_slice": _one_row_past_a_slice(2, k, n, 2000)}[rows]
+    _wgrad_case(dev, 70, 2, m, k, n)
+
+
+# Widths: conv1's and conv2's K, K whose rows are not 16-byte multiples
+# (21, 300), and N = 32, 64 and 70 (70: the mma.sync route's ragged
+# 32-column tiles).
+@pytest.mark.parametrize("n", [32, 64, 70])
+@pytest.mark.parametrize("k", [25, 800, 21, 300])
+def test_stream_wgrad_widths(dev, k, n):
+    _wgrad_case(dev, 72, 2, 3 * 784 + 5, k, n)
+
+
+# The three paths' shapes at two nodes: the stacked ring (b = 336), the
+# cross-device cohort step (20 samples a slot) and Byzantine DFL (b = 64).
+@pytest.mark.parametrize("m,k,n", [
+    (336 * 784, 25, 32), (336 * 196, 800, 64), (20 * 784, 25, 32),
+    (20 * 196, 800, 64), (64 * 784, 25, 32), (64 * 196, 800, 64)])
+def test_stream_wgrad_path_shapes(dev, m, k, n):
+    _wgrad_case(dev, 74, 2, m, k, n)
+
+
+# A node whose x or g is NaN: its own sums are NaN, the other nodes'
+# stay finite and equal to their plain sums (no slice, tile or run
+# reaches across nodes).
+@pytest.mark.parametrize("operand", ["x", "g"])
+@pytest.mark.parametrize("m,k,n", [(3 * 784 + 5, 25, 32),
+                                   (3 * 196 + 7, 800, 64)])
+def test_stream_wgrad_nan_node_stays_in_its_node(dev, m, k, n, operand):
+    x, g = _rand(dev, 76, 3, m, k), _rand(dev, 77, 3, m, n)
+    (x if operand == "x" else g)[1] = float("nan")
+    got = gemm.stream_wgrad(x, g)
+    assert bool(got[1].isnan().all())
+    keep = [0, 2]
+    assert bool(got[keep].isfinite().all())
+    torch.testing.assert_close(got[keep],
+                               gemm.stream_wgrad_plain(x[keep], g[keep]),
+                               **F32_SUM_TOL)
+
+
 @pytest.mark.parametrize("b,d,h", [(48, 3136, 256), (21, 300, 70)])
 def test_dense_bwd_matches_plain(dev, b, d, h):
     x, w, g = (_rand(dev, 4, 2, b, d), _rand(dev, 5, 2, d, h),
@@ -432,6 +503,57 @@ def test_fused_mlp_epoch_matches_plain_and_is_deterministic(
     torch.testing.assert_close(kl, pl, **K6_LOSS_TOL)
     again = fused_train.fused_mlp_train_epoch(
         params, mom, bx, by.long(), 0.05, 0.9, batch_size=batch)
+    for a, b in zip(kp + km + (kl,), again[0] + again[1] + (again[2],)):
+        assert torch.equal(a, b)
+
+
+# K6 beyond the shapes above, each with the instantiation its widths
+# take: node counts that are not a multiple of the clusters resident
+# (1, 17), d1 and d2 that do not divide by the 8-block cluster (their
+# column slices ragged, one of them empty; d1 = 90 also leaves w0's rows
+# off 16-byte boundaries), and widths whose state does not fit on chip
+# (d1 = 320: 40 columns a block; batch 64; d_in = 2000: a 256 KB slice
+# of w0), which run the L2-resident kernel. One step from one state is
+# held to the elementwise tolerance; more steps to the ReLU-flip bounds
+# of the headline above.
+@pytest.mark.parametrize("n,d_in,d1,d2,c,rows,batch,inst", [
+    (1, 784, 256, 128, 10, 96, 32, "on_chip"),
+    (17, 784, 256, 128, 10, 96, 32, "on_chip"),
+    (17, 784, 256, 128, 10, 32, 32, "on_chip"),
+    (4, 784, 100, 50, 10, 64, 32, "on_chip"),
+    (4, 300, 90, 37, 7, 48, 16, "on_chip"),
+    (2, 784, 320, 64, 10, 64, 32, "l2"),
+    (2, 64, 32, 16, 10, 128, 64, "l2"),
+    (2, 2000, 64, 32, 10, 32, 32, "l2"),
+])
+def test_fused_mlp_epoch_instantiations(dev, n, d_in, d1, d2, c, rows, batch,
+                                        inst):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from p2pfl_tpu_torch.ops import _build
+
+    assert _build.kernels().fused_mlp_epoch_plan(batch, d_in, d1, d2,
+                                                 c)[0] == inst
+    params, mom, bx, by = _mlp_epoch_inputs(dev, n, d_in, d1, d2, c, rows,
+                                            seed=21)
+    start = gemm.launches["fused_mlp_train_epoch"]
+    kp, km, kl = fused_train.fused_mlp_train_epoch(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
+    assert gemm.launches["fused_mlp_train_epoch"] == start + 1
+    pp, pm, pl = fused_train.fused_mlp_train_epoch_plain(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
+    for a, b in zip(kp + km, pp + pm):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        if rows <= batch:
+            torch.testing.assert_close(a, b, **K6_STATE_TOL)
+            continue
+        d = (a - b).abs()
+        off = d > K6_STATE_TOL["atol"] + K6_STATE_TOL["rtol"] * b.abs()
+        assert int(off.sum()) <= K6_FLIP_FRACTION * a.numel()
+        assert float(d.max()) <= K6_FLIP_ATOL
+        assert float((a - b).norm() / b.norm()) <= K6_FLIP_REL_L2
+    torch.testing.assert_close(kl, pl, **K6_LOSS_TOL)
+    again = fused_train.fused_mlp_train_epoch(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
     for a, b in zip(kp + km + (kl,), again[0] + again[1] + (again[2],)):
         assert torch.equal(a, b)
 
