@@ -63,9 +63,35 @@ one, or when run outside a checkout of this repository). Phases:
    attackers after round 1, and the robust aggregators must reach at
    least the attacked FedAvg's accuracy. One TrimmedMean round on a
    16-node ring runs the per-row branch.
-7. One JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
+7. The private and elastic federation; every arm zeroes the launch
+   counts before it runs and fails unless its path's kernels launched
+   (K4 once a training step, K5 once a cohort step):
+   a. DP-FedAvg at the JAX bench's ``_phase_private`` shape (FEMNIST
+      CNN, 8 nodes fully connected, 256 samples a node, batch 64, lr
+      0.05, bf16 wire, clip 1.0, delta 1e-5), clean and at noise 0.3,
+      0.6 and 1.0, 10 rounds each: s/round, accuracy and epsilon (equal
+      to ``epsilon_at``'s); ``privatize_stacked`` on the trained stack
+      (noise 0: every masked row's delta within the clip, unmasked rows
+      unchanged; noise 1.0: the same bits twice, mean and std within 5
+      standard errors), its device time and kernels, and one profiled
+      DP round beside a clean one;
+   b. the phase-3 ring, node 3 crashing at round 1 and joining at round
+      3 under a 4 s heartbeat and a 3 s timeout, 5 rounds: the alive
+      masks the JAX rule gives, the dead row's bits kept, the joiner's
+      row equal to the leader's after the copy, the survivors' loss
+      falling;
+   c. CFL on a star with the server dead from round 0 (leader 1 every
+      round) and SDFL with node 2 dead (never the leader), 3 rounds;
+   d. the JAX bench's SPMD elastic arm (mnist-mlp, 24 nodes on a ring,
+      20% churn, 4x stragglers, 12 rounds), the staleness column off
+      and on: rounds to 0.85 and the staleness scale's bits;
+   e. the phase-4 cross-device round with clients 0-999 crashing at
+      round 0 and joining at round 2: the sampled clients' alive count
+      equal to the membership's every round.
+8. One JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
    "device": {...}}``. With ``--out DIR`` the per-instance kernel
-   numbers and the profiles are also written there as JSON.
+   numbers, the profiles and phase 7's numbers are also written there
+   as JSON.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1008,7 +1034,7 @@ def cross_device(dev, out: pathlib.Path | None):
 
     profile_round(one_round, out, "chip_smoke_crossdev_profile",
                   "cross-device round (no evaluation)")
-    return launches
+    return launches, sc.data
 
 
 def crossdev_headline(dev) -> None:
@@ -1095,6 +1121,7 @@ def byzantine_config(aggregator="fedavg", aggregator_kwargs=None,
         AdversaryConfig,
         DataConfig,
         ModelConfig,
+        ProtocolConfig,
         ScenarioConfig,
         TrainingConfig,
     )
@@ -1109,7 +1136,7 @@ def byzantine_config(aggregator="fedavg", aggregator_kwargs=None,
         model=ModelConfig(model="femnist-cnn"),
         training=TrainingConfig(rounds=3, epochs_per_round=1,
                                 learning_rate=0.05, eval_every=0),
-        protocol={"train_set_size": 0},
+        protocol=ProtocolConfig(train_set_size=0),
         aggregator=aggregator,
         aggregator_kwargs=aggregator_kwargs or {},
         adversary=AdversaryConfig(
@@ -1193,6 +1220,434 @@ def byzantine(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the private and elastic federation
+# ---------------------------------------------------------------------------
+
+# DP-FedAvg (the JAX bench's ``_phase_private``): clip, delta, rounds
+DP_NODES, DP_ROUNDS, DP_CLIP, DP_DELTA = 8, 10, 1.0, 1e-5
+DP_SIGMAS = (None, 0.3, 0.6, 1.0)  # None: the clean reference
+DP_SE = 5.0  # noise moments within this many standard errors
+FAST_CLOCK = dict(heartbeat_period_s=4.0, node_timeout_s=3.0)
+
+
+def check_path(tag: str, launches: dict, need) -> None:
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        fail(f"{tag}: kernels never launched: {missing}")
+
+
+def rows_of(tree, idx):
+    from p2pfl_tpu_torch.core.pytree import tree_map
+
+    return tree_map(lambda t: t[idx], tree)
+
+
+def device_summary(fn) -> tuple[float, float, int]:
+    """``fn()`` under ``torch.profiler``: (wall ms, device kernel ms,
+    device kernel launches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cupti = {"Activity Buffer Request", "Command Buffer Full",
+             "Buffer Flush"}
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0 and e.key not in cupti]
+    return (wall_ms, sum(e.self_device_time_total for e in ev) / 1e3,
+            sum(e.count for e in ev))
+
+
+def dp_config(sigma):
+    """The JAX bench's accuracy-against-epsilon shape (``bench.py``'s
+    ``_phase_private``): FEMNIST CNN at full width, 8 nodes fully
+    connected, DFL, iid, 256 samples a node, batch 64, lr 0.05, bf16
+    wire, clip 1.0, delta 1e-5, 10 rounds evaluated at the end; DP on
+    every node at noise multiplier ``sigma`` (None: off)."""
+    from p2pfl_tpu_torch.config.schema import (
+        DataConfig,
+        ModelConfig,
+        PrivacyConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+
+    return ScenarioConfig(
+        name="femnist-cnn-dp-8", federation="DFL", topology="fully",
+        n_nodes=DP_NODES,
+        data=DataConfig(dataset="femnist", partition="iid",
+                        samples_per_node=256, batch_size=64, seed=0),
+        model=ModelConfig(model="femnist-cnn"),
+        training=TrainingConfig(rounds=DP_ROUNDS, epochs_per_round=1,
+                                learning_rate=0.05, eval_every=0),
+        privacy=PrivacyConfig(dp=sigma is not None, clip_norm=DP_CLIP,
+                              noise_multiplier=sigma or 0.0,
+                              delta=DP_DELTA),
+        transport="dense", wire_dtype="bf16", seed=0)
+
+
+def dp_gates(trained, ref) -> dict:
+    """``privatize_stacked`` on the card on a trained stack against its
+    round-start params: at noise 0 (the run's clip, and a binding clip
+    of half the smallest row's delta norm) every masked row's delta
+    norm is within the clip and every unmasked row keeps its bits; at
+    noise 1.0 two calls give the same bits and the noise has its
+    moments. Returns the privatize call's profile."""
+    import numpy as np
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+    from p2pfl_tpu_torch.privacy import dp
+
+    n = DP_NODES
+    mask = np.ones(n, bool)
+    mask[[2, 5]] = False
+    on = torch.from_numpy(mask).to(tree_leaves(ref)[0].device)
+    norms = [float(dp.update_norm(rows_of(trained, i), rows_of(ref, i)))
+             for i in range(n)]
+    binding = 0.5 * min(norms)
+    for clip in (DP_CLIP, binding):
+        spec = dp.DPSpec(clip_norm=clip, noise_multiplier=0.0, seed=0)
+        out = dp.privatize_stacked(trained, ref, mask, DP_ROUNDS, spec)
+        got = [float(dp.update_norm(rows_of(out, i), rows_of(ref, i)))
+               for i in np.flatnonzero(mask)]
+        kept = all(torch.equal(a[~on], b[~on]) for a, b in
+                   zip(tree_leaves(out), tree_leaves(trained)))
+        print(f"  privatize_stacked at noise 0, clip {clip:.4g}: masked "
+              f"delta norms {[round(v, 4) for v in got]} (before "
+              f"{[round(v, 4) for v in norms]}); unmasked rows kept "
+              f"bit for bit: {kept}", flush=True)
+        if not kept or max(got) > clip * (1 + 1e-6):
+            fail(f"privatize_stacked at clip {clip}: norms {got}, "
+                 f"unmasked rows kept {kept}")
+    spec = dp.DPSpec(clip_norm=DP_CLIP, noise_multiplier=1.0, seed=0)
+    a = dp.privatize_stacked(ref, ref, mask, DP_ROUNDS, spec)
+    b = dp.privatize_stacked(ref, ref, mask, DP_ROUNDS, spec)
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+    noise = torch.cat([(x[on] - r[on]).double().reshape(-1)
+                       for x, r in zip(tree_leaves(a), tree_leaves(ref))])
+    std = float(dp.noise_sigma(DP_CLIP, 1.0))
+    count = noise.numel()
+    mean, sd = float(noise.mean()), float(noise.std())
+    print(f"  privatize_stacked at noise 1.0: two calls same bits {same}; "
+          f"noise over {count} values: mean {mean:.3g} (bound "
+          f"{DP_SE * std / math.sqrt(count):.3g}), std {sd:.6f} (want "
+          f"{std} +- {DP_SE * std / math.sqrt(2 * count):.3g})", flush=True)
+    if not same:
+        fail("privatize_stacked gives other bits on a second call")
+    if (abs(mean) > DP_SE * std / math.sqrt(count)
+            or abs(sd - std) > DP_SE * std / math.sqrt(2 * count)):
+        fail(f"DP noise moments off: mean {mean}, std {sd}")
+    wall, busy, kernels = device_summary(
+        lambda: dp.privatize_stacked(trained, ref, np.ones(n, bool),
+                                     DP_ROUNDS, spec))
+    print(f"  privatize_stacked over {n} rows at noise 1.0 (one round's "
+          f"call): {wall:.2f} ms wall, {busy:.3f} ms device, {kernels} "
+          "device kernels", flush=True)
+    return {"privatize_wall_ms": wall, "privatize_device_ms": busy,
+            "privatize_kernels": kernels}
+
+
+def private_federation(dev) -> dict:
+    """Arm a: DP-FedAvg at each noise multiplier, 10 rounds each."""
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_map
+    from p2pfl_tpu_torch.datasets.data import FederatedDataset
+    from p2pfl_tpu_torch.federation import Events, Scenario
+    from p2pfl_tpu_torch.ops import gemm
+    from p2pfl_tpu_torch.privacy.dp import epsilon_at
+
+    data = FederatedDataset.make(dp_config(None).data, DP_NODES)
+    out, kept = {}, {}
+    for sigma in DP_SIGMAS:
+        cfg = dp_config(sigma)
+        sc = Scenario(cfg, dataset=data, device=dev)
+        snap = {}
+
+        def keep_ref(ev, payload, sc=sc, snap=snap):
+            if (ev is Events.ROUND_STARTED
+                    and payload["round"] == DP_ROUNDS - 1):
+                snap["ref"] = tree_map(torch.clone, sc.fed.states.params)
+
+        sc.add_observer(keep_ref)
+        gemm.reset_launches()
+        res = sc.run()
+        torch.cuda.synchronize(dev)
+        launches = dict(gemm.launches)
+        tag = "clean" if sigma is None else f"sigma {sigma}"
+        check_path(f"DP {tag}", launches, DENSE_PATH)
+        check_k4_per_step(sc, cfg, launches, len(res.history))
+        warm = res.round_times_s[1:]
+        eps = sc.accountant.epsilon if sc.accountant is not None else None
+        print(f"  DP {tag:10s}: s/round (rounds 2-{DP_ROUNDS}) mean "
+              f"{sum(warm) / len(warm):.4f} median "
+              f"{sorted(warm)[len(warm) // 2]:.4f}; final accuracy "
+              f"{res.final_accuracy:.4f}; epsilon {eps}; launches "
+              f"{launches}", flush=True)
+        if sigma is not None and eps != epsilon_at(sigma, DP_ROUNDS,
+                                                   DP_DELTA):
+            fail(f"DP {tag}: epsilon {eps} is not epsilon_at's")
+        out[tag] = {"round_times_s": res.round_times_s,
+                    "final_accuracy": res.final_accuracy, "epsilon": eps}
+        if sigma is None or sigma == 1.0:
+            kept[tag] = (sc, snap["ref"])
+        else:
+            del sc
+            torch.cuda.empty_cache()
+    clean, ref = kept["clean"]
+    out["privatize"] = dp_gates(clean.fed.states.params, ref)
+    for tag, (sc, _) in kept.items():
+        wall, busy, kernels = device_summary(lambda: sc.run(rounds=1))
+        print(f"  profiled {tag} round (+ evaluation): {wall:.1f} ms wall, "
+              f"{busy:.1f} ms device, {kernels} device kernels",
+              flush=True)
+        out["privatize"][f"{tag}_round"] = [wall, busy, kernels]
+    return out
+
+
+def ring_faults(dev, data) -> dict:
+    """Arm b: the phase-3 ring with node 3 crashing at round 1 and
+    joining at round 3 under a 4 s heartbeat and a 3 s timeout, 5
+    rounds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from p2pfl_tpu_torch.config.schema import FaultEvent, ProtocolConfig
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+    from p2pfl_tpu_torch.federation import Events, Scenario
+    from p2pfl_tpu_torch.ops import gemm
+
+    base = smoke_config()
+    cfg = dataclasses.replace(
+        base, name="femnist-cnn-ring-8-faults",
+        training=dataclasses.replace(base.training, rounds=5),
+        protocol=ProtocolConfig(**FAST_CLOCK),
+        faults=[FaultEvent(node=3, round=1, kind="crash"),
+                FaultEvent(node=3, round=3, kind="join")])
+    sc = Scenario(cfg, dataset=data, device=dev)
+    joined = []
+
+    def on_join(ev, payload):
+        if ev is Events.NODE_JOINED:
+            i, src = payload["node"], sc.leader
+            joined.append(all(torch.equal(t[i], t[src])
+                              for t in tree_leaves(sc.fed.states.params)))
+
+    sc.add_observer(on_join)
+    # the JAX rule at one 4 s period a round and a 3 s timeout: silent
+    # from round 1 (last beat at 4 s, 8 - 4 > 3), back at the join
+    dead = [False, True, True, False, False]
+    gemm.reset_launches()
+    hist, rows = [], []
+    for _ in range(cfg.training.rounds):
+        res = sc.run(rounds=1)
+        hist += res.history
+        rows.append([t[3].clone() for t in tree_leaves(sc.fed.states.params)])
+    torch.cuda.synchronize(dev)
+    launches = dict(gemm.launches)
+    check_path("ring faults", launches, DENSE_PATH)
+    check_k4_per_step(sc, cfg, launches, len(hist))
+    alive = [h["alive"] for h in hist]
+    want = [[not (d and i == 3) for i in range(N_NODES)] for d in dead]
+    kept = all(torch.equal(a, b) for a, b in zip(rows[0], rows[2]))
+    survivors = [i for i in range(N_NODES) if i != 3]
+    loss = [float(np.mean([h["train_loss"][i] for i in survivors]))
+            for h in hist]
+    print(f"  ring faults: s/round {[round(h['round_time_s'], 4) for h in hist]}"
+          f"; alive per round {[sum(a) for a in alive]} (node 3 "
+          f"{[a[3] for a in alive]}); dead row kept bit for bit over its "
+          f"dead rounds: {kept}; joiner row equal to the leader's after "
+          f"the copy: {joined}; survivors' mean train loss "
+          f"{[round(v, 4) for v in loss]}; launches {launches}", flush=True)
+    if alive != want:
+        fail(f"ring faults: alive masks {alive}, want {want}")
+    if not kept:
+        fail("ring faults: the dead node's params moved while it was dead")
+    if joined != [True]:
+        fail(f"ring faults: join row copy {joined}")
+    if not loss[-1] < loss[0]:
+        fail(f"ring faults: survivors' train loss did not fall: {loss}")
+    return {"round_times_s": [h["round_time_s"] for h in hist],
+            "alive": alive, "survivor_loss": loss}
+
+
+def leader_faults(dev, data) -> dict:
+    """Arm c: CFL on a star with the server crashing at round 0 (the
+    leader fails over to the lowest alive index), and SDFL with node 2
+    dead from round 0 (never drawn as leader); 3 rounds each on the
+    phase-3 data."""
+    import dataclasses
+
+    import torch
+
+    from p2pfl_tpu_torch.config.schema import FaultEvent, ProtocolConfig
+    from p2pfl_tpu_torch.federation import Scenario
+    from p2pfl_tpu_torch.ops import gemm
+
+    out = {}
+    for fed, topo, node in (("CFL", "star", 0), ("SDFL", "fully", 2)):
+        base = smoke_config()
+        cfg = dataclasses.replace(
+            base, name=f"femnist-cnn-{fed.lower()}-8-faults",
+            federation=fed, topology=topo, nodes=[],
+            training=dataclasses.replace(base.training, rounds=3),
+            protocol=ProtocolConfig(**FAST_CLOCK),
+            faults=[FaultEvent(node=node, round=0, kind="crash")])
+        sc = Scenario(cfg, dataset=data, device=dev)
+        gemm.reset_launches()
+        res = sc.run()
+        torch.cuda.synchronize(dev)
+        launches = dict(gemm.launches)
+        check_path(f"{fed} faults", launches, DENSE_PATH)
+        check_k4_per_step(sc, cfg, launches, len(res.history))
+        leaders = [h["leader"] for h in res.history]
+        alive = [h["alive"] for h in res.history]
+        print(f"  {fed} with node {node} dead from round 0: s/round "
+              f"{[round(t, 4) for t in res.round_times_s]}; leaders "
+              f"{leaders}; accuracy {res.final_accuracy:.4f}", flush=True)
+        if any(a[node] for a in alive):
+            fail(f"{fed}: node {node} not dead: {alive}")
+        if fed == "CFL" and leaders != [1, 1, 1]:
+            fail(f"CFL fail-over: leaders {leaders}, want [1, 1, 1]")
+        if not all(a[ld] for a, ld in zip(alive, leaders)):
+            fail(f"{fed}: a dead node led a round: {leaders}")
+        out[fed] = {"round_times_s": res.round_times_s, "leaders": leaders}
+        del sc
+        torch.cuda.empty_cache()
+    return out
+
+
+def elastic(dev) -> dict:
+    """Arm d: the JAX bench's SPMD elastic arm (``bench.py``'s
+    ``_phase_elastic``): mnist-mlp at full width, 24 nodes on a ring,
+    128 samples a node, 12 rounds, lr 0.1, 20% churn, a quarter of the
+    nodes 4x stragglers, staleness beta 0.5, seed 7; the staleness
+    column off, then on. The mlp has no convolution and no gated dense
+    layer, so K4 is its only kernel (as in the JAX package)."""
+    import numpy as np
+    import torch
+
+    from p2pfl_tpu_torch.config.schema import (
+        DataConfig,
+        ElasticConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+    from p2pfl_tpu_torch.federation import Scenario
+    from p2pfl_tpu_torch.ops import gemm
+    from p2pfl_tpu_torch.parallel.federated import staleness_scale
+
+    target, out = 0.85, {}
+    for weighted in (False, True):
+        cfg = ScenarioConfig(
+            name="elastic-spmd", n_nodes=24, topology="ring",
+            data=DataConfig(dataset="mnist", samples_per_node=128),
+            training=TrainingConfig(rounds=12, epochs_per_round=1,
+                                    learning_rate=0.1, eval_every=1),
+            elastic=ElasticConfig(async_aggregation=weighted,
+                                  staleness_beta=0.5,
+                                  straggler_fraction=0.25,
+                                  straggler_factor=4.0,
+                                  churn_fraction=0.2),
+            seed=7)
+        sc = Scenario(cfg, device=dev)
+        gemm.reset_launches()
+        res = sc.run(target_accuracy=target)
+        torch.cuda.synchronize(dev)
+        launches = dict(gemm.launches)
+        check_path("elastic", launches, ("sgd_accum",))
+        check_k4_per_step(sc, cfg, launches, len(res.history))
+        slow = np.asarray([nc.fit_slowdown for nc in cfg.nodes], np.float32)
+        want = staleness_scale(slow - 1.0, 0.5) if weighted else None
+        ok = (sc._stale_scale is None if want is None
+              else np.array_equal(sc._stale_scale, want))
+        tag = "weighted" if weighted else "unweighted"
+        print(f"  elastic {tag}: rounds_to_target({target}) "
+              f"{res.rounds_to_target}; final accuracy "
+              f"{res.final_accuracy:.4f}; s/round median "
+              f"{sorted(res.round_times_s)[6]:.4f}; alive per round "
+              f"{[sum(h['alive']) for h in res.history]}; stragglers "
+              f"{np.flatnonzero(slow > 1).tolist()}; faults "
+              f"{[(f.node, f.round, f.kind) for f in cfg.faults]}; stale "
+              f"scale equal to staleness_scale: {ok}", flush=True)
+        if not ok:
+            fail(f"elastic {tag}: _stale_scale {sc._stale_scale} != {want}")
+        out[tag] = {"rounds_to_target": res.rounds_to_target,
+                    "final_accuracy": res.final_accuracy,
+                    "round_times_s": res.round_times_s}
+        del sc
+        torch.cuda.empty_cache()
+    return out
+
+
+def crossdev_churn(dev, data) -> dict:
+    """Arm e: the phase-4 cross-device round with clients 0-999
+    crashing at round 0 and joining at round 2 (4 s heartbeat, 3 s
+    timeout), 3 rounds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from p2pfl_tpu_torch.config.schema import FaultEvent, ProtocolConfig
+    from p2pfl_tpu_torch.federation import CrossDeviceScenario
+    from p2pfl_tpu_torch.ops import gemm
+
+    base = crossdev_config()
+    cfg = dataclasses.replace(
+        base, name="femnist-cnn-crossdev-churn",
+        protocol=ProtocolConfig(**FAST_CLOCK),
+        faults=[FaultEvent(node=i, round=r, kind=k)
+                for r, k in ((0, "crash"), (2, "join"))
+                for i in range(1000)])
+    sc = CrossDeviceScenario(cfg, dataset=data, device=dev)
+    gemm.reset_launches()
+    counts, dead_drawn, hist = [], [], []
+    for r in range(cfg.training.rounds):
+        res = sc.run(rounds=1)
+        h = res.history[0]
+        hist.append(h)
+        want = (sc.last_cohorts >= 1000) if r < 2 else np.ones(
+            sc.last_cohorts.shape, bool)
+        if not (np.array_equal(sc.last_cohort_alive, want)
+                and h["CrossDev/clients_alive"] == int(want.sum())):
+            fail(f"cross-device churn round {r}: alive "
+                 f"{h['CrossDev/clients_alive']}, membership mask "
+                 f"{int(want.sum())}")
+        counts.append(h["CrossDev/clients_alive"])
+        dead_drawn.append(int((~sc.last_cohort_alive).sum()))
+    torch.cuda.synchronize(dev)
+    launches = dict(gemm.launches)
+    check_path("cross-device churn", launches, CROSS_PATH)
+    steps = len(hist) * cfg.cross_device.cohort_size
+    finite = all(bool(torch.isfinite(t).all()) for t in snapshot(sc.fed))
+    print(f"  cross-device churn: s/round "
+          f"{[round(h['round_time_s'], 4) for h in hist]}; clients_alive "
+          f"{counts} of {cfg.cross_device.clients_per_round} (dead drawn "
+          f"{dead_drawn}); loss {[round(h['Train/loss'], 4) for h in hist]}"
+          f"; finite {finite}; launches {launches}", flush=True)
+    if not launches["sgd_accum"] == launches["fedavg_accum"] == steps:
+        fail(f"cross-device churn: {steps} cohort steps launched K4 "
+             f"{launches['sgd_accum']} and K5 {launches['fedavg_accum']}")
+    if not (sum(dead_drawn[:2]) > 0 and finite
+            and all(math.isfinite(h["Train/loss"]) for h in hist)):
+        fail(f"cross-device churn: dead drawn {dead_drawn}, finite {finite}")
+    return {"round_times_s": [h["round_time_s"] for h in hist],
+            "clients_alive": counts, "dead_drawn": dead_drawn}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1242,7 +1697,7 @@ def main(argv: list[str] | None = None) -> int:
 
     print("[4] end to end: cross-device FEMNIST CNN, 3550 clients, 32 a "
           "round in 4 cohorts of 8 slots, 3 rounds", flush=True)
-    cross_launches = cross_device(dev, args.out)
+    cross_launches, cross_data = cross_device(dev, args.out)
     torch.cuda.empty_cache()
     crossdev_headline(dev)
     launches["fedavg_accum"] = cross_launches["fedavg_accum"]
@@ -1256,6 +1711,24 @@ def main(argv: list[str] | None = None) -> int:
     print("[6] Byzantine DFL: FEMNIST CNN, 16 nodes fully connected, 4 "
           "sign-flippers, 3 rounds a variant", flush=True)
     byzantine(dev)
+    torch.cuda.empty_cache()
+
+    print("[7] the private and elastic federation: DP-FedAvg (8 nodes, "
+          "4 noise levels, 10 rounds each), faults on the ring, CFL and "
+          "SDFL leader faults, elastic churn and stragglers (24 nodes), "
+          "cross-device churn", flush=True)
+    from p2pfl_tpu_torch.datasets.data import FederatedDataset
+
+    ring_data = FederatedDataset.make(smoke_config().data, N_NODES)
+    phase7 = {"private": private_federation(dev)}
+    torch.cuda.empty_cache()
+    phase7["ring_faults"] = ring_faults(dev, ring_data)
+    phase7["leader_faults"] = leader_faults(dev, ring_data)
+    torch.cuda.empty_cache()
+    phase7["elastic"] = elastic(dev)
+    phase7["crossdev_churn"] = crossdev_churn(dev, cross_data)
+    del cross_data, ring_data
+    torch.cuda.empty_cache()
 
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
@@ -1300,6 +1773,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.out is not None:
         (args.out / "chip_smoke_rows.json").write_text(
             json.dumps({"card": smi, "rows": rows}, indent=1))
+        (args.out / "chip_smoke_phase7.json").write_text(
+            json.dumps({"card": smi, **phase7}, indent=1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

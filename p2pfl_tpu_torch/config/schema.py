@@ -1,26 +1,34 @@
 """Scenario configuration, read from the same JSON as the JAX package.
 
 The counterpart of ``p2pfl_tpu/config/schema.py``. ``DataConfig``,
-``ModelConfig``, ``TrainingConfig`` and ``NodeConfig`` are copies of the
-JAX package's dataclasses (they import nothing but the standard
-library), and so are ``CrossDeviceConfig`` and ``AdversaryConfig``
-with all their validation. ``ScenarioConfig`` has the same fields, so
+``ModelConfig``, ``TrainingConfig``, ``ProtocolConfig``, ``NodeConfig``,
+``FaultEvent``, ``ElasticConfig``, ``PrivacyConfig``,
+``CrossDeviceConfig`` and ``AdversaryConfig`` are copies of the JAX
+package's dataclasses (they import nothing but the standard library)
+with all their validation, and ``ScenarioConfig.materialize_elastic``
+is a copy of the JAX package's churn and straggler expansion, seeded
+the same way. ``ScenarioConfig`` has the same fields, so
 ``ScenarioConfig.load`` reads a scenario file that ``p2pfl_tpu`` wrote.
 The combinations the JAX package refuses with the cross-device regime
 raise the same ``ValueError`` here, before anything else is checked.
-The sections this port does not run yet (privacy, lora, elastic,
-faults, the sparse transport, the staged exchange, other optimizers
-and objectives, checkpoints, metric logging and the socket plane) are
-kept as plain dicts and rejected in ``__post_init__`` with a
-``NotImplementedError`` that names the ``ROADMAP.md`` item that ports
-them: a scenario the port would silently run differently never starts.
+The sections this port does not run yet (secure aggregation, lora, the
+sparse transport, the staged exchange, other optimizers and
+objectives, checkpoints, metric logging and the socket plane) are
+rejected in ``__post_init__`` with a ``NotImplementedError`` that names
+the ``ROADMAP.md`` item that ports them (``network`` and ``lora`` stay
+plain dicts): a scenario the port would silently run differently never
+starts. The elastic section's socket-plane knobs (``min_received``, the
+heartbeat retry limit and backoff) are carried and ignored, as the JAX
+package's stacked ``Scenario`` ignores them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
+import random
 from typing import Any
 
 FEDERATIONS = ("DFL", "CFL", "SDFL")
@@ -63,7 +71,31 @@ class TrainingConfig:
 
 
 @dataclasses.dataclass
+class ProtocolConfig:
+    """The wire-protocol tunables. On the stacked federation
+    ``train_set_size`` (the train-set vote cap, <=0 off) and the
+    heartbeat clock (``heartbeat_period_s``, ``node_timeout_s``: one
+    round advances the membership clock by one period) act; the others
+    pace the socket plane and are carried unchanged."""
+
+    aggregation_timeout_s: float = 60.0
+    vote_timeout_s: float = 60.0
+    heartbeat_period_s: float = 4.0
+    node_timeout_s: float = 20.0
+    gossip_models_per_round: int = 2
+    gossip_exit_on_equal_rounds: int = 20
+    train_set_size: int = 10
+    gossip_period_s: float = 0.05
+    gossip_fanout: int = 0
+    send_queue_depth: int = 64
+
+
+@dataclasses.dataclass
 class NodeConfig:
+    """Per-node overrides: ``fit_slowdown`` >= 1 is the node's compute
+    class (a 4x straggler is 4.0; on the stacked plane its update lands
+    ``fit_slowdown - 1`` rounds stale under async aggregation)."""
+
     idx: int = 0
     role: str = "trainer"
     start: bool = False
@@ -73,6 +105,128 @@ class NodeConfig:
     def __post_init__(self):
         if self.role not in ROLES:
             raise ValueError(f"unknown role {self.role!r}; have {ROLES}")
+        if self.fit_slowdown < 1.0:
+            raise ValueError(
+                f"fit_slowdown must be >= 1, got {self.fit_slowdown}"
+            )
+
+
+@dataclasses.dataclass
+class FaultEvent:
+    """A scripted fault: node ``node`` changes state at round ``round``.
+    ``crash`` stops its heartbeats; ``recover``, ``join`` and
+    ``restart`` resume them (``join`` also copies the leader's params
+    into the joiner's row); ``partition`` (with disjoint ``groups``) and
+    ``heal`` are recorded on the membership clock, ``heal`` clearing
+    sticky evictions (the cut itself is transport work)."""
+
+    node: int = 0
+    round: int = 0
+    kind: str = "crash"  # crash | recover | join | partition | heal | restart
+    groups: list[list[int]] = dataclasses.field(default_factory=list)
+
+    def __post_init__(self):
+        known = ("crash", "recover", "join", "partition", "heal",
+                 "restart")
+        if self.kind not in known:
+            raise ValueError(
+                f"unknown fault kind {self.kind!r}; have {known}"
+            )
+        if self.kind == "partition" and len(self.groups) < 2:
+            raise ValueError("a partition fault needs >= 2 groups")
+
+
+@dataclasses.dataclass
+class ElasticConfig:
+    """Elasticity: staleness-weighted async aggregation (a straggler's
+    column of the mix is scaled by ``1 / (1 + staleness)^beta``) and
+    declarative churn and straggler scripting, expanded by
+    :meth:`ScenarioConfig.materialize_elastic`. ``min_received`` and the
+    heartbeat retry and backoff knobs pace the socket plane."""
+
+    async_aggregation: bool = False
+    min_received: float = 0.5
+    staleness_beta: float = 0.5
+    heartbeat_retry_limit: int = 3
+    heartbeat_backoff_base_s: float = 0.5
+    heartbeat_backoff_max_s: float = 8.0
+    straggler_fraction: float = 0.0
+    straggler_factor: float = 1.0
+    churn_fraction: float = 0.0
+    seed: int = 0
+
+    def __post_init__(self):
+        if not 0.0 < self.min_received <= 1.0:
+            raise ValueError(
+                f"min_received must be in (0, 1], got {self.min_received}"
+            )
+        if self.staleness_beta < 0.0:
+            raise ValueError(
+                f"staleness_beta must be >= 0, got {self.staleness_beta}"
+            )
+        if self.straggler_factor < 1.0:
+            raise ValueError(
+                f"straggler_factor must be >= 1, got {self.straggler_factor}"
+            )
+        for name in ("straggler_fraction", "churn_fraction"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {v}")
+        if self.heartbeat_retry_limit < 1:
+            raise ValueError("heartbeat_retry_limit must be >= 1")
+
+    @property
+    def active(self) -> bool:
+        return (self.async_aggregation or self.straggler_fraction > 0.0
+                or self.churn_fraction > 0.0)
+
+
+@dataclasses.dataclass
+class PrivacyConfig:
+    """DP-FedAvg: with ``dp=True`` every training node's outgoing update
+    is clipped to L2 norm ``clip_norm`` (over the whole flattened tree)
+    and noised with Gaussian std ``clip_norm * noise_multiplier``; the
+    (epsilon, ``delta``) spend is tracked by the closed-form RDP
+    accountant. ``secagg`` (pairwise-mask secure aggregation) is a
+    socket-plane feature."""
+
+    dp: bool = False
+    clip_norm: float = 1.0
+    noise_multiplier: float = 0.0
+    delta: float = 1e-5
+    epsilon_budget: float = 0.0  # 0 = no budget rule
+    secagg: bool = False
+    secagg_bits: int = 24
+
+    def __post_init__(self):
+        if self.dp:
+            if not self.clip_norm > 0.0:
+                raise ValueError(
+                    f"privacy.clip_norm must be > 0, got {self.clip_norm}"
+                )
+            if self.noise_multiplier < 0.0:
+                raise ValueError(
+                    f"privacy.noise_multiplier must be >= 0, "
+                    f"got {self.noise_multiplier}"
+                )
+            if not 0.0 < self.delta < 1.0:
+                raise ValueError(
+                    f"privacy.delta must be in (0, 1), got {self.delta}"
+                )
+        if self.epsilon_budget < 0.0:
+            raise ValueError(
+                f"privacy.epsilon_budget must be >= 0, "
+                f"got {self.epsilon_budget}"
+            )
+        if not 8 <= self.secagg_bits <= 40:
+            raise ValueError(
+                f"privacy.secagg_bits must be in [8, 40], "
+                f"got {self.secagg_bits}"
+            )
+
+    @property
+    def active(self) -> bool:
+        return self.dp or self.secagg
 
 
 @dataclasses.dataclass
@@ -229,28 +383,26 @@ class ScenarioConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
-    # the JAX package's ProtocolConfig: only "train_set_size" (the
-    # train-set vote cap, default 10, <=0 off) acts on the stacked
-    # federation; the other keys pace the socket plane
-    protocol: dict[str, Any] = dataclasses.field(default_factory=dict)
+    protocol: ProtocolConfig = dataclasses.field(
+        default_factory=ProtocolConfig)
     aggregator: str = "fedavg"
     aggregator_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
     adversary: AdversaryConfig = dataclasses.field(
         default_factory=AdversaryConfig)
-    # sections this port does not run: plain dicts, checked below
+    # a section this port does not run: a plain dict, checked below
     network: dict[str, Any] = dataclasses.field(default_factory=dict)
-    elastic: dict[str, Any] = dataclasses.field(default_factory=dict)
+    elastic: ElasticConfig = dataclasses.field(default_factory=ElasticConfig)
     cross_device: CrossDeviceConfig = dataclasses.field(
         default_factory=CrossDeviceConfig)
     lora: dict[str, Any] = dataclasses.field(default_factory=dict)
-    privacy: dict[str, Any] = dataclasses.field(default_factory=dict)
+    privacy: PrivacyConfig = dataclasses.field(default_factory=PrivacyConfig)
     transport: str = "auto"
     wire_dtype: str = "f32"
     exchange_overlap: str = "off"
     aggregation_plane: str = "inline"
     encrypt: bool = False
     nodes: list[NodeConfig] = dataclasses.field(default_factory=list)
-    faults: list[dict[str, Any]] = dataclasses.field(default_factory=list)
+    faults: list[FaultEvent] = dataclasses.field(default_factory=list)
     seed: int = 0
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0
@@ -281,6 +433,7 @@ class ScenarioConfig:
             raise ValueError(
                 f"{len(self.nodes)} node configs for n_nodes={self.n_nodes}"
             )
+        self.materialize_elastic()
 
     def _refuse_cross_device_compositions(self) -> None:
         """The JAX schema's refusals of what the cohort-scan round has
@@ -316,8 +469,7 @@ class ScenarioConfig:
                 "cohort-scan round yet: it would silently train "
                 "full weights while the scenario says adapters"
             )
-        if self.privacy.get("dp", False) or self.privacy.get("secagg",
-                                                            False):
+        if self.privacy.active:
             raise ValueError(
                 "privacy is not wired into the cross_device cohort-"
                 "scan round yet: sampled clients are stateless rows "
@@ -326,19 +478,13 @@ class ScenarioConfig:
             )
 
     def _reject_unported(self) -> None:
-        if self.privacy.get("dp", False):
-            raise _unported("privacy.dp (DP-FedAvg)", "A7")
-        if self.privacy.get("secagg", False):
-            raise _unported("privacy.secagg", "A7")
+        if self.privacy.secagg:
+            # the JAX package's stacked Scenario refuses it too: the
+            # pairwise masks ride the socket plane's PARAMS wire
+            raise _unported("privacy.secagg (a socket-plane feature)",
+                            "A22")
         if self.lora.get("rank", 0) > 0:
             raise _unported("lora", "A8")
-        el = self.elastic
-        if (el.get("async_aggregation", False)
-                or el.get("straggler_fraction", 0.0) > 0.0
-                or el.get("churn_fraction", 0.0) > 0.0):
-            raise _unported("elastic (async aggregation, churn)", "A9")
-        if self.faults:
-            raise _unported("faults (membership clock)", "A11")
         if self.transport == "sparse":
             raise _unported("transport='sparse'", "A12")
         if self.exchange_overlap == "staged":
@@ -379,6 +525,44 @@ class ScenarioConfig:
             nodes.append(NodeConfig(idx=i, role=role, start=(i == 0)))
         return nodes
 
+    def materialize_elastic(self) -> None:
+        """Expand the churn and straggler knobs into per-node profiles
+        and FaultEvents (the JAX package's derivation, seeded the same
+        way, so the same nodes churn and straggle; idempotent).
+
+        Stragglers: the first ``ceil(straggler_fraction * n)`` nodes of
+        a seeded shuffle (starter excluded) get ``fit_slowdown =
+        straggler_factor``. Churn: the next ``ceil(churn_fraction * n)``
+        crash at ~1/3 of the rounds and join at ~2/3."""
+        el = self.elastic
+        if el.straggler_fraction <= 0.0 and el.churn_fraction <= 0.0:
+            return
+        rng = random.Random((el.seed, "elastic", self.n_nodes).__repr__())
+        order = list(range(self.n_nodes))
+        rng.shuffle(order)
+        # the starter neither churns nor straggles
+        starters = {nc.idx for nc in self.nodes if nc.start} or {0}
+        order = [i for i in order if i not in starters]
+        n_strag = math.ceil(el.straggler_fraction * self.n_nodes)
+        n_churn = math.ceil(el.churn_fraction * self.n_nodes)
+        stragglers = set(order[:n_strag])
+        churners = set(order[n_strag:n_strag + n_churn])
+        by_idx = {nc.idx: nc for nc in self.nodes}
+        for i in stragglers:
+            by_idx[i].fit_slowdown = el.straggler_factor
+        rounds = self.training.rounds
+        crash_r = max(rounds // 3, 1)
+        join_r = max((2 * rounds) // 3, crash_r + 1)
+        planned = [
+            FaultEvent(node=i, round=r, kind=k)
+            for i in sorted(churners)
+            for r, k in ((crash_r, "crash"), (join_r, "join"))
+        ]
+        have = {(f.node, f.round, f.kind) for f in self.faults}
+        self.faults.extend(
+            f for f in planned if (f.node, f.round, f.kind) not in have
+        )
+
     # ---- JSON round-trip -------------------------------------------------
 
     def to_json(self) -> str:
@@ -394,8 +578,11 @@ class ScenarioConfig:
             ("data", DataConfig),
             ("model", ModelConfig),
             ("training", TrainingConfig),
+            ("protocol", ProtocolConfig),
             ("adversary", AdversaryConfig),
+            ("elastic", ElasticConfig),
             ("cross_device", CrossDeviceConfig),
+            ("privacy", PrivacyConfig),
         ]:
             if field in d and isinstance(d[field], dict):
                 d[field] = cls(**d[field])
@@ -403,6 +590,11 @@ class ScenarioConfig:
             d["nodes"] = [
                 NodeConfig(**n) if isinstance(n, dict) else n
                 for n in d["nodes"]
+            ]
+        if "faults" in d:
+            d["faults"] = [
+                FaultEvent(**f) if isinstance(f, dict) else f
+                for f in d["faults"]
             ]
         return ScenarioConfig(**d)
 

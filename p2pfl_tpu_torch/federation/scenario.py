@@ -6,15 +6,23 @@ port runs:
 - ``Scenario``: the dense round over stacked nodes, DFL, CFL and SDFL
   plans, every registered aggregator (one shared robust aggregate for
   CFL/SDFL and fully connected DFL), attack injection and label flips
-  on the malicious rows, reputation-weighted mixing, the train-set vote
-  cap, periodic evaluation, and ``transport`` ``auto``/``dense`` (both
-  mean the one dense mix here);
+  on the malicious rows, reputation-weighted mixing, DP-FedAvg on every
+  training row, the async staleness scale, the train-set vote cap,
+  periodic evaluation, and ``transport`` ``auto``/``dense`` (both mean
+  the one dense mix here);
 - ``CrossDeviceScenario``: the sampled K-of-N cross-device regime, a
   cohort scan through ``n_slots`` slots, materialized or streamed.
 
-``ScenarioConfig`` rejects everything else before a run starts. There is
-no membership clock (no faults are accepted, so every node and client
-stays alive), no status publishing and no metrics logger yet.
+Each round first applies the round's scripted faults and advances the
+membership clock (``federation/membership.py``: one heartbeat period a
+round, eviction after ``node_timeout_s`` of silence), over the nodes or
+over every virtual client; a ``join`` copies the leader's params into
+the joiner's row; SDFL rotates its leader among the alive nodes and
+CFL fails over to the lowest alive index. Both scenarios are
+``Observable`` and fire the JAX package's round events; the membership
+fires the node events. ``ScenarioConfig`` rejects everything else
+before a run starts. There is no status publishing and no metrics
+logger yet.
 
     scenario = Scenario(ScenarioConfig(...))   # device "cuda" by default
     result = scenario.run()
@@ -39,7 +47,10 @@ from p2pfl_tpu_torch.adversary import (
 from p2pfl_tpu_torch.config.schema import ScenarioConfig
 from p2pfl_tpu_torch.core.aggregators import get_aggregator
 from p2pfl_tpu_torch.datasets.data import CrossDeviceData, FederatedDataset
+from p2pfl_tpu_torch.core.pytree import tree_map
 from p2pfl_tpu_torch.device import resolve_device
+from p2pfl_tpu_torch.federation.events import Events, Observable
+from p2pfl_tpu_torch.federation.membership import Membership
 from p2pfl_tpu_torch.federation.sampling import sample_cohorts
 from p2pfl_tpu_torch.learning.learner import make_step_fns
 from p2pfl_tpu_torch.models.base import build_model
@@ -51,7 +62,9 @@ from p2pfl_tpu_torch.parallel.federated import (
     cross_device_wn,
     init_federation,
     make_round_plan,
+    staleness_scale,
 )
+from p2pfl_tpu_torch.privacy.dp import DPSpec, PrivacyAccountant
 from p2pfl_tpu_torch.topology.topology import generate_topology
 
 
@@ -96,12 +109,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-class Scenario:
+def _faults_by_round(config: ScenarioConfig) -> dict[int, list]:
+    by_round: dict[int, list] = {}
+    for f in config.faults:
+        by_round.setdefault(f.round, []).append(f)
+    return by_round
+
+
+class Scenario(Observable):
     """Build and drive a federation from a ScenarioConfig."""
 
     def __init__(self, config: ScenarioConfig,
                  dataset: FederatedDataset | None = None,
                  device: torch.device | str = "cuda"):
+        super().__init__()
         if config.cross_device.active:
             raise ValueError(
                 "config.cross_device is active — Scenario drives one "
@@ -119,10 +140,12 @@ class Scenario:
         self.aggregator = get_aggregator(config.aggregator,
                                          **config.aggregator_kwargs)
         self.roles = [nc.role for nc in config.nodes]
+        self.membership = Membership(n, config.protocol)
         self.leader = next(
             (i for i, nc in enumerate(config.nodes)
              if nc.role in ("aggregator", "server")), 0)
         self._rng = np.random.default_rng(config.seed)
+        self._faults_by_round = _faults_by_round(config)
         self._base_trains = np.array(
             [r in ("trainer", "aggregator", "server") for r in self.roles])
 
@@ -138,6 +161,32 @@ class Scenario:
             ReputationMonitor(n, alpha=adv.reputation_alpha,
                               cutoff=adv.reputation_cutoff)
             if adv.reputation else None)
+
+        # DP-FedAvg on every training row, keyed by (seed, node, round);
+        # the spend is a pure function of the rounds completed
+        priv = config.privacy
+        self.dp_spec = None
+        self.accountant = None
+        if priv.dp:
+            self.dp_spec = DPSpec(clip_norm=priv.clip_norm,
+                                  noise_multiplier=priv.noise_multiplier,
+                                  seed=config.seed)
+            self.accountant = PrivacyAccountant(priv.noise_multiplier,
+                                                delta=priv.delta)
+        self.dp_mask = (self._base_trains.copy() if priv.dp
+                        else np.zeros(n, bool))
+
+        # async aggregation: a straggler of compute class k lands k - 1
+        # rounds stale, and its column of the mix is scaled by the
+        # staleness discount (static across rounds)
+        el = config.elastic
+        self._stale_scale: np.ndarray | None = None
+        if el.async_aggregation and el.staleness_beta > 0.0:
+            stale_rounds = np.asarray(
+                [nc.fit_slowdown - 1.0 for nc in config.nodes], np.float32)
+            if np.any(stale_rounds > 0.0):
+                self._stale_scale = staleness_scale(stale_rounds,
+                                                    el.staleness_beta)
 
         dev = self.device
         x, y, smask, nsamp = self.dataset.stacked()
@@ -166,25 +215,68 @@ class Scenario:
             attack=self.attack,
             malicious=self.malicious,
             update_stats=self.reputation is not None,
+            dp=self.dp_spec,
+            dp_mask=self.dp_mask,
         )
         self._eval_fn = build_eval_fn(self.fns)
         self.fed = init_federation(self.fns, torch.from_numpy(x[0, :1]), n,
                                    seed=config.seed, device=dev)
 
     # ------------------------------------------------------------------
+    def _sync_join_row(self, node: int, round_num: int) -> None:
+        """A joining node's row adopts the current leader's params (not
+        its momentum), so it re-enters from the federation's model
+        instead of what its row held while it was dead."""
+        src = self.leader
+        if src == node:
+            src = next(
+                (i for i in self.membership.get_nodes() if i != node), None)
+            if src is None:
+                return
+
+        def copy_row(x):
+            x = x.clone()
+            x[node] = x[src]
+            return x
+
+        params = tree_map(copy_row, self.fed.states.params)
+        self.fed = dataclasses.replace(
+            self.fed, states=dataclasses.replace(self.fed.states,
+                                                 params=params))
+        self.notify(Events.NODE_JOINED, {"node": node, "round": round_num})
+
+    def _advance_membership(self, round_num: int) -> np.ndarray:
+        """The round's faults (a join's row sync included), then one
+        heartbeat period of the clock; returns the alive mask."""
+        for fault in self._faults_by_round.get(round_num, []):
+            self.membership.apply_fault(fault)
+            if fault.kind == "join":
+                self._sync_join_row(fault.node, round_num)
+        t = self.membership.clock + self.membership.protocol.heartbeat_period_s
+        return self.membership.advance_to(t)
+
     def _rotate_leader(self, alive: np.ndarray) -> None:
         if self.config.federation == "SDFL":
             candidates = [i for i in np.flatnonzero(alive)
                           if self.roles[i] in ("aggregator", "trainer")]
             if candidates:
-                self.leader = int(self._rng.choice(candidates))
+                new = int(self._rng.choice(candidates))
+                if new != self.leader:
+                    self.notify(Events.LEADERSHIP_TRANSFERRED,
+                                {"from": self.leader, "to": new})
+                self.leader = new
+        elif not alive[self.leader] and self.config.federation == "CFL":
+            # a dead server fails over to the lowest alive index
+            alive_idx = np.flatnonzero(alive)
+            if len(alive_idx):
+                self.leader = int(alive_idx[0])
 
     def _voted_trains(self, alive: np.ndarray,
                       round_num: int) -> np.ndarray | None:
         """The train-set vote at its deterministic fixed point (the JAX
         package's ``Scenario._voted_trains``): None when the
         ``train_set_size`` cap does not bind."""
-        k = self.config.protocol.get("train_set_size", 10)
+        k = self.config.protocol.train_set_size
         n = self.config.n_nodes
         eligible = [i for i in np.flatnonzero(alive)
                     if self.roles[i] in ("trainer", "aggregator", "server")]
@@ -215,6 +307,8 @@ class Scenario:
             # a masked row for the robust aggregators
             mix = (mix.astype(np.float32)
                    * self.reputation.weights_vector()[None, :])
+        if self._stale_scale is not None:
+            mix = mix.astype(np.float32) * self._stale_scale[None, :]
         dev = self.device
         return (torch.from_numpy(mix).to(dev),
                 torch.from_numpy(plan.adopt).long().to(dev),
@@ -242,19 +336,26 @@ class Scenario:
         ev = None
         ev_round = -1
         start_round = self.fed.round
-        alive = self.fed.alive.cpu().numpy()
         for r in range(start_round, start_round + rounds):
             _sync(self.device)
             t0 = time.monotonic()
+            self.notify(Events.ROUND_STARTED, {"round": r})
+            alive = self._advance_membership(r)
             self._rotate_leader(alive)
+            self.fed = dataclasses.replace(
+                self.fed, alive=torch.from_numpy(alive).to(self.device))
             trains_vote = self._voted_trains(alive, r)
             self.fed, metrics = self._round_fn(
                 self.fed, *self._data_args, *self._plan_args(trains_vote))
             _sync(self.device)
+            self.notify(Events.AGGREGATION_FINISHED, {"round": r})
             dt = time.monotonic() - t0
             round_times.append(dt)
             rec = {"round": r, "round_time_s": dt,
-                   "train_loss": metrics["train_loss"].double().cpu().tolist()}
+                   "train_loss": metrics["train_loss"].double().cpu().tolist(),
+                   "alive": alive.tolist(), "leader": self.leader}
+            if self.accountant is not None:
+                self.accountant.steps = r + 1
             if self.reputation is not None:
                 # round r ran on the trust of round r-1; fold in this
                 # round's scores for the next. Nodes that did not
@@ -273,12 +374,14 @@ class Scenario:
                         and ev["mean_accuracy"] >= target_accuracy):
                     rounds_to_target = r + 1
             history.append(rec)
+            self.notify(Events.ROUND_FINISHED, {"round": r, "time_s": dt})
         last_round = start_round + rounds - 1
         if ev is None or ev_round != last_round:
             ev = self.evaluate()
             if (target_accuracy is not None and rounds_to_target is None
                     and ev["mean_accuracy"] >= target_accuracy):
                 rounds_to_target = last_round + 1
+        self.notify(Events.LEARNING_FINISHED, {})
         return ScenarioResult(
             final_accuracy=ev["mean_accuracy"],
             per_node_accuracy=ev["per_node_accuracy"],
@@ -290,7 +393,7 @@ class Scenario:
         )
 
 
-class CrossDeviceScenario:
+class CrossDeviceScenario(Observable):
     """The sampled K-of-N cross-device scenario.
 
     A client is an index into a lazy ``ClientPartition``, not a live
@@ -303,11 +406,17 @@ class CrossDeviceScenario:
     and FedAvg-sums all of them. With ``prefetch="stream"`` the round
     is driven one cohort at a time through two reused pinned host
     buffers: the host fills cohort t+1 while the card trains cohort t.
+
+    The membership clock spans every virtual client: the round's faults
+    are applied (a join is a recover, since a client holds no row to
+    sync) and the clock advances one heartbeat period before the draw.
+    A sampled client that is dead trains nothing and carries no weight.
     """
 
     def __init__(self, config: ScenarioConfig,
                  dataset: CrossDeviceData | None = None,
                  device: torch.device | str = "cuda"):
+        super().__init__()
         cd = config.cross_device
         if not cd.active:
             raise ValueError(
@@ -321,10 +430,8 @@ class CrossDeviceScenario:
                                                     cd.n_clients)
         self.model = build_model(config.model)
         self.fns = _step_fns(self.model, config)
-        # faults are refused (ROADMAP A11), and without them the JAX
-        # package's Membership clock keeps every client alive; the
-        # round still takes a per-client alive vector
-        self._alive = np.ones(cd.n_clients, bool)
+        self.membership = Membership(cd.n_clients, config.protocol)
+        self._faults_by_round = _faults_by_round(config)
         self._sample_weights = (
             self.data.client_sizes.astype(np.float64)
             if cd.sampling == "weighted" else None
@@ -374,6 +481,12 @@ class CrossDeviceScenario:
                 bufs.append((host, tuple(t.numpy() for t in host) + (sizes,)))
             self._stream_bufs = bufs
         return self._stream_bufs
+
+    def _advance_membership(self, round_num: int) -> np.ndarray:
+        for fault in self._faults_by_round.get(round_num, []):
+            self.membership.apply_fault(fault)
+        t = self.membership.clock + self.membership.protocol.heartbeat_period_s
+        return self.membership.advance_to(t)
 
     def _run_streamed_round(self, cohorts: np.ndarray,
                             c_alive: np.ndarray) -> dict[str, Any]:
@@ -471,12 +584,14 @@ class CrossDeviceScenario:
         for r in range(start_round, start_round + rounds):
             _sync(self.device)
             t0 = time.monotonic()
+            self.notify(Events.ROUND_STARTED, {"round": r})
+            alive = self._advance_membership(r)
             # cohort step t runs clients sampled[t*n_slots:(t+1)*n_slots]
             sampled, cohorts = sample_cohorts(
                 cd.n_clients, cd.clients_per_round, cd.cohort_size, r,
                 seed=cd.seed, weights=self._sample_weights,
             )
-            c_alive = self._alive[cohorts]
+            c_alive = alive[cohorts]
             if self._stream:
                 metrics = self._run_streamed_round(cohorts, c_alive)
             else:
@@ -487,6 +602,7 @@ class CrossDeviceScenario:
             self.last_sampled = sampled
             self.last_cohorts = cohorts
             self.last_cohort_alive = c_alive
+            self.notify(Events.AGGREGATION_FINISHED, {"round": r})
 
             losses = metrics["train_loss"].double().cpu().numpy()
             live = c_alive.astype(bool)
@@ -506,12 +622,14 @@ class CrossDeviceScenario:
                         and ev["mean_accuracy"] >= target_accuracy):
                     rounds_to_target = r + 1
             history.append(rec)
+            self.notify(Events.ROUND_FINISHED, {"round": r, "time_s": dt})
         last_round = start_round + rounds - 1
         if ev is None or ev_round != last_round:
             ev = self.evaluate()
             if (target_accuracy is not None and rounds_to_target is None
                     and ev["mean_accuracy"] >= target_accuracy):
                 rounds_to_target = last_round + 1
+        self.notify(Events.LEARNING_FINISHED, {})
         return ScenarioResult(
             final_accuracy=ev["mean_accuracy"],
             per_node_accuracy=ev["per_node_accuracy"],

@@ -1,8 +1,8 @@
 """The federated rounds over the node axis, on one device.
 
 The counterpart of ``p2pfl_tpu/parallel/federated.py`` for the dense
-round (FedAvg, the robust aggregators, attack injection and trust
-observations) and the cross-device round (``build_round_fn_cross_device``,
+round (FedAvg, the robust aggregators, attack injection, DP
+privatization and trust observations; the host's staleness scale) and the cross-device round (``build_round_fn_cross_device``,
 ``build_cross_device_stream_fns``, below). The dense round: every node
 trains its local epochs (one ``train_epochs`` call over the stacked
 ``[n, ...]`` state); with FedAvg each node's aggregate is then row
@@ -39,6 +39,7 @@ from p2pfl_tpu_torch.core.pytree import (
 )
 from p2pfl_tpu_torch.learning.learner import StepFns, TrainState
 from p2pfl_tpu_torch.ops import gemm
+from p2pfl_tpu_torch.privacy.dp import DPSpec, privatize_stacked
 from p2pfl_tpu_torch.topology.topology import Topology
 
 
@@ -74,6 +75,18 @@ def make_round_plan(topology: Topology, roles: list[str],
     else:
         raise ValueError(f"unknown federation {federation!r}")
     return RoundPlan(mix=mix, adopt=adopt.astype(np.int32), trains=trains)
+
+
+def staleness_scale(staleness, beta: float) -> np.ndarray:
+    """The staleness discount ``1 / (1 + s)^beta`` in f32 on the host
+    (the JAX package's formula, bit for bit): ``staleness`` in rounds
+    behind, negative values clamp to fresh, ``beta=0`` is the identity.
+    The stacked plane applies it as a column scale on the mixing
+    matrix."""
+    s = np.maximum(np.asarray(staleness, np.float32), 0.0)
+    if beta == 0.0:
+        return np.ones_like(s)
+    return (1.0 / np.power(1.0 + s, np.float32(beta))).astype(np.float32)
 
 
 def _where_node(cond: torch.Tensor, a: torch.Tensor,
@@ -142,6 +155,8 @@ def build_round_fn(
     attack: AttackSpec | None = None,
     malicious: np.ndarray | None = None,
     update_stats: bool = False,
+    dp: DPSpec | None = None,
+    dp_mask: np.ndarray | None = None,
 ) -> Callable:
     """Build ``round_fn(fed, x, y, mask, n_samples, mix, adopt, trains)
     -> (fed, metrics)``.
@@ -165,11 +180,19 @@ def build_round_fn(
     ``fed.round``). ``update_stats=True`` adds ``metrics["trust_obs"]``:
     each node's score of its post-attack delta over the contributing
     cohort, for the host's ``ReputationMonitor``.
+
+    ``dp`` and ``dp_mask`` (a host ``[n]`` bool mask) privatize the
+    masked rows' updates after any poisoning and before any mix:
+    ``privatize_stacked`` against the round-start params, keyed by
+    ``fed.round``, on the FedAvg and the robust path alike, so the clip
+    also bounds what a malicious row injects.
     """
     aggregator = aggregator or FedAvg()
     fedavg_fast = type(aggregator) is FedAvg
     attack_active = (attack is not None and malicious is not None
                      and bool(np.any(malicious)) and attack.poisons_updates)
+    dp_active = (dp is not None and dp_mask is not None
+                 and bool(np.any(dp_mask)))
 
     def mixed(wn: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         flat = p.reshape(p.shape[0], -1)
@@ -205,6 +228,9 @@ def build_round_fn(
         if attack_active:
             states = dataclasses.replace(states, params=poison_stacked(
                 states.params, ref_params, malicious, fed.round, attack))
+        if dp_active:
+            states = dataclasses.replace(states, params=privatize_stacked(
+                states.params, ref_params, dp_mask, fed.round, dp))
         contrib = torch.logical_and(trains, alive)
         w = mix * (n_samples.float() * contrib.float())[None, :]
         got_any = w.sum(1) > 0

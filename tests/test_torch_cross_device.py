@@ -150,10 +150,34 @@ def test_cross_device_compositions_refused_as_in_jax(override):
 
 
 def test_faults_stay_refused_with_cross_device():
-    raw = {"n_nodes": 4, "cross_device": _cd(),
-           "faults": [{"node": 1, "round": 0, "kind": "crash"}]}
-    with pytest.raises(NotImplementedError, match="A11"):
-        tschema.ScenarioConfig.from_dict(raw)
+    """Cross-device faults are accepted (the name is kept from when they
+    were refused) and the membership over every virtual client matches
+    the JAX package's: the same alive mask over four rounds of a crash
+    at round 0 and a join at round 2, at the stacked scenario's
+    default heartbeat clock."""
+    from p2pfl_tpu.federation.membership import Membership as JMembership
+    from p2pfl_tpu_torch.federation.membership import Membership
+
+    faults = ([{"node": i, "round": 0, "kind": "crash"} for i in range(5)]
+              + [{"node": i, "round": 2, "kind": "join"} for i in (1, 3)])
+    raw = {"n_nodes": 4, "cross_device": _cd(), "faults": faults,
+           "protocol": {"heartbeat_period_s": 4.0, "node_timeout_s": 3.0}}
+    tcfg = tschema.ScenarioConfig.from_dict(json.loads(json.dumps(raw)))
+    jcfg = jschema.ScenarioConfig.from_dict(json.loads(json.dumps(raw)))
+    for key in ("faults", "protocol", "cross_device"):
+        assert (dataclasses.asdict(tcfg)[key]
+                == dataclasses.asdict(jcfg)[key]), key
+    n = tcfg.cross_device.n_clients
+    tm, jm = Membership(n, tcfg.protocol), JMembership(n, jcfg.protocol)
+    for r in range(4):
+        for tf, jf in zip(tcfg.faults, jcfg.faults):
+            if tf.round == r:
+                tm.apply_fault(tf)
+                jm.apply_fault(jf)
+        t = (r + 1) * tcfg.protocol.heartbeat_period_s
+        np.testing.assert_array_equal(tm.advance_to(t), jm.advance_to(t))
+    assert tm.get_nodes() == jm.get_nodes()
+    assert not tm.alive[[0, 2, 4]].any() and tm.alive[[1, 3, 5]].all()
 
 
 @pytest.mark.parametrize("seed", [0, 7])

@@ -158,7 +158,8 @@ def test_port_trains_with_its_own_generator(tmp_path):
 
 def test_unported_sections_are_rejected_with_their_roadmap_item(tmp_path):
     cases = [
-        ({"faults": [{"node": 1, "round": 0, "kind": "crash"}]}, "A11"),
+        ({"exchange_overlap": "staged"}, "A13"),
+        ({"privacy": {"secagg": True}}, "A22"),
         ({"transport": "sparse"}, "A12"),
         ({"training": {"optimizer": "adam"}}, "A15"),
         ({"checkpoint_dir": str(tmp_path)}, "A17"),

@@ -573,3 +573,85 @@ def test_fused_mlp_epoch_refusals(dev):
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         fused_train.fused_mlp_train_epoch(params, mom, bx.cpu(), by, 0.05,
                                           batch_size=8)
+
+
+# The private and elastic federation on the card: K4 at the stacked
+# round's shape with whole nodes gated off (dead rows, whose gradients
+# the learner zeroes with ``where`` even where they are not finite), the
+# same bits as its plain version and the dead rows' params unchanged;
+# and DP's ``privatize_stacked`` on CUDA tensors (stock PyTorch, no
+# kernel of its own): two calls give the same bits, at noise 0 every
+# masked row's delta norm is at most clip * (1 + 1e-6), unmasked rows
+# keep their bits.
+_DEAD = [0, 3, 7]
+
+
+def test_sgd_accum_many_turns_off_whole_nodes(dev):
+    shapes = _LEAF_SETS["femnist_cnn"]
+    n = 8
+    ps = _leaves(dev, 140, shapes, torch.float32, n)
+    gs = _leaves(dev, 160, shapes, torch.float32, n)
+    ms = _leaves(dev, 180, shapes, torch.float32, n)
+    gate = torch.ones(n, device=dev)
+    gate[_DEAD] = 0.0
+    on = gate > 0
+    for g in gs:
+        g[_DEAD] = float("nan")
+    gs = [torch.where(on.reshape((-1,) + (1,) * (g.dim() - 1)), g,
+                      torch.zeros_like(g)) for g in gs]
+    lr = torch.full((n,), 0.05, device=dev) * gate
+    before = gemm.launches["sgd_accum"]
+    got = gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9)
+    assert gemm.launches["sgd_accum"] == before + 1
+    want = gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9)
+    for g, w in zip(got, want):
+        _equal_lists(g, w)
+    for p, kp, km in zip(ps, got[0], got[1]):
+        assert torch.equal(kp[~on], p[~on])
+        assert bool(torch.isfinite(kp).all() and torch.isfinite(km).all())
+
+
+def _stacked_tree(dev, seed, n):
+    from p2pfl_tpu_torch.models.base import get_model
+
+    model = get_model("femnist-cnn", hidden=256)
+    one = model.init(torch.Generator().manual_seed(seed),
+                     torch.zeros(1, 28, 28, 1))
+    return {"params": {
+        k: {m: t.to(dev).unsqueeze(0).repeat((n,) + (1,) * t.dim())
+            for m, t in v.items()}
+        for k, v in one["params"].items()}}
+
+
+@pytest.mark.parametrize("sigma", [0.0, 1.0])
+def test_privatize_stacked_on_the_card(dev, sigma):
+    import numpy as np
+
+    from p2pfl_tpu_torch.privacy import dp
+
+    n = 8
+    ref = _stacked_tree(dev, 0, n)
+    g = torch.Generator(device=dev).manual_seed(5)
+    upd = {"params": {k: {m: t + 0.05 * torch.randn(
+        t.shape, generator=g, device=dev) for m, t in v.items()}
+        for k, v in ref["params"].items()}}
+    mask = np.ones(n, bool)
+    mask[_DEAD] = False
+    spec = dp.DPSpec(clip_norm=1.0, noise_multiplier=sigma, seed=3)
+    a = dp.privatize_stacked(upd, ref, mask, 2, spec)
+    b = dp.privatize_stacked(upd, ref, mask, 2, spec)
+    for k, v in a["params"].items():
+        for m, t in v.items():
+            assert t.device == upd["params"][k][m].device
+            assert torch.equal(t, b["params"][k][m])
+            assert torch.equal(t[_DEAD], upd["params"][k][m][_DEAD])
+    for i in np.flatnonzero(mask):
+        row = {"params": {k: {m: t[i] for m, t in v.items()}
+                          for k, v in a["params"].items()}}
+        rref = {"params": {k: {m: t[i] for m, t in v.items()}
+                           for k, v in ref["params"].items()}}
+        norm = float(dp.update_norm(row, rref))
+        if sigma == 0.0:
+            assert norm <= spec.clip_norm * (1 + 1e-6)
+        else:
+            assert norm > spec.clip_norm  # the noise dominates
