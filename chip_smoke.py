@@ -28,6 +28,19 @@ one, or when run outside a checkout of this repository). Phases:
    kernel's own device time from a profiled run (K2's beside
    ``torch.bmm``'s). K6 prints its instantiation (on chip or
    L2-resident), the clusters the card holds at once and its waves.
+   The dtype variants: K1, K2 and K3 in f32 (``csrc/gemm_f32.cu``) at
+   the ring's shapes, held to relative L2 and elementwise limits that
+   scale with the square root of the summed length (``F32_REL_C``,
+   ``F32_ELEM_C``), which two controls must fail at each shape (a TF32
+   product, and the sum with one slice dropped), twice bit for bit,
+   timed beside ``torch.bmm`` in f32 (TF32 off) and against the f32
+   peak; K4 over the 64-node headline's bf16 leaves (bf16 params,
+   gradients and trace) and over the one-class SVM's ``[8, 17]`` and
+   ``[8]`` leaves, the plain version's bits; K6 with bf16 params, trace
+   and inputs at its headline shape: bit for bit the f32 kernel on the
+   widened inputs rounded once, from one state within the K6 tolerance
+   plus one bf16 ulp of its plain version, and over the 19 steps node
+   by node (at most ``K6_FLIP_NODES`` nodes outside the flip bounds).
 3. End to end, the stacked federation: the port's ``Scenario`` on the
    full-width FEMNIST CNN, 8 nodes on a ring, DFL, FedAvg, bf16 wire,
    750 samples a node, batch 336, 3 rounds on the seeded synthetic
@@ -88,10 +101,28 @@ one, or when run outside a checkout of this repository). Phases:
    e. the phase-4 cross-device round with clients 0-999 crashing at
       round 0 and joining at round 2: the sampled clients' alive count
       equal to the membership's every round.
-8. One JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
-   "device": {...}}``. With ``--out DIR`` the per-instance kernel
-   numbers, the profiles and phase 7's numbers are also written there
-   as JSON.
+8. The learning knobs; every arm zeroes the launch counts before it
+   runs and fails unless its path's kernels launched:
+   a. the JAX bench's headline (``_phase_headline`` through ``_build``'s
+      defaults): FEMNIST CNN, 64 nodes on a ring, DFL, FedAvg, 750
+      samples a node, batch 336, lr 0.05, SGD momentum 0.9, bf16 params
+      and trace, 3 rounds: s/round and peak memory, K1-K4 launched, K4
+      once a step with bf16 params, the loss falling, the params bf16
+      and finite, one step against the plain versions;
+   b. phase 3's ring with ``compute_dtype`` float32, 3 rounds: only the
+      f32 K1-K3 launch, one step against the plain versions;
+   c. phase 3's ring with adam (lr 1e-3) and adamw (weight decay 1e-4),
+      3 rounds each: K1-K3 launch, K4 does not, the count equals the
+      steps; one adam cross-device round at phase 4's shape launches K5;
+   d. ``syscall-mlp``, ``syscall-autoencoder``, ``syscall-svm`` and
+      ``wadi-mlp`` on their surrogates, 8 nodes fully connected, the JAX
+      defaults, 5 rounds each: K4 once a step, the test objective
+      falling, accuracy 0.0 for the two objectives that have none;
+   e. 5 epochs of K6 with bf16 state at phase 5's shape.
+9. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
+   dtype variants) and, last, ``{"ok": true, "device": {...}}``. With
+   ``--out DIR`` the per-instance kernel numbers, the profiles and
+   phases 7's and 8's numbers are also written there as JSON.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -107,6 +138,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N_NODES, BATCH = 8, 336
+HEADLINE_NODES = 64  # the JAX bench's headline federation
 # the kernels each main path runs
 DENSE_PATH = ("stream_gemm", "stream_wgrad", "dense_bwd", "sgd_accum")
 CROSS_PATH = DENSE_PATH + ("fedavg_accum",)
@@ -124,6 +156,12 @@ MLP_NODES, MLP_ROWS, MLP_BATCH, MLP_LR = 64, 608, 32, 0.05
 K6_TOL = dict(rtol=2e-4, atol=2e-5)
 K6_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
 K6_FLIP_FRACTION, K6_FLIP_ATOL, K6_FLIP_REL_L2 = 1e-3, 1e-2, 5e-3
+# K6 with bf16 state over 19 steps is held node by node: a gate taken the
+# other way moves its node's whole state apart (a flipped h1 unit's
+# gradient reaches every w0 column through h0), so at most K6_FLIP_NODES
+# of the 64 nodes may leave the flip bounds and every other node stays
+# inside them
+K6_FLIP_NODES = 1
 FEMNIST_CNN_LEAVES = {
     "Conv_0.kernel": (5, 5, 1, 32), "Conv_0.bias": (32,),
     "Conv_1.kernel": (5, 5, 32, 64), "Conv_1.bias": (64,),
@@ -317,6 +355,9 @@ def kernel_checks(dev, peak) -> dict:
         del x, w, g, dx, dw, pdx, pdw, wt, xt
     torch.cuda.empty_cache()
 
+    f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
+                  f32_peak)
+
     # K4 and K5 over the FEMNIST CNN's 8 leaves at 8 slots: first the
     # step with every leaf in one call (the path's instance, which the
     # kernels line reports), then each leaf alone (one-leaf launches of
@@ -372,6 +413,8 @@ def kernel_checks(dev, peak) -> dict:
                    on_path=pdt == torch.float32, summed=False)
             del p, acc, got, pf, af
     torch.cuda.empty_cache()
+
+    k4_variants(rows, record, same_bits, rand, f32_peak)
 
     # K6 fused_mlp_train_epoch at its headline shape (f32 products: the
     # card's non-tensor f32 peak), then one step, a short shard and the
@@ -429,7 +472,88 @@ def kernel_checks(dev, peak) -> dict:
     r = rows[-1]
     print(f"    kernel / plain {r['ms'] / r['plain_ms']:.3f} (events)",
           flush=True)
-    del params, mom, bx, by, got, again
+    del got, again
+
+    # K6 with bf16 params, trace and inputs at the same shape: widened to
+    # f32 on entry, the f32 epoch, narrowed once at the end. Held (i) bit
+    # for bit to the f32 kernel's result on the widened inputs rounded
+    # once to bf16 (the variant's own code: the widening and narrowing
+    # passes), twice; (ii) from one state (the first step at 64 nodes,
+    # and a 20-row shard) to its plain version within K6_TOL plus one
+    # bf16 ulp; (iii) over the 19 steps to its plain version node by
+    # node (``k6_nodes_off``): at most K6_FLIP_NODES nodes outside the
+    # flip bounds plus one bf16 ulp, every value finite. The same epoch
+    # in f64 is printed beside it: which version took the other gate
+    bf = tuple(t.to(torch.bfloat16) for t in params)
+    bm = tuple(t.to(torch.bfloat16) for t in mom)
+    bbx = bx.to(torch.bfloat16)
+
+    def epoch16(fn, x=bbx, y=by, cast=lambda t: t):
+        return fn(tuple(map(cast, bf)), tuple(map(cast, bm)), cast(x), y,
+                  MLP_LR, 0.9, batch_size=MLP_BATCH)
+
+    def flat(o):
+        return o[0] + o[1] + (o[2],)
+
+    got = epoch16(fused_train.fused_mlp_train_epoch)
+    same_bits("fused_mlp_train_epoch bf16",
+              lambda: flat(epoch16(fused_train.fused_mlp_train_epoch)))
+    wide = epoch16(fused_train.fused_mlp_train_epoch,
+                   cast=lambda t: t.float())
+    exact = all(torch.equal(a, b.to(torch.bfloat16))
+                for a, b in zip(got[0] + got[1], wide[0] + wide[1]))
+    exact = exact and torch.equal(got[2], wide[2])
+    ok = exact
+    for inst, x, y in (("one_step", bbx[:, :MLP_BATCH], by[:, :MLP_BATCH]),
+                       ("short_shard", bbx[:, :20], by[:, :20])):
+        x, y = x.contiguous(), y.contiguous()
+        e, o, _ = k6_compare(
+            epoch16(fused_train.fused_mlp_train_epoch, x, y),
+            epoch16(fused_train.fused_mlp_train_epoch_plain, x, y),
+            multi_step=False)
+        ok = ok and o
+        print(f"  fused_mlp_train_epoch bf16 {inst}: max_abs_err {e:.3g} "
+              f"{'ok' if o else 'FAIL'}", flush=True)
+    plain19 = epoch16(fused_train.fused_mlp_train_epoch_plain)
+    err, whole, flips = k6_compare(got, plain19, multi_step=True)
+    nodes = k6_nodes_off(got, plain19)
+    finite = all(bool(torch.isfinite(t).all()) for t in flat(got))
+    ok = ok and finite and len(nodes) <= K6_FLIP_NODES
+    f64 = epoch16(fused_train.fused_mlp_train_epoch_plain,
+                  cast=lambda t: t.double())
+    f64 = (tuple(t.float() for t in f64[0]), tuple(t.float() for t in f64[1]),
+           f64[2].float())
+    nodes64 = k6_nodes_off(wide, f64)
+    plain64 = k6_nodes_off(epoch16(fused_train.fused_mlp_train_epoch_plain,
+                                   cast=lambda t: t.float()), f64)
+    print(f"  fused_mlp_train_epoch bf16 state: bit for bit the f32 kernel "
+          f"on the widened inputs, rounded: {exact}; over 19 steps against "
+          f"the plain version: max_abs_err {err:.3g}, nodes outside the "
+          f"flip bounds {nodes} (at most {K6_FLIP_NODES}), finite {finite}; "
+          f"whole leaves within K6_FLIP_*: {whole}, elements off per leaf "
+          f"{flips}; against the f64 epoch, nodes outside: the f32 kernel "
+          f"{nodes64}, the plain version {plain64}", flush=True)
+    record("fused_mlp_train_epoch_bf16", "mnist_mlp_64x19x32", err, ok,
+           "bits of the f32 kernel on the widened inputs, rounded; "
+           "K6_TOL + one bf16 ulp from one state; over 19 steps at most "
+           "K6_FLIP_NODES nodes outside K6_FLIP_* + one bf16 ulp",
+           time_ms(lambda: epoch16(fused_train.fused_mlp_train_epoch),
+                   reps=10),
+           time_ms(lambda: epoch16(fused_train.fused_mlp_train_epoch_plain),
+                   reps=10),
+           None, n6 * (2 * 4 * n_par + rows6 * (2 * d_in + 4) + 4), flops,
+           f32_peak)
+    rows[-1].update(nodes_off=nodes, whole_leaves_within_flip=whole,
+                    elements_off=flips, kernel_vs_f64_nodes_off=nodes64,
+                    plain_vs_f64_nodes_off=plain64)
+    host_device(rows, lambda: epoch16(fused_train.fused_mlp_train_epoch),
+                "mlp_epoch", reps=5)
+    cast_ms, casts = device_time(
+        lambda: epoch16(fused_train.fused_mlp_train_epoch), 5, "cast_bf16")
+    rows[-1].update(cast_device_ms=cast_ms, cast_launches=casts)
+    print(f"    the widening and narrowing passes: {cast_ms:.4f} ms on the "
+          f"device in {casts:g} launches a call", flush=True)
+    del params, mom, bx, by, got, wide, plain19, f64, bf, bm, bbx
     torch.cuda.empty_cache()
 
     bad = [r for r in rows if not r["ok"]]
@@ -575,6 +699,226 @@ def step_checks(rows, record, same_bits, rand, lr, w, f32_peak) -> None:
         torch.cuda.empty_cache()
 
 
+# the f32 instantiations of K1-K3 against their plain versions
+# (torch.matmul in f32, TF32 off). Two f32 sums of the same L products
+# in other orders differ by about u sqrt(L) relative (u = 2**-24, the
+# products' signs random), each element by a few u sqrt(L) times the
+# root of its products' sum of squares. Held per instance: relative L2
+# <= F32_REL_C u sqrt(L), and every element <= F32_ELEM_C u sqrt(L)
+# sqrt(A**2 @ B**2). Two controls must fail those limits at each shape:
+# the product in TF32 (the plain version on inputs rounded to TF32, and
+# torch.bmm with TF32 on wherever cuBLAS then runs TF32: at conv1's K of
+# 25 and 32 it stays in f32), and the sum with one slice dropped (K2: the
+# first slice of its plan; K1 and K3: the first F32_TILE_K terms, one k
+# tile of csrc/gemm_f32.cu)
+F32_REL_C, F32_ELEM_C, F32_TILE_K = 4.0, 8.0, 16
+F32_TOL = (f"rel L2 <= {F32_REL_C:g} u sqrt(L), |d| <= {F32_ELEM_C:g} u "
+           "sqrt(L) sqrt(A**2 @ B**2)")
+
+
+def f32_reading(got, want, a, b) -> tuple[float, float]:
+    """``got - want`` for ``want = a @ b`` summed over L = a's last axis:
+    (its relative L2 in units of u sqrt(L), its largest element in units
+    of u sqrt(L) sqrt(a**2 @ b**2))."""
+    import torch
+
+    scale = 2.0 ** -24 * math.sqrt(a.shape[-1])
+    d = (got - want).float()
+    elem = scale * torch.matmul(a * a, b * b).sqrt()
+    return (float(d.norm() / want.norm()) / scale,
+            float((d.abs() / elem.clamp(min=1e-30)).max()))
+
+
+def tf32_round(t):
+    """``t`` (f32) rounded to TF32's 10 mantissa bits, to nearest."""
+    import torch
+
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def f32_check(tag, got, want, a, b, drop: int) -> tuple[float, bool, dict]:
+    """One f32 K1-K3 output against its plain version ``want = a @ b``
+    under the F32 limits, and the two controls, which must fail them:
+    (max |got - want|, ok, the readings)."""
+    import torch
+
+    def passes(r):
+        return r[0] <= F32_REL_C and r[1] <= F32_ELEM_C
+
+    reading = f32_reading(got, want, a, b)
+    cut = a.clone()
+    cut[..., :drop] = 0
+    mm = torch.backends.cuda.matmul  # TF32 off here (``main``)
+    f32_bmm = torch.bmm(a, b)
+    mm.allow_tf32 = True
+    try:
+        tf32_bmm = torch.bmm(a, b)
+    finally:
+        mm.allow_tf32 = False
+    on_tf32 = not torch.equal(tf32_bmm, f32_bmm)
+    controls = dict(
+        drop_one_slice=f32_reading(torch.matmul(cut, b), want, a, b),
+        tf32_rounded=f32_reading(torch.matmul(tf32_round(a), tf32_round(b)),
+                                 want, a, b),
+        bmm_tf32=f32_reading(tf32_bmm, want, a, b))
+    print(f"    {tag}: rel L2 {reading[0]:.4g} u sqrt(L) (limit "
+          f"{F32_REL_C:g}), largest element {reading[1]:.4g} (limit "
+          f"{F32_ELEM_C:g}); controls " + ", ".join(
+              f"{k} {v[0]:.4g} / {v[1]:.4g}" for k, v in controls.items())
+          + f" (torch.bmm ran TF32: {on_tf32})", flush=True)
+    gated = ["drop_one_slice", "tf32_rounded"] + (
+        ["bmm_tf32"] if on_tf32 else [])
+    passing = [k for k in gated if passes(controls[k])]
+    if passing:
+        fail(f"f32 {tag}: the controls {passing} pass the F32 limits")
+    readings = dict(rel_l2_units=reading[0], elem_units=reading[1],
+                    bmm_ran_tf32=on_tf32,
+                    **{f"{k}_units": v for k, v in controls.items()})
+    return float((got - want).abs().max()), passes(reading), readings
+
+
+def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
+                  f32_peak) -> None:
+    """K1, K2 and K3 in f32 (``csrc/gemm_f32.cu``) at the ring's shapes
+    (8 x 336 FEMNIST-CNN, the f32 arm's path; conv1's dgrad off it):
+    held to ``F32_TOL``, twice bit for bit, timed beside ``torch.bmm`` in
+    f32 with TF32 off and against the f32 non-tensor peak."""
+    import torch
+
+    from p2pfl_tpu_torch.ops import gemm
+
+    f32 = torch.float32
+    for inst, (m, k, nn_), on_path in [("conv1_fwd", (m1, 25, 32), True),
+                                       ("conv1_dgrad", (m1, 32, 25), False),
+                                       ("conv2_fwd", (m2, 800, 64), True)]:
+        x, w = rand(n, m, k, dtype=f32), rand(n, k, nn_, dtype=f32)
+        got = gemm.stream_gemm(x, w)
+        same_bits(f"stream_gemm f32 {inst}", lambda: gemm.stream_gemm(x, w))
+        err, ok, readings = f32_check(f"stream_gemm {inst}", got,
+                                      gemm.stream_gemm_plain(x, w), x, w,
+                                      F32_TILE_K)
+        record("stream_gemm_f32", inst, err, ok, F32_TOL,
+               time_ms(lambda: gemm.stream_gemm(x, w)),
+               time_ms(lambda: gemm.stream_gemm_plain(x, w)),
+               time_ms(lambda: torch.bmm(x, w)),
+               4 * n * (m * k + k * nn_ + m * nn_), 2 * n * m * k * nn_,
+               f32_peak, on_path)
+        rows[-1].update(f32_readings=readings)
+        print(f"    host {host_us(lambda: gemm.stream_gemm(x, w)):.1f} us "
+              "a call", flush=True)
+        del x, w, got
+    torch.cuda.empty_cache()
+
+    for inst, (m, k, nn_) in [("conv1_wgrad", (m1, 25, 32)),
+                              ("conv2_wgrad", (m2, 800, 64))]:
+        x, g = rand(n, m, k, dtype=f32), rand(n, m, nn_, dtype=f32)
+        got = gemm.stream_wgrad(x, g)
+        same_bits(f"stream_wgrad f32 {inst}",
+                  lambda: gemm.stream_wgrad(x, g))
+        xt = x.transpose(1, 2)
+        plan = gemm.wgrad_plan(n, m, k, nn_, "f32")
+        err, ok, readings = f32_check(f"stream_wgrad {inst}", got,
+                                      gemm.stream_wgrad_plain(x, g), xt, g,
+                                      plan.rows)
+        record("stream_wgrad_f32", inst, err, ok, F32_TOL,
+               time_ms(lambda: gemm.stream_wgrad(x, g)),
+               time_ms(lambda: gemm.stream_wgrad_plain(x, g)),
+               time_ms(lambda: torch.bmm(xt, g)),
+               4 * n * (m * k + m * nn_) + 4 * n * k * nn_,
+               2 * n * m * k * nn_, f32_peak)
+        rows[-1].update(plan=plan._asdict(), f32_readings=readings)
+        print(f"    plan: {plan.route} route, {plan.slices} slices of "
+              f"{plan.rows} rows a node, {plan.tiles} tiles a slice, "
+              f"{n * plan.slices * plan.tiles} blocks", flush=True)
+        host_device(rows, lambda: gemm.stream_wgrad(x, g), "f32",
+                    lib_fn=lambda: torch.bmm(xt, g))
+        del x, g, got, xt
+    torch.cuda.empty_cache()
+
+    d_in, h = 3136, 2048
+    x, w, g = (rand(n, b, d_in, dtype=f32), rand(n, d_in, h, dtype=f32),
+               rand(n, b, h, dtype=f32))
+    dx, dw = gemm.dense_bwd(x, w, g)
+    same_bits("dense_bwd f32", lambda: gemm.dense_bwd(x, w, g))
+    pdx, pdw = gemm.dense_bwd_plain(x, w, g)
+    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+    e1, ok1, r1 = f32_check("dense_bwd dx", dx, pdx, g, wt, F32_TILE_K)
+    e2, ok2, r2 = f32_check("dense_bwd dw", dw, pdw, xt, g, F32_TILE_K)
+    record("dense_bwd_f32", "dense1_bwd", max(e1, e2), ok1 and ok2, F32_TOL,
+           time_ms(lambda: gemm.dense_bwd(x, w, g)),
+           time_ms(lambda: gemm.dense_bwd_plain(x, w, g)),
+           time_ms(lambda: (torch.bmm(g, wt), torch.bmm(xt, g))),
+           4 * n * (2 * b * d_in + 2 * d_in * h + b * h),
+           4 * n * b * d_in * h, f32_peak)
+    rows[-1].update(f32_readings=dict(dx=r1, dw=r2))
+    print(f"    host {host_us(lambda: gemm.dense_bwd(x, w, g)):.1f} us a "
+          "call", flush=True)
+    del x, w, g, dx, dw, pdx, pdw, wt, xt
+    torch.cuda.empty_cache()
+
+
+def k4_variants(rows, record, same_bits, rand, f32_peak) -> None:
+    """K4 on the 64-node headline's bf16 state (the FEMNIST CNN's 8
+    leaves at 64 nodes, bf16 params, gradients and trace, half the nodes
+    gated off; one call over every leaf, the list plain version's bits)
+    and on the one-class SVM's leaves (``w [8, 17]``, ``rho [8]``: one
+    value a node)."""
+    import torch
+
+    from p2pfl_tpu_torch.ops import gemm
+
+    shapes = list(FEMNIST_CNN_LEAVES.values())
+    for inst, n, shps, dt in [
+            ("headline_64_bf16", HEADLINE_NODES, shapes, torch.bfloat16),
+            ("ocsvm_leaves", N_NODES, [(17,), ()], torch.float32)]:
+        ps, gs, ms = ([rand(n, *s, dtype=dt) for s in shps]
+                      for _ in range(3))
+        lr = torch.tensor([0.05, 0.0] * (n // 2), device=ps[0].device)
+        off = lr == 0
+
+        def kern():
+            return gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9)
+
+        def plain():
+            return gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9)
+
+        got, want = kern(), plain()
+        ok = all(a.dtype == v.dtype and torch.equal(a, v)
+                 for g_, w_ in zip(got, want) for a, v in zip(g_, w_))
+        if not all(torch.equal(kp[off], p[off]) for kp, p in zip(got[0], ps)):
+            fail(f"sgd_accum {inst}: gate 0 changed the params")
+        same_bits(f"sgd_accum {inst}",
+                  lambda: tuple(t for o in kern() for t in o))
+        lib = None
+        if dt == torch.bfloat16:
+            cp, cg, cm = ([t.clone() for t in x] for x in (ps, gs, ms))
+            try:
+                torch._fused_sgd_(cp, cg, cm, weight_decay=0.0, momentum=0.9,
+                                  lr=0.05, dampening=0.0, nesterov=False,
+                                  maximize=False, is_first_step=False)
+                lib = time_ms(lambda: torch._fused_sgd_(
+                    cp, cg, cm, weight_decay=0.0, momentum=0.9, lr=0.05,
+                    dampening=0.0, nesterov=False, maximize=False,
+                    is_first_step=False))
+            except (RuntimeError, TypeError) as e:
+                print(f"    (torch._fused_sgd_ refuses bf16 state: {e})",
+                      flush=True)
+            del cp, cg, cm
+        values = n * sum(math.prod(s) for s in shps)
+        esz = ps[0].element_size()
+        record("sgd_accum_bf16" if dt == torch.bfloat16 else "sgd_accum",
+               inst, 0.0, ok, "same bits", time_ms(kern), time_ms(plain),
+               lib, values * 5 * esz, 4 * values, f32_peak,
+               on_path=dt == torch.bfloat16, summed=dt == torch.bfloat16)
+        if dt == torch.bfloat16:
+            host_device(rows, kern, "stream_kernel")
+        if not ok:
+            fail(f"sgd_accum {inst}: differs from its list plain version")
+        del ps, gs, ms, got, want
+        torch.cuda.empty_cache()
+
+
 def host_device(rows, kern, name: str, lib_fn=None, reps: int = 10) -> None:
     """The host's time to enqueue one call on an idle card, and a
     profiled run of ``reps`` calls: the kernel's own device time a call
@@ -685,17 +1029,58 @@ def k6_plan(n: int, batch: int, d_in: int, d1: int, d2: int,
                 clusters_resident=clusters, waves=waves)
 
 
+def bf16_ulp(t):
+    """One bf16 ulp at each value of ``t`` (f32)."""
+    import torch
+
+    e = torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def k6_nodes_off(got, want) -> list[int]:
+    """K6 against its plain version node by node over many steps: the
+    nodes whose state leaves the flip bounds (K6_FLIP_* on the node's
+    slice of each leaf, bf16 state one bf16 ulp more) or whose loss
+    leaves K6_LOSS_TOL."""
+    import torch
+
+    (kp, km, kl), (pp, pm, pl) = got, want
+    n = kl.shape[0]
+    out = (kl - pl).abs() > K6_LOSS_TOL["atol"] + K6_LOSS_TOL["rtol"] * pl.abs()
+    for a, b in zip(kp + km, pp + pm):
+        bf16 = a.dtype == torch.bfloat16
+        a, b = a.float().reshape(n, -1), b.float().reshape(n, -1)
+        d = (a - b).abs()
+        if bf16:
+            d = (d - bf16_ulp(torch.maximum(a.abs(), b.abs()))).clamp(min=0.0)
+        off = (d > K6_TOL["atol"] + K6_TOL["rtol"] * b.abs()).sum(1)
+        rel = (a - b).norm(dim=1) / b.norm(dim=1).clamp(min=1e-30)
+        out |= ((off > K6_FLIP_FRACTION * a.shape[1])
+                | (d.amax(1) > K6_FLIP_ATOL) | (rel > K6_FLIP_REL_L2))
+    return out.nonzero().flatten().tolist()
+
+
 def k6_compare(got, want, multi_step: bool):
     """K6 against its plain version under the K6 tolerance (see K6_TOL):
     (max |error| over params and trace, ok, per-leaf count of elements
-    off the elementwise tolerance)."""
+    off the elementwise tolerance). bf16 state is allowed one bf16 ulp
+    more (at the larger of the two values): both versions round the f32
+    epoch's state once."""
+    import torch
+
     (kp, km, kl), (pp, pm, pl) = got, want
     err, ok, flips = 0.0, True, []
     for a, b in zip(kp + km, pp + pm):
-        d = (a - b).abs()
+        bf16 = a.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        raw = (a - b).abs()
+        err = max(err, float(raw.max()))
+        d = raw
+        if bf16:
+            ulp = bf16_ulp(torch.maximum(a.abs(), b.abs()))
+            d = (raw - ulp).clamp(min=0.0)
         off = int((d > K6_TOL["atol"] + K6_TOL["rtol"] * b.abs()).sum())
         flips.append(off)
-        err = max(err, float(d.max()))
         if not multi_step:
             ok = ok and off == 0
             continue
@@ -803,13 +1188,13 @@ def plain_step(model, state, bx, by, bm, lr: float, momentum: float):
     lrv = torch.full((n,), lr, device=leaves[0].device)
     new = [gemm.sgd_accum_plain(p.detach(), m, g, lrv, momentum=momentum)
            for p, m, g in zip(leaves, tree_leaves(state.opt_state), grads)]
-    return loss.detach(), [pm[0] for pm in new]
+    return loss.detach(), [pm[0] for pm in new], [pm[1] for pm in new]
 
 
 def end_to_end(dev):
     import torch
 
-    from p2pfl_tpu_torch.core.pytree import tree_leaves, tree_param_count
+    from p2pfl_tpu_torch.core.pytree import tree_param_count
     from p2pfl_tpu_torch.federation.scenario import Scenario
     from p2pfl_tpu_torch.ops import gemm
 
@@ -840,35 +1225,22 @@ def end_to_end(dev):
     missing = [k for k in DENSE_PATH if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    check_k4_per_step(sc, cfg, launches, len(res.history))
-
-    # one step, kernels vs plain, from the trained state
-    st = sc.fed.states
-    x, y, mask, _ = sc._data_args
-    bx, by, bm = x[:, :BATCH], y[:, :BATCH], mask[:, :BATCH]
-    k_state, k_loss = sc.fns.train_step(st, bx, by, bm)
-    p_loss, p_params = plain_step(sc.model, st, bx, by, bm,
-                                  cfg.training.learning_rate,
-                                  cfg.training.momentum)
-    loss_err = float((k_loss - p_loss).abs().max() / p_loss.abs().max())
-    upd_err = 0.0
-    for p0, pk, pp in zip(tree_leaves(st.params),
-                          tree_leaves(k_state.params), p_params):
-        uk, up = (pk - p0).float(), (pp - p0).float()
-        upd_err = max(upd_err, float((uk - up).norm() / up.norm()))
-    print(f"  one step kernels vs plain: loss rel err {loss_err:.3g} "
-          f"(tol 1e-2), update rel L2 err {upd_err:.3g} (tol 5e-2)",
-          flush=True)
-    if loss_err > 1e-2 or upd_err > 5e-2:
-        fail("kernel step and plain step disagree")
+    check_k4_per_step(sc, launches, len(res.history))
+    check_step_vs_plain("main path", sc, False)
     return launches, sc
 
 
-def check_k4_per_step(sc, cfg, launches, rounds: int) -> None:
-    """K4 launches once a training step, over every leaf."""
+def steps_of(sc, rounds: int) -> int:
+    """The training steps ``rounds`` rounds of ``sc`` take."""
+    cfg = sc.config
     rows = sc._data_args[0].shape[1]
-    steps = (rounds * cfg.training.epochs_per_round
-             * (rows // min(cfg.data.batch_size, rows)))
+    return (rounds * cfg.training.epochs_per_round
+            * (rows // min(cfg.data.batch_size, rows)))
+
+
+def check_k4_per_step(sc, launches, rounds: int) -> None:
+    """K4 launches once a training step, over every leaf."""
+    steps = steps_of(sc, rounds)
     print(f"  K4 launches {launches['sgd_accum']} for {steps} training "
           "steps", flush=True)
     if launches["sgd_accum"] != steps:
@@ -1188,7 +1560,7 @@ def byzantine(dev) -> None:
         missing = [k for k in DENSE_PATH if launches[k] <= 0]
         if missing:
             fail(f"{key}: kernels never launched: {missing}")
-        check_k4_per_step(sc, cfg, launches, len(res.history))
+        check_k4_per_step(sc, launches, len(res.history))
         if key != "signflip_fedavg" and not finite:
             fail(f"{key}: params are not finite")
         if cfg.adversary.reputation:
@@ -1385,7 +1757,7 @@ def private_federation(dev) -> dict:
         launches = dict(gemm.launches)
         tag = "clean" if sigma is None else f"sigma {sigma}"
         check_path(f"DP {tag}", launches, DENSE_PATH)
-        check_k4_per_step(sc, cfg, launches, len(res.history))
+        check_k4_per_step(sc, launches, len(res.history))
         warm = res.round_times_s[1:]
         eps = sc.accountant.epsilon if sc.accountant is not None else None
         print(f"  DP {tag:10s}: s/round (rounds 2-{DP_ROUNDS}) mean "
@@ -1457,7 +1829,7 @@ def ring_faults(dev, data) -> dict:
     torch.cuda.synchronize(dev)
     launches = dict(gemm.launches)
     check_path("ring faults", launches, DENSE_PATH)
-    check_k4_per_step(sc, cfg, launches, len(hist))
+    check_k4_per_step(sc, launches, len(hist))
     alive = [h["alive"] for h in hist]
     want = [[not (d and i == 3) for i in range(N_NODES)] for d in dead]
     kept = all(torch.equal(a, b) for a, b in zip(rows[0], rows[2]))
@@ -1510,7 +1882,7 @@ def leader_faults(dev, data) -> dict:
         torch.cuda.synchronize(dev)
         launches = dict(gemm.launches)
         check_path(f"{fed} faults", launches, DENSE_PATH)
-        check_k4_per_step(sc, cfg, launches, len(res.history))
+        check_k4_per_step(sc, launches, len(res.history))
         leaders = [h["leader"] for h in res.history]
         alive = [h["alive"] for h in res.history]
         print(f"  {fed} with node {node} dead from round 0: s/round "
@@ -1567,7 +1939,7 @@ def elastic(dev) -> dict:
         torch.cuda.synchronize(dev)
         launches = dict(gemm.launches)
         check_path("elastic", launches, ("sgd_accum",))
-        check_k4_per_step(sc, cfg, launches, len(res.history))
+        check_k4_per_step(sc, launches, len(res.history))
         slow = np.asarray([nc.fit_slowdown for nc in cfg.nodes], np.float32)
         want = staleness_scale(slow - 1.0, 0.5) if weighted else None
         ok = (sc._stale_scale is None if want is None
@@ -1645,6 +2017,363 @@ def crossdev_churn(dev, data) -> dict:
         fail(f"cross-device churn: dead drawn {dead_drawn}, finite {finite}")
     return {"round_times_s": [h["round_time_s"] for h in hist],
             "clients_alive": counts, "dead_drawn": dead_drawn}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the learning knobs (dtypes, optimizers, objectives)
+# ---------------------------------------------------------------------------
+
+F32_PATH = ("stream_gemm_f32", "stream_wgrad_f32", "dense_bwd_f32")
+BF16_GEMMS = ("stream_gemm", "stream_wgrad", "dense_bwd")
+
+
+def ring_config(name: str, *, n: int = N_NODES, rounds: int = 3,
+                model: dict | None = None, **training):
+    """Phase 3's ring (FEMNIST CNN at full width, DFL, FedAvg, bf16
+    wire, 750 samples a node, batch 336, 1 epoch a round) with
+    ``model`` and ``training`` overrides; the surrogate sized so that
+    every node gets its 750 samples (``bench.py``'s ``_build``)."""
+    from p2pfl_tpu_torch.config.schema import (
+        DataConfig,
+        ModelConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+
+    kw = dict(rounds=rounds, epochs_per_round=1, learning_rate=0.05,
+              eval_every=0)
+    kw.update(training)
+    return ScenarioConfig(
+        name=name, federation="DFL", topology="ring", n_nodes=n,
+        data=DataConfig(dataset="femnist", samples_per_node=750,
+                        batch_size=BATCH, seed=0,
+                        synthetic_train=int(n * 750 / 0.9) + n),
+        model=ModelConfig(model="femnist-cnn", **(model or {})),
+        training=TrainingConfig(**kw), transport="dense", wire_dtype="bf16",
+        seed=0)
+
+
+def run_arm(tag: str, sc, rounds: int | None = None) -> dict:
+    """Zero the launch counts, run, read them: s/round, the training
+    peak memory (read as each round finishes, before the final
+    evaluation), the mean train loss of every round."""
+    import torch
+
+    from p2pfl_tpu_torch.federation.events import Events
+    from p2pfl_tpu_torch.ops import gemm
+
+    peak = [0]
+
+    def on_round(ev, payload):
+        if ev == Events.ROUND_FINISHED:
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+
+    sc.add_observer(on_round)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gemm.reset_launches()
+    res = sc.run(rounds)
+    torch.cuda.synchronize()
+    launches = dict(gemm.launches)
+    losses = [float(sum(h["train_loss"]) / len(h["train_loss"]))
+              for h in res.history]
+    out = dict(round_s=res.round_times_s, losses=losses,
+               peak_train_gib=peak[0] / 2 ** 30,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               accuracy=res.final_accuracy, launches=launches)
+    print(f"  {tag}: rounds {[round(t, 4) for t in res.round_times_s]} s, "
+          f"mean train loss {[round(v, 4) for v in losses]}, accuracy "
+          f"{res.final_accuracy:.4f}, peak memory {out['peak_train_gib']:.2f}"
+          f" GiB training / {out['peak_gib']:.2f} GiB with the evaluation; "
+          f"launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: non-finite train loss {losses}")
+    return out
+
+
+def check_step_vs_plain(tag: str, sc, bf16_params: bool) -> dict:
+    """One training step from the trained state through the kernels
+    (``train_step``) and through the plain versions (``plain_step``).
+    f32 params: the loss within 1e-2 (bf16 compute) or 1e-5 (f32
+    compute) relative, each leaf's update within relative L2 5e-2 or
+    1e-4. bf16 params (whose updates are mostly below a bf16 ulp): the
+    loss within 1e-2, the new trace (gradient plus decayed trace) within
+    relative L2 5e-2 a leaf, and every param within one bf16 ulp (of the
+    larger value) plus lr times the most the two unrounded traces can
+    differ by (the stored traces' difference plus one bf16 ulp of the
+    trace): the most two roundings of p - lr m can differ by."""
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+
+    cfg = sc.config
+    f32 = sc.model.dtype == torch.float32
+    st = sc.fed.states
+    x, y, mask, _ = sc._data_args
+    bx, by, bm = x[:, :BATCH], y[:, :BATCH], mask[:, :BATCH]
+    k_state, k_loss = sc.fns.train_step(st, bx, by, bm)
+    lr = cfg.training.learning_rate
+    p_loss, p_params, p_traces = plain_step(sc.model, st, bx, by, bm, lr,
+                                            cfg.training.momentum)
+    loss_err = float((k_loss - p_loss).abs().max() / p_loss.abs().max())
+    loss_tol, upd_tol = (1e-5, 1e-4) if f32 else (1e-2, 5e-2)
+    worst, ok = 0.0, loss_err <= loss_tol
+    for p0, pk, pp, mk, mp in zip(
+            tree_leaves(st.params), tree_leaves(k_state.params), p_params,
+            tree_leaves(k_state.opt_state), p_traces):
+        if bf16_params:
+            mk, mp = mk.float(), mp.float()
+            worst = max(worst, float((mk - mp).norm() / mp.norm()))
+            a, b = pk.float(), pp.float()
+            room = (bf16_ulp(torch.maximum(a.abs(), b.abs()))
+                    + lr * ((mk - mp).abs()
+                            + bf16_ulp(torch.maximum(mk.abs(), mp.abs()))))
+            ok = ok and bool(((a - b).abs() <= room).all())
+        else:
+            uk, up = (pk - p0).float(), (pp - p0).float()
+            worst = max(worst, float((uk - up).norm() / up.norm()))
+    ok = ok and worst <= upd_tol
+    what = "trace" if bf16_params else "update"
+    extra = "; params within a bf16 ulp + lr |dm|" if bf16_params else ""
+    print(f"  {tag}: one step kernels vs plain: loss rel err {loss_err:.3g} "
+          f"(tol {loss_tol:g}), {what} rel L2 err {worst:.3g} (tol "
+          f"{upd_tol:g}){extra}", flush=True)
+    if not ok:
+        fail(f"{tag}: kernel step and plain step disagree")
+    return dict(loss_rel_err=loss_err, rel_l2_err=worst)
+
+
+def headline(dev) -> dict:
+    """a. The JAX bench's headline (``bench.py``'s ``_phase_headline``
+    through ``_build``'s defaults): FEMNIST CNN, 64 nodes, ring, DFL,
+    FedAvg, 750 samples a node, batch 336, lr 0.05, SGD momentum 0.9,
+    bf16 params and bf16 trace, bf16 compute and wire, 3 rounds."""
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+    from p2pfl_tpu_torch.federation.scenario import Scenario
+
+    cfg = ring_config("femnist-cnn-ring-64-bf16", n=HEADLINE_NODES,
+                      model={"param_dtype": "bf16"}, momentum_dtype="bf16")
+    t0 = time.perf_counter()
+    sc = Scenario(cfg, device=dev)
+    print(f"  setup {time.perf_counter() - t0:.1f} s (data for "
+          f"{HEADLINE_NODES} x 750 samples, init)", flush=True)
+    out = run_arm("headline", sc)
+    ln = out["launches"]
+    check_path("headline", ln, DENSE_PATH + ("sgd_accum_bf16",))
+    steps = steps_of(sc, 3)
+    if not ln["sgd_accum"] == ln["sgd_accum_bf16"] == steps:
+        fail(f"headline: K4 launched {ln['sgd_accum']} times "
+             f"({ln['sgd_accum_bf16']} with bf16 params) in {steps} steps")
+    if not out["losses"][-1] < out["losses"][0]:
+        fail(f"headline: train loss did not fall: {out['losses']}")
+    leaves = tree_leaves(sc.fed.states.params)
+    traces = tree_leaves(sc.fed.states.opt_state)
+    if not all(t.dtype == torch.bfloat16 for t in leaves + traces):
+        fail("headline: params or trace left bf16")
+    if not all(bool(torch.isfinite(t).all()) for t in leaves):
+        fail("headline: params are not finite")
+    out["steps"] = steps
+    out["step_vs_plain"] = check_step_vs_plain("headline", sc, True)
+    del sc
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_compute(dev) -> dict:
+    """b. Phase 3's 8-node ring with ``compute_dtype`` float32, 3
+    rounds: the f32 K1-K3 launch and the bf16 ones do not."""
+    import torch
+
+    from p2pfl_tpu_torch.federation.scenario import Scenario
+
+    cfg = ring_config("femnist-cnn-ring-8-f32",
+                      model={"compute_dtype": "float32"})
+    sc = Scenario(cfg, device=dev)
+    out = run_arm("f32 compute", sc)
+    ln = out["launches"]
+    check_path("f32 compute", ln, F32_PATH + ("sgd_accum",))
+    if any(ln[k] for k in BF16_GEMMS):
+        fail(f"f32 compute launched bf16 kernels: {ln}")
+    if ln["sgd_accum"] != steps_of(sc, 3):
+        fail(f"f32 compute: K4 launched {ln['sgd_accum']} times")
+    if not out["losses"][-1] < out["losses"][0]:
+        fail(f"f32 compute: train loss did not fall: {out['losses']}")
+    out["step_vs_plain"] = check_step_vs_plain("f32 compute", sc, False)
+    del sc
+    torch.cuda.empty_cache()
+    return out
+
+
+def adam_arms(dev) -> dict:
+    """c. Phase 3's ring with adam (lr 1e-3, the JAX bench's adam rate)
+    and adamw (weight decay 1e-4), 3 rounds each: K1-K3 launch, K4 does
+    not, the count equals the steps taken; then one cross-device round
+    with adam at phase 4's shape, which must launch K5 and not K4."""
+    import torch
+
+    from p2pfl_tpu_torch.federation import CrossDeviceScenario
+    from p2pfl_tpu_torch.federation.scenario import Scenario
+    from p2pfl_tpu_torch.ops import gemm
+
+    out = {}
+    for name, wd in (("adam", 0.0), ("adamw", 1e-4)):
+        cfg = ring_config(f"femnist-cnn-ring-8-{name}", optimizer=name,
+                          learning_rate=1e-3, weight_decay=wd)
+        sc = Scenario(cfg, device=dev)
+        arm = run_arm(name, sc)
+        ln = arm["launches"]
+        check_path(name, ln, BF16_GEMMS)
+        if ln["sgd_accum"] or ln["sgd_accum_acc"]:
+            fail(f"{name} launched K4: {ln}")
+        steps = steps_of(sc, 3)
+        count = sc.fed.states.opt_state.count
+        if not bool((count == steps).all()):
+            fail(f"{name}: count {count.tolist()} after {steps} steps")
+        if not arm["losses"][-1] < arm["losses"][0]:
+            fail(f"{name}: train loss did not fall: {arm['losses']}")
+        arm["steps"] = steps
+        out[name] = arm
+        del sc
+        torch.cuda.empty_cache()
+
+    cfg = crossdev_config()
+    cfg.training.optimizer = "adam"
+    cfg.training.learning_rate = 1e-3
+    sc = CrossDeviceScenario(cfg, device=dev)
+    gemm.reset_launches()
+    res = sc.run(rounds=1)
+    torch.cuda.synchronize()
+    ln = dict(gemm.launches)
+    count = sc.fed.states.opt_state.count
+    steps = cfg.cross_device.cohort_size
+    print(f"  cross-device adam: {res.round_times_s[0]:.4f} s, loss "
+          f"{res.history[0]['Train/loss']:.4f}, count {count.tolist()} "
+          f"after {steps} cohort steps; launches "
+          f"{ {k: v for k, v in ln.items() if v} }", flush=True)
+    check_path("cross-device adam", ln, BF16_GEMMS + ("fedavg_accum",))
+    if ln["sgd_accum"] or ln["fedavg_accum"] != steps:
+        fail(f"cross-device adam: K4 {ln['sgd_accum']}, K5 "
+             f"{ln['fedavg_accum']} for {steps} cohort steps")
+    if not bool((count == steps).all()):
+        fail(f"cross-device adam: count {count.tolist()}")
+    out["crossdev_adam"] = dict(round_s=res.round_times_s[0],
+                                loss=res.history[0]["Train/loss"],
+                                launches=ln)
+    del sc
+    torch.cuda.empty_cache()
+    return out
+
+
+# d. the tabular family: (model, dataset, objective)
+TABULAR = [("syscall-mlp", "syscall", "classification"),
+           ("syscall-autoencoder", "syscall", "autoencoder"),
+           ("syscall-svm", "syscall", "ocsvm"),
+           ("wadi-mlp", "wadi", "classification")]
+
+
+def tabular(dev) -> dict:
+    """d. The tabular family on the seeded syscall and wadi surrogates:
+    8 nodes fully connected, DFL, FedAvg, SGD, the JAX package's
+    ``DataConfig``/``TrainingConfig`` defaults (batch 32, lr 0.1,
+    momentum 0.9, 3 epochs a round), 5 rounds each. K4 once a step; the
+    objective on the test set falls from its value before training and,
+    but for the SVM, the mean train loss of round 5 is below round 1's;
+    accuracy 0.0 where the objective has none. The SVM starts from w
+    drawn from a seeded standard normal (rho 0), not from its zero
+    init: the surrogate's rows are centred, so the zero init is the
+    objective's minimum (0) and SGD at these rates only adds noise
+    around it (on the CPU every rate left the train objective at its
+    noise floor after the first round)."""
+    import numpy as np
+    import torch
+
+    from p2pfl_tpu_torch.config.schema import (
+        DataConfig,
+        ModelConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+    from p2pfl_tpu_torch.federation.scenario import Scenario
+    from p2pfl_tpu_torch.parallel.federated import reseed_params
+
+    out = {}
+    for model, dataset, objective in TABULAR:
+        cfg = ScenarioConfig(
+            name=f"{model}-fully-8", federation="DFL", topology="fully",
+            n_nodes=N_NODES, data=DataConfig(dataset=dataset, seed=0),
+            model=ModelConfig(model=model, objective=objective),
+            training=TrainingConfig(rounds=5, eval_every=0), seed=0)
+        sc = Scenario(cfg, device=dev)
+        if model == "syscall-svm":
+            g = torch.Generator().manual_seed(0)
+            sc.fed = reseed_params(sc.fed, sc.fns, {"params": {
+                "w": torch.randn(17, generator=g),
+                "rho": torch.zeros(())}})
+        before = float(np.mean(sc.evaluate()["per_node_loss"]))
+        arm = run_arm(model, sc)
+        after = float(np.mean(sc.evaluate()["per_node_loss"]))
+        steps = steps_of(sc, 5)
+        ln = arm["launches"]
+        print(f"    {objective} on the test set {before:.4f} -> "
+              f"{after:.4f}; K4 {ln['sgd_accum']} for {steps} steps",
+              flush=True)
+        if ln["sgd_accum"] != steps:
+            fail(f"{model}: K4 launched {ln['sgd_accum']} times in "
+                 f"{steps} steps")
+        if not after < before:
+            fail(f"{model}: the test objective did not fall")
+        if model != "syscall-svm" and not arm["losses"][-1] < arm["losses"][0]:
+            fail(f"{model}: train loss did not fall: {arm['losses']}")
+        if objective != "classification" and arm["accuracy"] != 0.0:
+            fail(f"{model}: accuracy {arm['accuracy']} for {objective}")
+        arm.update(steps=steps, test_objective=(before, after))
+        out[model] = arm
+        del sc
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_epoch_bf16(dev) -> dict:
+    """e. 5 epochs of K6 at phase 5's shape with bf16 params, trace and
+    inputs: 5 launches of the bf16 variant, the mean loss below 0.8 of
+    the first epoch's, the state bf16 and finite."""
+    import torch
+
+    from p2pfl_tpu_torch.ops import gemm
+    from p2pfl_tpu_torch.ops.fused_train import fused_mlp_train_epoch
+
+    params, mom, bx, by = mlp_epoch_inputs(dev)
+    params = tuple(t.to(torch.bfloat16) for t in params)
+    mom = tuple(t.to(torch.bfloat16) for t in mom)
+    bx = bx.to(torch.bfloat16)
+    losses, times = [], []
+    gemm.reset_launches()
+    for _ in range(5):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, mom, loss = fused_mlp_train_epoch(
+            params, mom, bx, by, MLP_LR, 0.9, batch_size=MLP_BATCH)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.mean()))
+    launches = gemm.launches["fused_mlp_train_epoch_bf16"]
+    print(f"  bf16 state: epoch wall times (s) "
+          f"{[round(t, 5) for t in times]}; mean loss "
+          f"{[round(v, 4) for v in losses]}; launches {launches}",
+          flush=True)
+    if launches != 5 or gemm.launches["fused_mlp_train_epoch"]:
+        fail(f"fused epoch bf16: launches {gemm.launches}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite bf16 fused-epoch loss {losses}")
+    if not losses[-1] < 0.8 * losses[0]:
+        fail(f"bf16 fused-epoch loss did not fall: {losses}")
+    if not all(t.dtype == torch.bfloat16 and bool(torch.isfinite(t).all())
+               for t in params + mom):
+        fail("bf16 fused-epoch state is not bf16 and finite")
+    return dict(epoch_s=times, losses=losses, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1730,6 +2459,21 @@ def main(argv: list[str] | None = None) -> int:
     del cross_data, ring_data
     torch.cuda.empty_cache()
 
+    print("[8] the learning knobs: the 64-node bf16-state headline, f32 "
+          "compute, adam and adamw, the tabular models, K6 with bf16 "
+          "state", flush=True)
+    phase8 = {"headline": headline(dev)}
+    phase8["f32_compute"] = f32_compute(dev)
+    phase8.update(adam_arms(dev))
+    phase8["tabular"] = tabular(dev)
+    phase8["fused_epoch_bf16"] = fused_epoch_bf16(dev)
+    launches["sgd_accum_bf16"] = phase8["headline"]["launches"][
+        "sgd_accum_bf16"]
+    for k in F32_PATH:
+        launches[k] = phase8["f32_compute"]["launches"][k]
+    launches["fused_mlp_train_epoch_bf16"] = phase8["fused_epoch_bf16"][
+        "launches"]
+
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
         "stream_wgrad": "p2pfl_tpu/ops/pallas_gemm.py:171",
@@ -1737,6 +2481,12 @@ def main(argv: list[str] | None = None) -> int:
         "sgd_accum": "p2pfl_tpu/ops/pallas_gemm.py:384",
         "fedavg_accum": "p2pfl_tpu/ops/pallas_gemm.py:408",
         "fused_mlp_train_epoch": "p2pfl_tpu/ops/fused_train.py:167",
+        # the dtype instantiations of the same TPU kernels
+        "stream_gemm_f32": "p2pfl_tpu/ops/pallas_gemm.py:116",
+        "stream_wgrad_f32": "p2pfl_tpu/ops/pallas_gemm.py:171",
+        "dense_bwd_f32": "p2pfl_tpu/ops/pallas_gemm.py:249",
+        "sgd_accum_bf16": "p2pfl_tpu/ops/pallas_gemm.py:384",
+        "fused_mlp_train_epoch_bf16": "p2pfl_tpu/ops/fused_train.py:167",
     }
     sources = {
         "stream_gemm": "p2pfl_tpu_torch/ops/csrc/stream_gemm.cu",
@@ -1745,6 +2495,12 @@ def main(argv: list[str] | None = None) -> int:
         "sgd_accum": "p2pfl_tpu_torch/ops/csrc/sgd.cu",
         "fedavg_accum": "p2pfl_tpu_torch/ops/csrc/sgd_accum.cu",
         "fused_mlp_train_epoch": "p2pfl_tpu_torch/ops/csrc/fused_train.cu",
+        "stream_gemm_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32.cu",
+        "stream_wgrad_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32.cu",
+        "dense_bwd_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32.cu",
+        "sgd_accum_bf16": "p2pfl_tpu_torch/ops/csrc/sgd.cu",
+        "fused_mlp_train_epoch_bf16":
+            "p2pfl_tpu_torch/ops/csrc/fused_train.cu",
     }
     kernels = []
     for k in replaces:
@@ -1754,7 +2510,8 @@ def main(argv: list[str] | None = None) -> int:
         # rows, not summed; K4 and K5: the one call over all leaves);
         # launches from the path's own
         # run (K1-K4 the stacked federation, K5 the cross-device round, K6
-        # the fused-epoch path)
+        # the fused-epoch path; the f32 K1-K3 phase 8b, K4 with bf16
+        # params the 64-node headline, K6 with bf16 state phase 8e)
         mine = [r for r in rows
                 if r["kernel"] == k and r["on_path"] and r["summed"]]
         top = max(mine, key=lambda r: r["bound_ms"])
@@ -1775,6 +2532,8 @@ def main(argv: list[str] | None = None) -> int:
             json.dumps({"card": smi, "rows": rows}, indent=1))
         (args.out / "chip_smoke_phase7.json").write_text(
             json.dumps({"card": smi, **phase7}, indent=1))
+        (args.out / "chip_smoke_phase8.json").write_text(
+            json.dumps({"card": smi, **phase8}, indent=1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,9 @@ the same way. ``ScenarioConfig`` has the same fields, so
 The combinations the JAX package refuses with the cross-device regime
 raise the same ``ValueError`` here, before anything else is checked.
 The sections this port does not run yet (secure aggregation, lora, the
-sparse transport, the staged exchange, other optimizers and
-objectives, checkpoints, metric logging and the socket plane) are
+sparse transport, the staged exchange, checkpoints, metric logging, the
+socket plane, and a ``param_dtype`` or ``compute_dtype`` other than
+float32 and bfloat16) are
 rejected in ``__post_init__`` with a ``NotImplementedError`` that names
 the ``ROADMAP.md`` item that ports them (``network`` and ``lora`` stay
 plain dicts): a scenario the port would silently run differently never
@@ -367,8 +368,8 @@ def _unported(what: str, item: str) -> NotImplementedError:
     )
 
 
-_F32 = (None, "f32", "float32")
-_BF16 = (None, "bf16", "bfloat16")
+#: the model dtypes the port runs (None keeps each model's own)
+_DTYPES = (None, "f32", "float32", "bf16", "bfloat16")
 
 
 @dataclasses.dataclass
@@ -489,10 +490,6 @@ class ScenarioConfig:
             raise _unported("transport='sparse'", "A12")
         if self.exchange_overlap == "staged":
             raise _unported("exchange_overlap='staged'", "A13")
-        if self.training.optimizer.lower() != "sgd":
-            raise _unported(f"optimizer {self.training.optimizer!r}", "A15")
-        if self.model.objective != "classification":
-            raise _unported(f"objective {self.model.objective!r}", "A16")
         if self.checkpoint_dir or self.checkpoint_every:
             raise _unported("checkpointing", "A17")
         if (self.log_dir or self.tensorboard or self.wandb
@@ -505,13 +502,11 @@ class ScenarioConfig:
                                             "partitions"))):
             raise _unported("the socket plane (network, sidecar, TLS)",
                             "A22")
-        # the kernels take bf16 activations and f32 parameters
-        if self.model.param_dtype not in _F32:
-            raise _unported(f"param_dtype {self.model.param_dtype!r}",
-                            "A19")
-        if self.model.compute_dtype not in _BF16:
-            raise _unported(f"compute_dtype {self.model.compute_dtype!r}",
-                            "A19")
+        # the kernels take f32 and bf16 (float16 is the rest of A19)
+        for knob in ("param_dtype", "compute_dtype"):
+            value = getattr(self.model, knob)
+            if value not in _DTYPES:
+                raise _unported(f"{knob} {value!r}", "A19")
 
     def _default_nodes(self) -> list[NodeConfig]:
         nodes = []

@@ -1,12 +1,20 @@
-"""Carry parameters between the JAX package and the port.
+"""Carry parameters and optimizer state between the JAX package and the
+port.
 
 ``params_from_jax`` takes a flax parameter dict whose leaves the caller
 has already turned into numpy arrays (``jax.tree.map(np.asarray, ...)``
 on the JAX side, so this module never imports JAX) and returns the
 port's stacked tensors. The layouts are the same on both sides (HWIO
-conv kernels, ``[in, out]`` dense kernels, the flax names), so the
-conversion only adds or keeps the node axis. ``params_to_numpy`` goes
-back.
+conv kernels, ``[in, out]`` dense kernels, the flax names, top-level
+leaves such as the one-class SVM's ``w`` and ``rho``), so the
+conversion only adds or keeps the node axis. bfloat16 arrays (numpy's
+``ml_dtypes`` bfloat16) come across bit for bit. ``params_to_numpy``
+goes back, widening bfloat16 to float32 (exactly), since numpy has no
+bfloat16 of its own.
+
+``adam_state_from_optax`` does the same for an optax
+``ScaleByAdamState`` given as numpy ``(count, mu, nu)``, so that both
+packages can start from one optimizer state.
 """
 
 from __future__ import annotations
@@ -17,6 +25,14 @@ import numpy as np
 import torch
 
 from p2pfl_tpu_torch.core.pytree import Params, tree_map
+from p2pfl_tpu_torch.learning.learner import AdamState
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_jax(tree, n_nodes: int | None = None,
@@ -29,12 +45,26 @@ def params_from_jax(tree, n_nodes: int | None = None,
     one node's and is repeated ``k`` times along a new node axis.
     """
     def leaf(a):
-        t = torch.from_numpy(np.array(a, copy=True))
+        t = _tensor(a)
         if n_nodes is not None:
             t = t.unsqueeze(0).repeat((n_nodes,) + (1,) * t.dim())
         return t.to(device)
 
     return tree_map(leaf, _as_dicts(tree))
+
+
+def adam_state_from_optax(state, n_nodes: int | None = None,
+                          device: torch.device | str = "cpu") -> AdamState:
+    """An optax ``ScaleByAdamState`` (anything with ``count``, ``mu`` and
+    ``nu``, leaves as numpy) -> :class:`AdamState` on ``device``. The
+    count is one node's scalar or a stacked ``[n]``; ``n_nodes`` repeats
+    one node's state as :func:`params_from_jax` does."""
+    count = torch.from_numpy(np.array(state.count, np.int32, copy=True))
+    if n_nodes is not None:
+        count = count.reshape(1).repeat(n_nodes)
+    return AdamState(count=count.reshape(-1).to(device),
+                     mu=params_from_jax(state.mu, n_nodes, device),
+                     nu=params_from_jax(state.nu, n_nodes, device))
 
 
 def _as_dicts(tree):
@@ -44,5 +74,10 @@ def _as_dicts(tree):
 
 
 def params_to_numpy(params: Params) -> dict:
-    """Stacked (or single) tensor tree -> the same tree of numpy arrays."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+    """Stacked (or single) tensor tree -> the same tree of numpy arrays
+    (bfloat16 leaves as float32)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(leaf, params)

@@ -1,6 +1,6 @@
 """Model registry; importing the package registers every ported model."""
 
-from p2pfl_tpu_torch.models import cnn, mlp  # noqa: F401  (registration)
+from p2pfl_tpu_torch.models import cnn, mlp, syscall  # noqa: F401
 from p2pfl_tpu_torch.models.base import build_model, get_model
 
 __all__ = ["build_model", "get_model"]

@@ -20,13 +20,10 @@ from torch import nn
 _REGISTRY: dict[str, Callable[..., nn.Module]] = {}
 
 #: names the JAX package registers that this port does not have yet
-_UNPORTED = ("syscall-mlp", "syscallmodelmlp", "wadi-mlp", "wadimodelmlp",
-             "fastermobilenet", "simplemobilenet", "simplemobilenetv1",
+_UNPORTED = ("fastermobilenet", "simplemobilenet", "simplemobilenetv1",
              "resnet9", "cifar10-resnet9", "cifar10modelresnet", "resnet18",
              "cifar10-resnet18", "resnet34", "cifar10-resnet34", "resnet50",
-             "cifar10-resnet50", "syscall-autoencoder",
-             "syscallmodelautoencoder", "syscall-svm",
-             "syscallmodelsgdoneclasssvm", "vit-tiny", "vit")
+             "cifar10-resnet50", "vit-tiny", "vit")
 
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "f32": torch.float32, "float32": torch.float32}
@@ -60,7 +57,8 @@ def get_model(name: str, **kwargs) -> nn.Module:
 def build_model(model_cfg) -> nn.Module:
     """Construct a model from a ``ModelConfig``; ``compute_dtype`` and
     ``param_dtype`` set the model's ``dtype``/``param_dtype`` unless
-    ``kwargs`` names them."""
+    ``kwargs`` names them. ``None`` keeps the model's own choice (the
+    one-class SVM computes in f32 on purpose)."""
     kwargs = dict(model_cfg.kwargs)
     if model_cfg.compute_dtype is not None:
         kwargs.setdefault("dtype", _DTYPES[model_cfg.compute_dtype])

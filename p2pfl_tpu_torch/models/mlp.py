@@ -1,8 +1,9 @@
 """MLP family: the counterpart of ``p2pfl_tpu/models/mlp.py``.
 
-``mnist-mlp`` (784 -> 256 -> 128 -> 10) is ``run.py``'s default model.
-It runs no kernel: its layers are the plain bf16 dense of
-``models.base``.
+``mnist-mlp`` (784 -> 256 -> 128 -> 10) is ``run.py``'s default model;
+``syscall-mlp`` (17 -> 64 -> 64 -> 9) and ``wadi-mlp`` (123 -> 128 ->
+64 -> 32 -> 2) are the tabular classifiers. They run no kernel in the
+forward pass: their layers are the plain dense of ``models.base``.
 """
 
 from __future__ import annotations
@@ -54,3 +55,19 @@ class MLP(nn.Module):
 def MNISTModelMLP(num_classes: int = 10, **kw) -> MLP:
     return MLP(features=(256, 128), num_classes=num_classes, **kw)
 
+
+
+@register_model("syscall-mlp", "syscallmodelmlp")
+def SyscallModelMLP(in_features: int = 17, num_classes: int = 9,
+                    **kw) -> MLP:
+    """Tabular syscall-trace classifier; ``in_features`` is accepted and
+    dropped (the first layer's width follows the input), as in JAX."""
+    del in_features
+    return MLP(features=(64, 64), num_classes=num_classes, **kw)
+
+
+@register_model("wadi-mlp", "wadimodelmlp")
+def WADIModelMLP(in_features: int = 123, num_classes: int = 2, **kw) -> MLP:
+    """WADI anomaly-detection MLP; ``in_features`` as above."""
+    del in_features
+    return MLP(features=(128, 64, 32), num_classes=num_classes, **kw)

@@ -55,41 +55,61 @@ int as_int(int64_t v, const char* name) {
   return static_cast<int>(v);
 }
 
+// K1-K3 take bf16 or f32 operands, one dtype a call: the dtype picks
+// the instantiation (the f32 ones are gemm_f32.cu's).
+at::ScalarType gemm_dtype(const torch::Tensor& x) {
+  TORCH_CHECK(x.scalar_type() == at::kBFloat16 ||
+                  x.scalar_type() == at::kFloat,
+              msg("x must be bfloat16 or float32, got ", x.scalar_type()));
+  return x.scalar_type();
+}
+
 torch::Tensor stream_gemm(torch::Tensor x, torch::Tensor w) {
-  check(x, "x", at::kBFloat16, 3);
-  check(w, "w", at::kBFloat16, 3);
+  const at::ScalarType dt = gemm_dtype(x);
+  check(x, "x", dt, 3);
+  check(w, "w", dt, 3);
   same_device(x, w);
   TORCH_CHECK(x.size(0) == w.size(0) && x.size(2) == w.size(1),
               msg("stream_gemm shapes ", x.sizes(), " @ ", w.sizes()));
   const c10::cuda::CUDAGuard guard(x.device());
   auto out = torch::empty({x.size(0), x.size(1), w.size(2)}, x.options());
   if (out.numel() == 0) return out;
-  p2pfl::launch_stream_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                            as_int(x.size(0), "n"), as_int(x.size(1), "M"),
-                            as_int(x.size(2), "K"), as_int(w.size(2), "N"),
-                            at::cuda::getCurrentCUDAStream());
+  const int n = as_int(x.size(0), "n"), M = as_int(x.size(1), "M");
+  const int K = as_int(x.size(2), "K"), N = as_int(w.size(2), "N");
+  if (dt == at::kFloat)
+    p2pfl::launch_stream_gemm_f32(x.data_ptr<float>(), w.data_ptr<float>(),
+                                  out.data_ptr<float>(), n, M, K, N,
+                                  at::cuda::getCurrentCUDAStream());
+  else
+    p2pfl::launch_stream_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(), n,
+                              M, K, N, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
 
 // K2 with the caller's slice plan (ops/gemm.py::wgrad_plan): `wide`
-// names the route, `rows` the rows of a slice, `slices` the slices of a
-// node.
+// names the route of the bf16 instantiation (false for f32), `rows` the
+// rows of a slice, `slices` the slices of a node.
 torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, bool wide,
                            int64_t rows, int64_t slices) {
-  check(x, "x", at::kBFloat16, 3);
-  check(g, "g", at::kBFloat16, 3);
+  const at::ScalarType dt = gemm_dtype(x);
+  const bool f32 = dt == at::kFloat;
+  check(x, "x", dt, 3);
+  check(g, "g", dt, 3);
   same_device(x, g);
   TORCH_CHECK(x.size(0) == g.size(0) && x.size(1) == g.size(1),
               msg("stream_wgrad shapes ", x.sizes(), " ^T@ ", g.sizes()));
+  TORCH_CHECK(!(f32 && wide), "stream_wgrad: float32 has no wide route");
   const c10::cuda::CUDAGuard guard(x.device());
   const int n = as_int(x.size(0), "n"), M = as_int(x.size(1), "M");
   const int K = as_int(x.size(2), "K"), N = as_int(g.size(2), "N");
-  auto f32 = x.options().dtype(at::kFloat);
-  auto out = torch::empty({n, K, N}, f32);
+  auto f32_opts = x.options().dtype(at::kFloat);
+  auto out = torch::empty({n, K, N}, f32_opts);
   if (out.numel() == 0) return out;
   if (M == 0) return out.zero_();
-  const int unit = wide ? p2pfl::kWgradWideRows : p2pfl::kWgradGeneralRows;
+  const int unit = f32    ? p2pfl::kWgradF32Rows
+                   : wide ? p2pfl::kWgradWideRows
+                          : p2pfl::kWgradGeneralRows;
   TORCH_CHECK(rows > 0 && rows % unit == 0 && slices > 0 &&
                   rows * slices >= M && rows * (slices - 1) < M,
               msg("stream_wgrad: ", slices, " slices of ", rows,
@@ -104,21 +124,29 @@ torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, bool wide,
                     N, ") multiples of 8 and 16-byte-aligned operands"));
   }
   torch::Tensor partial;
-  if (slices > 1) partial = torch::empty({n, slices, K, N}, f32);
-  p2pfl::launch_stream_wgrad(
-      x.data_ptr(), g.data_ptr(),
-      slices > 1 ? partial.data_ptr<float>() : nullptr, out.data_ptr<float>(),
-      n, M, K, N, wide ? 1 : 0, as_int(rows, "rows"),
-      as_int(slices, "slices"), at::cuda::getCurrentCUDAStream());
+  if (slices > 1) partial = torch::empty({n, slices, K, N}, f32_opts);
+  float* part = slices > 1 ? partial.data_ptr<float>() : nullptr;
+  if (f32)
+    p2pfl::launch_stream_wgrad_f32(
+        x.data_ptr<float>(), g.data_ptr<float>(), part,
+        out.data_ptr<float>(), n, M, K, N, as_int(rows, "rows"),
+        as_int(slices, "slices"), at::cuda::getCurrentCUDAStream());
+  else
+    p2pfl::launch_stream_wgrad(x.data_ptr(), g.data_ptr(), part,
+                               out.data_ptr<float>(), n, M, K, N,
+                               wide ? 1 : 0, as_int(rows, "rows"),
+                               as_int(slices, "slices"),
+                               at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
 
 std::vector<torch::Tensor> dense_bwd(torch::Tensor x, torch::Tensor w,
                                      torch::Tensor g) {
-  check(x, "x", at::kBFloat16, 3);
-  check(w, "w", at::kBFloat16, 3);
-  check(g, "g", at::kBFloat16, 3);
+  const at::ScalarType dt = gemm_dtype(x);
+  check(x, "x", dt, 3);
+  check(w, "w", dt, 3);
+  check(g, "g", dt, 3);
   same_device(x, w);
   same_device(x, g);
   TORCH_CHECK(x.size(0) == w.size(0) && x.size(0) == g.size(0) &&
@@ -130,11 +158,17 @@ std::vector<torch::Tensor> dense_bwd(torch::Tensor x, torch::Tensor w,
   auto dx = torch::empty_like(x);
   auto dw = torch::empty_like(w);
   if (dx.numel() == 0 && dw.numel() == 0) return {dx, dw};
-  p2pfl::launch_dense_bwd(x.data_ptr(), w.data_ptr(), g.data_ptr(),
-                          dx.data_ptr(), dw.data_ptr(),
-                          as_int(x.size(0), "n"), as_int(x.size(1), "B"),
-                          as_int(x.size(2), "D"), as_int(w.size(2), "H"),
-                          at::cuda::getCurrentCUDAStream());
+  const int n = as_int(x.size(0), "n"), B = as_int(x.size(1), "B");
+  const int D = as_int(x.size(2), "D"), H = as_int(w.size(2), "H");
+  if (dt == at::kFloat)
+    p2pfl::launch_dense_bwd_f32(x.data_ptr<float>(), w.data_ptr<float>(),
+                                g.data_ptr<float>(), dx.data_ptr<float>(),
+                                dw.data_ptr<float>(), n, B, D, H,
+                                at::cuda::getCurrentCUDAStream());
+  else
+    p2pfl::launch_dense_bwd(x.data_ptr(), w.data_ptr(), g.data_ptr(),
+                            dx.data_ptr(), dw.data_ptr(), n, B, D, H,
+                            at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {dx, dw};
 }
@@ -320,13 +354,20 @@ ManyOut fedavg_accum(const Leaves& ps, const Leaves& accs,
   return stream_many(kAccum, ps, {}, {}, accs, nullptr, &w, 0.0);
 }
 
-// K6: trains `state` (w0, b0, w1, b1, w2, b2 and their traces, f32, the
-// caller's copies) in place; returns the per-node mean loss.
+// K6: trains `state` (w0, b0, w1, b1, w2, b2 and their traces, the
+// caller's copies, each f32 or bf16) in place; bx f32 or bf16. bf16
+// tensors are widened into f32 copies before the epoch and the state is
+// narrowed back once after it. Returns the per-node mean loss.
 torch::Tensor fused_mlp_train_epoch(std::vector<torch::Tensor> state,
                                     torch::Tensor bx, torch::Tensor by,
                                     int64_t batch, double lr, double beta) {
   TORCH_CHECK(state.size() == 12, "state holds 6 params and 6 traces");
-  check(bx, "bx", at::kFloat, 3);
+  const auto f32_or_bf16 = [](const torch::Tensor& t) {
+    return t.scalar_type() == at::kFloat || t.scalar_type() == at::kBFloat16
+               ? t.scalar_type()
+               : at::kFloat;  // the check below names the bad dtype
+  };
+  check(bx, "bx", f32_or_bf16(bx), 3);
   TORCH_CHECK(by.is_cuda() && by.dim() == 3 && by.size(2) == 1 &&
                   by.is_contiguous(),
               "by must be a contiguous [n, rows, 1] CUDA tensor");
@@ -340,7 +381,7 @@ torch::Tensor fused_mlp_train_epoch(std::vector<torch::Tensor> state,
       {n, d_in, d1}, {n, 1, d1}, {n, d1, d2}, {n, 1, d2}, {n, d2, C},
       {n, 1, C}};
   for (int i = 0; i < 12; ++i) {
-    check(state[i], "state", at::kFloat, 3);
+    check(state[i], "state", f32_or_bf16(state[i]), 3);
     same_device(bx, state[i]);
     TORCH_CHECK(state[i].sizes() == at::IntArrayRef(shapes[i % 6]),
                 msg("fused epoch leaf ", i % 6,
@@ -354,7 +395,30 @@ torch::Tensor fused_mlp_train_epoch(std::vector<torch::Tensor> state,
               msg("rows (", rows, ") must be a positive multiple of batch (",
                   batch, ")"));
   const c10::cuda::CUDAGuard guard(bx.device());
-  auto f32 = bx.options();
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  auto f32 = bx.options().dtype(at::kFloat);
+  // f32 working copies of the bf16 tensors: bx first, then the state
+  std::vector<torch::Tensor> work(12);
+  std::vector<p2pfl::CastItem> widen, narrow;
+  torch::Tensor bx32 = bx;
+  if (bx.scalar_type() == at::kBFloat16) {
+    bx32 = torch::empty(bx.sizes(), f32);
+    widen.push_back({bx.data_ptr(), bx32.data_ptr(), bx.numel()});
+  }
+  for (int i = 0; i < 12; ++i) {
+    work[i] = state[i];
+    if (state[i].scalar_type() != at::kBFloat16) continue;
+    work[i] = torch::empty(state[i].sizes(), f32);
+    widen.push_back({state[i].data_ptr(), work[i].data_ptr(),
+                     state[i].numel()});
+    narrow.push_back({work[i].data_ptr(), state[i].data_ptr(),
+                      state[i].numel()});
+  }
+  if (!widen.empty()) {
+    p2pfl::launch_cast_bf16(widen.data(), static_cast<int>(widen.size()), 1,
+                            stream);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+  }
   auto loss = torch::empty({n}, f32);
   const int B = as_int(batch, "batch");
   const p2pfl::MlpEpochPlan plan = p2pfl::fused_mlp_epoch_plan(
@@ -369,19 +433,24 @@ torch::Tensor fused_mlp_train_epoch(std::vector<torch::Tensor> state,
   float* params[6];
   float* mom[6];
   for (int i = 0; i < 6; ++i) {
-    params[i] = state[i].data_ptr<float>();
-    mom[i] = state[i + 6].data_ptr<float>();
+    params[i] = work[i].data_ptr<float>();
+    mom[i] = work[i + 6].data_ptr<float>();
   }
   p2pfl::launch_fused_mlp_epoch(
-      bx.data_ptr<float>(), by.data_ptr(),
+      bx32.data_ptr<float>(), by.data_ptr(),
       by.scalar_type() == at::kLong ? 1 : 0, params, mom,
       plan.on_chip ? nullptr : scratch.data_ptr<float>(),
       loss.data_ptr<float>(), as_int(n, "n"),
       as_int(rows, "rows"), as_int(rows / batch, "steps"), B,
       as_int(d_in, "d_in"), as_int(d1, "d1"), as_int(d2, "d2"),
       as_int(C, "C"), static_cast<float>(lr), static_cast<float>(beta),
-      at::cuda::getCurrentCUDAStream());
+      stream);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  if (!narrow.empty()) {
+    p2pfl::launch_cast_bf16(narrow.data(), static_cast<int>(narrow.size()),
+                            0, stream);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+  }
   return loss;
 }
 
@@ -399,7 +468,7 @@ std::tuple<std::string, int64_t, int64_t> fused_mlp_epoch_plan(
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("stream_gemm", &stream_gemm, "K1: [n,M,K] @ [n,K,N], bf16");
+  m.def("stream_gemm", &stream_gemm, "K1: [n,M,K] @ [n,K,N], bf16 or f32");
   m.def("stream_wgrad", &stream_wgrad, "K2: [n,M,K]^T @ [n,M,N] -> f32");
   m.def("dense_bwd", &dense_bwd, "K3: fused dx, dw of y = x @ w");
   m.def("sgd", &sgd, "K4: SGD-with-momentum step over a list of leaves");

@@ -32,6 +32,20 @@ void launch_dense_bwd(const void* x, const void* w, const void* g,
                       void* dx, void* dw, int n, int B, int D, int H,
                       cudaStream_t stream);
 
+// K1, K2 and K3 in float32 (gemm_f32.cu), the same functions on f32
+// operands and outputs. K2 cuts each node's rows as above, `rows` a
+// multiple of kWgradF32Rows; `partial` holds n * slices * K * N floats
+// when slices > 1.
+constexpr int kWgradF32Rows = 16;
+void launch_stream_gemm_f32(const float* x, const float* w, float* out,
+                            int n, int M, int K, int N, cudaStream_t stream);
+void launch_stream_wgrad_f32(const float* x, const float* g, float* partial,
+                             float* out, int n, int M, int K, int N,
+                             int rows, int slices, cudaStream_t stream);
+void launch_dense_bwd_f32(const float* x, const float* w, const float* g,
+                          float* dx, float* dw, int n, int B, int D, int H,
+                          cudaStream_t stream);
+
 // One leaf of a K4/K5 launch: a parameter stacked over n slots (nodes
 // or cohort slots), [n, numel] contiguous. Operands a form does not use
 // are null; outputs are the binding's fresh tensors.
@@ -70,7 +84,9 @@ void launch_fedavg_accum(const StreamLeaf* leaves, int count, const float* w,
                          int p_bf16, cudaStream_t stream);
 
 // K6: one SGD-with-momentum epoch of a 3-layer ReLU MLP per node, over
-// n nodes. params / mom: 6 f32 tensors each (w0 [n,d_in,d1], b0 [n,d1],
+// n nodes. params / mom: 6 f32 tensors each (bf16 state and inputs are
+// widened into f32 copies before the epoch and narrowed back once after
+// it, by launch_cast_bf16) (w0 [n,d_in,d1], b0 [n,d1],
 // w1 [n,d1,d2], b1 [n,d2], w2 [n,d2,C], b2 [n,C]), trained in place;
 // bx [n, rows, d_in] f32, by [n, rows] int32 (by_int64 = 0) or int64;
 // rows = steps * batch; loss [n] receives each node's mean loss over the
@@ -93,5 +109,17 @@ void launch_fused_mlp_epoch(const float* bx, const void* by, int by_int64,
                             float* scratch, float* loss, int n, int rows,
                             int steps, int batch, int d_in, int d1, int d2,
                             int C, float lr, float beta, cudaStream_t stream);
+
+// K6's bf16 variant: one launch converts `count` (1..kMaxCasts) tensors,
+// bf16 -> f32 (widen = 1, exact) or f32 -> bf16 (widen = 0, round to
+// nearest even), each `numel` values from `src` into `dst`.
+constexpr int kMaxCasts = 13;
+struct CastItem {
+  const void* src;
+  void* dst;
+  long long numel;
+};
+void launch_cast_bf16(const CastItem* items, int count, int widen,
+                      cudaStream_t stream);
 
 }  // namespace p2pfl

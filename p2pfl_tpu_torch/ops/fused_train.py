@@ -14,8 +14,12 @@ each node's mean over the steps.
   (``csrc/fused_train.cu``: one 8-block thread-block cluster per node,
   which holds the node's weights in shared memory for the whole epoch,
   two cluster barriers a step; widths whose state does not fit run its
-  second, L2-resident instantiation) or raise. The kernel takes f32
-  params, trace and inputs and int32 or int64 labels.
+  second, L2-resident instantiation) or raise. The kernel takes f32 or
+  bf16 params, traces and inputs (each tensor its own) and int32 or
+  int64 labels. As in the JAX kernel, bf16 is widened to f32 on entry,
+  the epoch runs in f32, and the state is rounded back to its dtype once
+  at the end; the plain version does the same casts. Launches with any
+  bf16 operand count under ``fused_mlp_train_epoch_bf16``.
 
 Layouts are the JAX package's: ``params`` and ``momentum_state`` are
 tuples ``(w0 [n,d_in,d1], b0 [n,1,d1], w1 [n,d1,d2], b1 [n,1,d2],
@@ -55,8 +59,9 @@ def _epoch_shape(rows: int, batch_size: int) -> tuple[int, int]:
 def fused_mlp_train_epoch_plain(params, momentum_state, bx, by, lr: float,
                                 momentum: float = 0.9,
                                 batch_size: int = 32):
-    """The epoch in plain PyTorch (f32 products and sums); returns
-    ``(params', momentum', loss [n])``, each leaf in its input dtype."""
+    """The epoch in plain PyTorch (f32 products and sums, bf16 inputs
+    widened on entry); returns ``(params', momentum', loss [n])``, each
+    leaf rounded once to its input dtype."""
     n, rows, _ = bx.shape
     steps, b = _epoch_shape(rows, int(batch_size))
     lr, beta = float(lr), float(momentum)
@@ -97,11 +102,11 @@ def _check_kernel_operands(params, momentum_state, bx, by) -> None:
         raise ValueError("params and momentum_state are 6-tuples "
                          "(w0, b0, w1, b1, w2, b2)")
     for t in (*params, *momentum_state, bx):
-        if t.dtype != torch.float32:
+        if t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
-                f"the fused epoch kernel takes float32 params, trace and "
-                f"inputs, got {t.dtype} (other dtypes: ROADMAP.md queue A, "
-                "item A19)")
+                f"the fused epoch kernel takes float32 or bfloat16 params, "
+                f"trace and inputs, got {t.dtype} (other dtypes: ROADMAP.md "
+                "queue A, item A19)")
     if by.dtype not in (torch.int32, torch.int64):
         raise ValueError(
             f"the fused epoch kernel takes int32 or int64 labels, got "
@@ -124,7 +129,9 @@ def fused_mlp_train_epoch(params, momentum_state, bx, by, lr: float,
     loss = _build.kernels().fused_mlp_train_epoch(
         state, bx.contiguous(), by.contiguous(), b, float(lr),
         float(momentum))
-    launches["fused_mlp_train_epoch"] += 1
+    bf16 = any(t.dtype == torch.bfloat16 for t in (*state, bx))
+    launches["fused_mlp_train_epoch_bf16" if bf16
+             else "fused_mlp_train_epoch"] += 1
     return tuple(state[:6]), tuple(state[6:]), loss
 
 

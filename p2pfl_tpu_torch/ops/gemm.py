@@ -22,6 +22,14 @@ FEMNIST-CNN rounds run:
   signatures of the JAX package's ``pallas_gemm.sgd_accum`` and
   ``fedavg_accum``.
 
+K1-K3 run in the operands' dtype: bf16 (the kernels above) or float32
+(``csrc/gemm_f32.cu``, exact f32 SIMT tiles, the model's
+``compute_dtype`` float32), with f32 sums either way; the launches of
+the f32 instantiations count under their own keys (``stream_gemm_f32``
+...). K4 and K5 take f32 or bf16 params and traces; of K4's launches
+(``sgd_accum``), those with bf16 params are counted again under
+``sgd_accum_bf16``.
+
 Every kernel takes the node axis as its leading dimension; the JAX
 package's ``vmap`` over nodes is that axis written out. Beside each
 wrapper is its plain PyTorch version (``*_plain``, the same f32
@@ -57,10 +65,20 @@ __all__ = [
 
 #: kernel launches per wrapper since the last reset_launches()
 launches: dict[str, int] = {
-    "stream_gemm": 0, "stream_wgrad": 0, "dense_bwd": 0, "sgd_accum": 0,
-    "sgd_accum_acc": 0, "fedavg_accum": 0,
-    "fused_mlp_train_epoch": 0,  # K6, ops/fused_train.py
+    "stream_gemm": 0, "stream_wgrad": 0, "dense_bwd": 0,
+    "stream_gemm_f32": 0, "stream_wgrad_f32": 0, "dense_bwd_f32": 0,
+    "sgd_accum": 0, "sgd_accum_bf16": 0,  # all K4; those with bf16 p
+    "sgd_accum_acc": 0,
+    "fedavg_accum": 0,
+    # K6, ops/fused_train.py: f32 state, and bf16 state or inputs
+    "fused_mlp_train_epoch": 0, "fused_mlp_train_epoch_bf16": 0,
 }
+
+
+def _key(name: str, t: torch.Tensor) -> str:
+    """The launch-count key of a K1-K3 instantiation: the bf16 one keeps
+    the kernel's name, the f32 one adds ``_f32``."""
+    return name + "_f32" if t.dtype == torch.float32 else name
 
 
 def reset_launches() -> None:
@@ -92,11 +110,12 @@ def stream_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def stream_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K1 (``csrc/stream_gemm.cu``): bf16 ``[n,M,K] @ [n,K,N]``."""
+    """K1 (``csrc/stream_gemm.cu``; f32: ``csrc/gemm_f32.cu``): ``[n,M,K]
+    @ [n,K,N]`` in x's dtype, bf16 or f32."""
     if _on_cpu(x, w):
         return stream_gemm_plain(x, w)
     out = _build.kernels().stream_gemm(x, w)
-    launches["stream_gemm"] += 1
+    launches[_key("stream_gemm", x)] += 1
     return out
 
 
@@ -113,16 +132,17 @@ def stream_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 #: blocks the slice plan aims for on each route, and the fewest rows it
 #: gives a slice where M allows: constants, never the card's SM count, so
 #: the plan and the sums' order are the same on every card
-WGRAD_TARGET_BLOCKS = {"wide": 512, "general": 256}
+WGRAD_TARGET_BLOCKS = {"wide": 512, "general": 256, "f32": 512}
 WGRAD_MIN_SLICE_ROWS = 1024
 
 
 class WgradPlan(NamedTuple):
-    """How K2 cuts one call: ``route`` "wide" (TMA + wgmma, K and N
-    multiples of 8) or "general" (mma.sync, any width); ``tiles`` output
-    tiles (blocks) a slice; ``rows`` rows a slice (a multiple of the
-    route's stage: 32 or 256); ``slices`` slices a node, whose f32 sums
-    a second kernel adds in slice order when there are two or more."""
+    """How K2 cuts one call: ``route`` "wide" (bf16, TMA + wgmma, K and
+    N multiples of 8), "general" (bf16, mma.sync, any width) or "f32"
+    (the float32 instantiation, SIMT tiles); ``tiles`` output tiles
+    (blocks) a slice; ``rows`` rows a slice (a multiple of the route's
+    stage: 32, 256 or 16); ``slices`` slices a node, whose f32 sums a
+    second kernel adds in slice order when there are two or more."""
     route: str
     tiles: int
     rows: int
@@ -132,17 +152,19 @@ class WgradPlan(NamedTuple):
 @functools.cache
 def wgrad_plan(n: int, M: int, K: int, N: int,
                route: str | None = None) -> WgradPlan:
-    """K2's slice plan, a function of the shape only: about
-    ``WGRAD_TARGET_BLOCKS[route]`` blocks over ``n`` nodes, and no slice
-    shorter than ``WGRAD_MIN_SLICE_ROWS`` rows where ``M`` allows.
-    ``route`` defaults to the shape's: "wide" when K and N are
-    multiples of 8."""
+    """K2's slice plan, a function of the shape (and, for float32, the
+    route) only: about ``WGRAD_TARGET_BLOCKS[route]`` blocks over ``n``
+    nodes, and no slice shorter than ``WGRAD_MIN_SLICE_ROWS`` rows where
+    ``M`` allows. ``route`` defaults to the bf16 shape's: "wide" when K
+    and N are multiples of 8; the f32 instantiation passes "f32"."""
     if route is None:
         route = "wide" if K % 8 == 0 and N % 8 == 0 else "general"
     if route == "wide":
         tiles, unit = -(-K // 256) * -(-N // 64), 32
     elif route == "general":
         tiles, unit = -(-K // 32) * -(-N // 32), 256
+    elif route == "f32":
+        tiles, unit = -(-K // 64) * -(-N // 64), 16
     else:
         raise ValueError(f"unknown K2 route {route!r}")
     M = max(M, 1)
@@ -153,17 +175,21 @@ def wgrad_plan(n: int, M: int, K: int, N: int,
 
 
 def stream_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K2 (``csrc/stream_wgrad.cu``): slices of rows summed per block in
-    a fixed order, then in slice order (:func:`wgrad_plan`)."""
+    """K2 (``csrc/stream_wgrad.cu``; f32: ``csrc/gemm_f32.cu``): slices
+    of rows summed per block in a fixed order, then in slice order
+    (:func:`wgrad_plan`)."""
     if _on_cpu(x, g):
         return stream_wgrad_plain(x, g)
     n, M, K = x.shape
-    plan = wgrad_plan(n, M, K, g.shape[-1])
-    if plan.route == "wide" and (x.data_ptr() % 16 or g.data_ptr() % 16):
-        plan = wgrad_plan(n, M, K, g.shape[-1], "general")
+    if x.dtype == torch.float32:
+        plan = wgrad_plan(n, M, K, g.shape[-1], "f32")
+    else:
+        plan = wgrad_plan(n, M, K, g.shape[-1])
+        if plan.route == "wide" and (x.data_ptr() % 16 or g.data_ptr() % 16):
+            plan = wgrad_plan(n, M, K, g.shape[-1], "general")
     out = _build.kernels().stream_wgrad(x, g, plan.route == "wide",
                                         plan.rows, plan.slices)
-    launches["stream_wgrad"] += 1
+    launches[_key("stream_wgrad", x)] += 1
     return out
 
 
@@ -184,11 +210,12 @@ def dense_bwd_plain(x: torch.Tensor, w: torch.Tensor,
 
 def dense_bwd(x: torch.Tensor, w: torch.Tensor,
               g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3 (``csrc/dense_bwd.cu``): dx and dw from one launch."""
+    """K3 (``csrc/dense_bwd.cu``; f32: ``csrc/gemm_f32.cu``): dx and dw
+    from one launch."""
     if _on_cpu(x, w, g):
         return dense_bwd_plain(x, w, g)
     dx, dw = _build.kernels().dense_bwd(x, w, g)
-    launches["dense_bwd"] += 1
+    launches[_key("dense_bwd", x)] += 1
     return dx, dw
 
 
@@ -272,6 +299,8 @@ def sgd_accum_many(ps: list, ms: list, gs: list, lr: torch.Tensor, *,
     if accs is None:
         p_new, m_new, _, n = _build.kernels().sgd(ps, ms, gs, lr, decay)
         launches["sgd_accum"] += n
+        if ps[0].dtype == torch.bfloat16:
+            launches["sgd_accum_bf16"] += n
         return p_new, m_new
     p_new, m_new, acc_new, n = _build.kernels().sgd_accum(
         ps, ms, gs, lr, accs, weight, decay)

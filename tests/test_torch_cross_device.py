@@ -459,16 +459,7 @@ def _scenario_raw(compute_f32: bool, **cd) -> dict:
 
 
 def _port_config(raw: dict) -> tschema.ScenarioConfig:
-    raw = json.loads(json.dumps(raw))
-    f32 = raw["model"]["compute_dtype"] == "float32"
-    # the port's config refuses f32 compute (its bf16 kernels do not
-    # take it on the card); the CPU plain versions do, so the f32 tier
-    # sets it after loading
-    raw["model"]["compute_dtype"] = None
-    cfg = tschema.ScenarioConfig.from_dict(raw)
-    if f32:
-        cfg.model.compute_dtype = "float32"
-    return cfg
+    return tschema.ScenarioConfig.from_dict(json.loads(json.dumps(raw)))
 
 
 def test_streamed_round_equals_materialized_bit_for_bit():
@@ -555,3 +546,47 @@ def test_scenario_matches_jax(tmp_path, compute_f32):
         np.testing.assert_allclose(tl[1], jl[1], rtol=BF16_LOSS_RTOL[1])
         for k, r in rel[1].items():
             assert r < BF16_PARAM_REL_L2[k[-1]], (k, r)
+
+
+def _jax_adam_state(opt_state):
+    """The ``ScaleByAdamState`` inside a JAX optax chain's state."""
+    return next(s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda t: hasattr(t, "mu")) if hasattr(s, "mu"))
+
+
+def test_scenario_with_adam_matches_jax():
+    """Two cross-device rounds with adam (lr 1e-3), f32 compute and wire,
+    from the same weights: the cohort carry holds adam's ``(count, mu,
+    nu)`` across cohort steps and slots as the JAX package's does. Each
+    round: the loss, and each leaf of the params, ``mu`` and ``nu`` (as
+    relative L2), at the f32 tier; ``count`` exact."""
+    from p2pfl_tpu.federation.scenario import (
+        CrossDeviceScenario as JaxCrossDeviceScenario,
+    )
+    from p2pfl_tpu_torch.convert import adam_state_from_optax
+
+    raw = _scenario_raw(True)
+    raw["training"].update(optimizer="adam", learning_rate=1e-3)
+    js = JaxCrossDeviceScenario(jschema.ScenarioConfig.from_dict(raw))
+    ts = CrossDeviceScenario(_port_config(raw), device="cpu")
+    p0 = jax.tree.map(lambda a: np.asarray(a)[0], js.fed.states.params)
+    ts.fed = tfed.reseed_params(ts.fed, ts.fns, params_from_jax(p0))
+    for _ in range(2):
+        jres, tres = js.run(rounds=1), ts.run(rounds=1)
+        assert np.array_equal(ts.last_cohorts, js.last_cohorts)
+        jl = [r["Train/loss"] for r in jres.history if "Train/loss" in r][-1]
+        np.testing.assert_allclose(tres.history[0]["Train/loss"], jl,
+                                   rtol=F32_TOL["rtol"])
+        rel = _rel_l2(js, ts)
+        assert max(rel.values()) < F32_TOL["rtol"], rel
+        jadam = adam_state_from_optax(jax.tree.map(
+            np.asarray, _jax_adam_state(js.fed.states.opt_state)))
+        tadam = ts.fed.states.opt_state
+        assert torch.equal(tadam.count, jadam.count)
+        for name in ("mu", "nu"):
+            jt = _by_path(getattr(jadam, name))
+            tt = _by_path(getattr(tadam, name))
+            assert set(jt) == set(tt)
+            for k in jt:
+                r = np.linalg.norm(tt[k] - jt[k]) / np.linalg.norm(jt[k])
+                assert r < F32_TOL["rtol"], (name, k, r)

@@ -73,14 +73,7 @@ def _jax_cfg(**kw) -> jschema.ScenarioConfig:
 
 
 def _port_cfg(jcfg) -> ScenarioConfig:
-    # the port's config refuses f32 compute (its bf16 kernels do not
-    # take it on the card); the CPU plain versions do, so the f32 tier
-    # sets it after loading
-    raw = json.loads(jcfg.to_json())
-    raw["model"]["compute_dtype"] = None
-    cfg = ScenarioConfig.from_dict(raw)
-    cfg.model.compute_dtype = "float32"
-    return cfg
+    return ScenarioConfig.from_dict(json.loads(jcfg.to_json()))
 
 
 def _recorder(obs) -> list:

@@ -29,7 +29,18 @@ ReLU whose pre-activation lies within the two versions' rounding
 difference of zero can take the other gate in one of them, and that
 unit's column trains on apart: there at most 1e-3 of a leaf's elements
 may lie off the elementwise tolerance, none by more than 1e-2, each
-leaf within relative L2 5e-3, and the loss within its tolerance.
+leaf within relative L2 5e-3, and the loss within its tolerance. K6
+with bf16 state gives the bits of the f32 kernel on the widened
+inputs, rounded once, and is held to its plain version by the same
+bounds plus one bf16 ulp (both round the f32 epoch's state once), over
+the headline's 19 steps node by node: at most one node outside them.
+
+The f32 instantiations of K1-K3 (``csrc/gemm_f32.cu``) are held to
+their plain versions (``torch.matmul`` in f32, TF32 off) at relative L2
+``4 u sqrt(L)`` and elementwise ``8 u sqrt(L) sqrt(A**2 @ B**2)``
+(``u = 2**-24``, L the contraction length), which the product on
+TF32-rounded inputs fails; two runs give the same bits, and their
+launches count under their own keys.
 """
 
 from __future__ import annotations
@@ -319,8 +330,11 @@ def test_sgd_accum_many_one_launch_bits_gate_and_reruns(dev, leaf_set,
     ms = _leaves(dev, 80, shapes, trace)
     lr = torch.tensor(_SLOT_LR, device=dev)
     before = gemm.launches["sgd_accum"]
+    before_bf16 = gemm.launches["sgd_accum_bf16"]
     got = gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9)
     assert gemm.launches["sgd_accum"] == before + 1
+    assert gemm.launches["sgd_accum_bf16"] == before_bf16 + (
+        pdt == torch.bfloat16)
     want = gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9)
     for g, w in zip(got, want):
         _equal_lists(g, w)
@@ -563,10 +577,19 @@ def test_fused_mlp_epoch_refusals(dev):
     with pytest.raises(ValueError, match="multiple of batch_size"):
         fused_train.fused_mlp_train_epoch(params, mom, bx, by, 0.05,
                                           batch_size=16)
+    # bf16 params beside an f32 trace run (each tensor keeps its dtype)
     half = tuple(t.to(torch.bfloat16) for t in params)
+    start = gemm.launches["fused_mlp_train_epoch_bf16"]
+    kp, km, _ = fused_train.fused_mlp_train_epoch(half, mom, bx, by, 0.05,
+                                                  batch_size=8)
+    assert gemm.launches["fused_mlp_train_epoch_bf16"] == start + 1
+    assert all(t.dtype == torch.bfloat16 for t in kp)
+    assert all(t.dtype == torch.float32 for t in km)
+    # float16 is the rest of A19
     with pytest.raises(ValueError, match="A19"):
-        fused_train.fused_mlp_train_epoch(half, mom, bx, by, 0.05,
-                                          batch_size=8)
+        fused_train.fused_mlp_train_epoch(
+            tuple(t.to(torch.float16) for t in params), mom, bx, by, 0.05,
+            batch_size=8)
     with pytest.raises(ValueError, match="int32 or int64"):
         fused_train.fused_mlp_train_epoch(params, mom, bx, by.float(), 0.05,
                                           batch_size=8)
@@ -655,3 +678,218 @@ def test_privatize_stacked_on_the_card(dev, sigma):
             assert norm <= spec.clip_norm * (1 + 1e-6)
         else:
             assert norm > spec.clip_norm  # the noise dominates
+
+
+# The f32 instantiations of K1-K3 at the f32 arm's shapes (the 8-node
+# FEMNIST-CNN ring, reduced to 3 nodes and 12 images a node; conv1's
+# dgrad (32, 25); ragged rows) and K2's slice plan with several slices.
+# Held as in chip_smoke.py: two f32 sums of the same L products in other
+# orders differ by about u sqrt(L) relative (u = 2**-24), so relative L2
+# <= 4 u sqrt(L) and every element <= 8 u sqrt(L) sqrt(A**2 @ B**2). The
+# product in TF32 fails these limits at every shape here.
+F32_U = 2.0 ** -24
+F32_REL_C, F32_ELEM_C = 4.0, 8.0
+
+
+def _tf32_round(t):
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _f32_units(got, want, a, b):
+    scale = F32_U * a.shape[-1] ** 0.5
+    d = got - want
+    elem = scale * torch.matmul(a * a, b * b).sqrt()
+    rel = float(d.norm() / want.norm().clamp(min=1e-30)) / scale
+    return rel, float((d.abs() / elem.clamp(min=1e-30)).max())
+
+
+def _assert_f32_close(got, a, b):
+    """``got`` against ``a @ b`` (TF32 off) under the f32 limits, and the
+    product on TF32-rounded inputs outside them."""
+    want = torch.matmul(a, b)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    rel, elem = _f32_units(got, want, a, b)
+    assert rel <= F32_REL_C and elem <= F32_ELEM_C, (rel, elem)
+    rel, elem = _f32_units(torch.matmul(_tf32_round(a), _tf32_round(b)),
+                           want, a, b)
+    assert rel > F32_REL_C or elem > F32_ELEM_C, (rel, elem)
+
+
+def _f32_keys_only(before, used):
+    for key in ("stream_gemm", "stream_wgrad", "dense_bwd"):
+        want = before[key + "_f32"] + (1 if key in used else 0)
+        assert gemm.launches[key + "_f32"] == want, key
+        assert gemm.launches[key] == before[key], key
+
+
+@pytest.mark.parametrize("nodes,m,k,n", [
+    (3, 12 * 784, 25, 32), (3, 12 * 196, 800, 64), (3, 12 * 784, 32, 25),
+    (3, 2 * 784 + 13, 9, 32), (2, 129, 48, 16)])
+def test_stream_gemm_f32_matches_plain_bit_stable(dev, nodes, m, k, n):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _rand(dev, 90, nodes, m, k, dtype=torch.float32)
+    w = _rand(dev, 91, nodes, k, n, dtype=torch.float32) * 0.1
+    before = dict(gemm.launches)
+    got = gemm.stream_gemm(x, w)
+    _f32_keys_only(before, {"stream_gemm"})
+    torch.testing.assert_close(gemm.stream_gemm_plain(x, w), x @ w,
+                               rtol=0, atol=0)
+    _assert_f32_close(got, x, w)
+    assert torch.equal(got, gemm.stream_gemm(x, w))
+
+
+@pytest.mark.parametrize("nodes,m,k,n", [
+    (3, 12 * 784, 25, 32), (3, 12 * 196, 800, 64), (3, 4096 * 3 + 7, 25, 32),
+    (2, 1, 800, 64), (3, 2357, 21, 70)])
+def test_stream_wgrad_f32_matches_plain_bit_stable(dev, nodes, m, k, n):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _rand(dev, 92, nodes, m, k, dtype=torch.float32)
+    g = _rand(dev, 93, nodes, m, n, dtype=torch.float32)
+    before = dict(gemm.launches)
+    got = gemm.stream_wgrad(x, g)
+    _f32_keys_only(before, {"stream_wgrad"})
+    xt = x.transpose(1, 2)
+    torch.testing.assert_close(gemm.stream_wgrad_plain(x, g), xt @ g,
+                               rtol=0, atol=0)
+    _assert_f32_close(got, xt, g)
+    assert torch.equal(got, gemm.stream_wgrad(x, g))
+
+
+@pytest.mark.parametrize("nodes,b,d,h", [(3, 48, 3136, 2048),
+                                         (2, 21, 300, 70)])
+def test_dense_bwd_f32_matches_plain_bit_stable(dev, nodes, b, d, h):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _rand(dev, 94, nodes, b, d, dtype=torch.float32)
+    w = _rand(dev, 95, nodes, d, h, dtype=torch.float32) * 0.02
+    g = _rand(dev, 96, nodes, b, h, dtype=torch.float32)
+    before = dict(gemm.launches)
+    dx, dw = gemm.dense_bwd(x, w, g)
+    _f32_keys_only(before, {"dense_bwd"})
+    pdx, pdw = gemm.dense_bwd_plain(x, w, g)
+    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+    torch.testing.assert_close(pdx, g @ wt, rtol=0, atol=0)
+    torch.testing.assert_close(pdw, xt @ g, rtol=0, atol=0)
+    _assert_f32_close(dx, g, wt)
+    _assert_f32_close(dw, xt, g)
+    dx2, dw2 = gemm.dense_bwd(x, w, g)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+def test_f32_autograd_functions_run_only_the_f32_kernels(dev):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _rand(dev, 97, 2, 300, 800, dtype=torch.float32).requires_grad_(True)
+    w = _rand(dev, 98, 2, 800, 64, dtype=torch.float32).requires_grad_(True)
+    gemm.reset_launches()
+    y = gemm.conv2_matmul(x, w)
+    gx, gw = torch.autograd.grad((y ** 2).sum(), (x, w))
+    v = _rand(dev, 99, 2, 64, 32, dtype=torch.float32).requires_grad_(True)
+    h = gemm.dense_matmul(y.detach(), v)
+    torch.autograd.grad(h.sum(), (v,))
+    assert gemm.launches["stream_gemm_f32"] == 1
+    assert gemm.launches["stream_wgrad_f32"] == 1
+    assert gemm.launches["dense_bwd_f32"] == 1
+    assert gemm.launches["stream_gemm"] == gemm.launches["stream_wgrad"] == 0
+    assert gemm.launches["dense_bwd"] == 0
+    assert gx.dtype == gw.dtype == torch.float32
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at each value of ``t`` (f32)."""
+    e = torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _k6_nodes_off(got, want):
+    """The nodes whose state leaves the flip bounds (on the node's slice
+    of each leaf, bf16 one ulp more) or whose loss leaves its
+    tolerance."""
+    (kp, km, kl), (pp, pm, pl) = got, want
+    n = kl.shape[0]
+    out = (kl - pl).abs() > K6_LOSS_TOL["atol"] + K6_LOSS_TOL["rtol"] * pl.abs()
+    for a, b in zip(kp + km, pp + pm):
+        a, b = a.float().reshape(n, -1), b.float().reshape(n, -1)
+        d = ((a - b).abs()
+             - _bf16_ulp(torch.maximum(a.abs(), b.abs()))).clamp(min=0.0)
+        tol = K6_STATE_TOL["atol"] + K6_STATE_TOL["rtol"] * b.abs()
+        rel = (a - b).norm(dim=1) / b.norm(dim=1).clamp(min=1e-30)
+        out |= (((d > tol).sum(1) > K6_FLIP_FRACTION * a.shape[1])
+                | (d.amax(1) > K6_FLIP_ATOL) | (rel > K6_FLIP_REL_L2))
+    return out.nonzero().flatten().tolist()
+
+
+@pytest.mark.parametrize("n,rows", [(64, 608), (64, 32), (3, 40)])
+def test_fused_mlp_epoch_bf16_state_matches_plain(dev, n, rows):
+    """K6 with bf16 params, trace and inputs: the headline shape (19
+    steps), its first step, and a ragged node count (5 steps). Always
+    the bits of the f32 kernel on the widened inputs, rounded once (the
+    variant's own code), and against the plain version: from one state
+    within the elementwise tolerance plus one bf16 ulp; over the ragged
+    case's 5 steps within the flip bounds plus one ulp; over the
+    headline's 19 steps node by node, at most one node outside the flip
+    bounds plus one ulp (a gate taken the other way moves its node's
+    whole state apart) and every value finite."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d_in, d1, d2, c, batch = 784, 256, 128, 10, 32
+    if n == 3:
+        d_in, d1, d2, c, batch = 50, 20, 13, 7, 8
+    params, mom, bx, by = _mlp_epoch_inputs(dev, n, d_in, d1, d2, c, rows)
+    bf = lambda ts: tuple(t.to(torch.bfloat16) for t in ts)  # noqa: E731
+    params, mom, bx = bf(params), bf(mom), bx.to(torch.bfloat16)
+    start = dict(gemm.launches)
+    kp, km, kl = fused_train.fused_mlp_train_epoch(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
+    assert gemm.launches["fused_mlp_train_epoch_bf16"] == (
+        start["fused_mlp_train_epoch_bf16"] + 1)
+    assert gemm.launches["fused_mlp_train_epoch"] == (
+        start["fused_mlp_train_epoch"])
+    f = lambda ts: tuple(t.float() for t in ts)  # noqa: E731
+    wp, wm, wl = fused_train.fused_mlp_train_epoch(
+        f(params), f(mom), bx.float(), by, 0.05, 0.9, batch_size=batch)
+    for a, b in zip(kp + km, wp + wm):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b.to(torch.bfloat16))
+    assert torch.equal(kl, wl)
+    pp, pm, pl = fused_train.fused_mlp_train_epoch_plain(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
+    if rows == 608:
+        assert all(bool(torch.isfinite(t).all()) for t in kp + km + (kl,))
+        assert len(_k6_nodes_off((kp, km, kl), (pp, pm, pl))) <= 1
+    else:
+        for a, b in zip(kp + km, pp + pm):
+            assert b.dtype == torch.bfloat16
+            a, b = a.float(), b.float()
+            d = (a - b).abs() - _bf16_ulp(torch.maximum(a.abs(), b.abs()))
+            tol = K6_STATE_TOL["atol"] + K6_STATE_TOL["rtol"] * b.abs()
+            if rows <= batch:  # from one state
+                assert bool((d <= tol).all()), float((d - tol).max())
+                continue
+            assert int((d > tol).sum()) <= K6_FLIP_FRACTION * a.numel()
+            assert float(d.max()) <= K6_FLIP_ATOL
+            assert float((a - b).norm() / b.norm()) <= K6_FLIP_REL_L2
+        torch.testing.assert_close(kl, pl, **K6_LOSS_TOL)
+    again = fused_train.fused_mlp_train_epoch(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
+    for a, b in zip(kp + km + (kl,), again[0] + again[1] + (again[2],)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+def test_sgd_accum_many_on_the_ocsvm_leaves(dev, pdt):
+    """K4 on the one-class SVM's leaves: ``w [n, 17]`` and ``rho [n]``,
+    one value a node; the same bits as the plain version, gate 0 keeps a
+    node's params."""
+    n = 8
+    ps = [_rand(dev, 100, n, 17, dtype=pdt), _rand(dev, 101, n, dtype=pdt)]
+    ms = [_rand(dev, 102, n, 17, dtype=pdt), _rand(dev, 103, n, dtype=pdt)]
+    gs = [_rand(dev, 104, n, 17, dtype=pdt), _rand(dev, 105, n, dtype=pdt)]
+    lr = torch.full((n,), 0.05, device=dev)
+    lr[[2, 5]] = 0.0
+    before = gemm.launches["sgd_accum"]
+    got = gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9)
+    assert gemm.launches["sgd_accum"] == before + 1
+    for g, w in zip(got, gemm.sgd_accum_many_plain(ps, ms, gs, lr,
+                                                   momentum=0.9)):
+        _equal_lists(g, w)
+    for p, kp in zip(ps, got[0]):
+        assert torch.equal(kp[[2, 5]], p[[2, 5]])

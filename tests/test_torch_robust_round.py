@@ -193,12 +193,7 @@ def _raw(kind: str) -> dict:
 def test_scenario_matches_jax(kind):
     raw = _raw(kind)
     js = JaxScenario(jschema.ScenarioConfig.from_dict(raw))
-    # the port's config refuses f32 compute (its bf16 kernels do not take
-    # it on the card); the CPU plain versions do, so it is set after
-    raw["model"]["compute_dtype"] = None
-    tcfg = ScenarioConfig.from_dict(raw)
-    tcfg.model.compute_dtype = "float32"
-    ts = Scenario(tcfg, device="cpu")
+    ts = Scenario(ScenarioConfig.from_dict(raw), device="cpu")
     p0 = jax.tree.map(lambda a: np.asarray(a)[0], js.fed.states.params)
     ts.fed = tfed.reseed_params(ts.fed, ts.fns, params_from_jax(p0))
 
