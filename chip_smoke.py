@@ -28,19 +28,27 @@ one, or when run outside a checkout of this repository). Phases:
    kernel's own device time from a profiled run (K2's beside
    ``torch.bmm``'s). K6 prints its instantiation (on chip or
    L2-resident), the clusters the card holds at once and its waves.
-   The dtype variants: K1, K2 and K3 in f32 (``csrc/gemm_f32.cu``) at
-   the ring's shapes, held to relative L2 and elementwise limits that
+   The dtype variants: K1, K2 and K3 in f32 (K1 and K3
+   ``csrc/gemm_f32_tc.cu``, 3xTF32 on ``wgmma``; K2 ``csrc/gemm_f32.cu``)
+   at the ring's shapes, held to relative L2 and elementwise limits that
    scale with the square root of the summed length (``F32_REL_C``,
    ``F32_ELEM_C``), which two controls must fail at each shape (a TF32
    product, and the sum with one slice dropped), twice bit for bit,
-   timed beside ``torch.bmm`` in f32 (TF32 off) and against the f32
-   peak; K4 over the 64-node headline's bf16 leaves (bf16 params,
-   gradients and trace) and over the one-class SVM's ``[8, 17]`` and
-   ``[8]`` leaves, the plain version's bits; K6 with bf16 params, trace
-   and inputs at its headline shape: bit for bit the f32 kernel on the
-   widened inputs rounded once, from one state within the K6 tolerance
-   plus one bf16 ulp of its plain version, and over the 19 steps node
-   by node (at most ``K6_FLIP_NODES`` nodes outside the flip bounds).
+   timed beside ``torch.bmm`` in f32 (TF32 off), each against two
+   bounds: the least time of an f32-accurate product (three TF32
+   passes or the bytes, the bound the kernels line reports) and of
+   exact f32 FMA outside the tensor cores; before them the
+   accumulation probe (``wgmma`` TF32 sums in one accumulator against
+   ``fmaf`` chains on tf32-valued inputs: an exact sum the layout must
+   give, and whether the tensor core rounds its sums to nearest or
+   truncates them); K4 over the 64-node headline's bf16 leaves (bf16
+   params, gradients and trace) and over the one-class SVM's
+   ``[8, 17]`` and ``[8]`` leaves, the plain version's bits; K6 with
+   bf16 params, trace and inputs at its headline shape: bit for bit
+   the f32 kernel on the widened inputs rounded once, from one state
+   within the K6 tolerance plus one bf16 ulp of its plain version, and
+   over the 19 steps node by node (no node outside the flip bounds:
+   ``K6_FLIP_NODES``).
 3. End to end, the stacked federation: the port's ``Scenario`` on the
    full-width FEMNIST CNN, 8 nodes on a ring, DFL, FedAvg, bf16 wire,
    750 samples a node, batch 336, 3 rounds on the seeded synthetic
@@ -110,7 +118,11 @@ one, or when run outside a checkout of this repository). Phases:
       once a step with bf16 params, the loss falling, the params bf16
       and finite, one step against the plain versions;
    b. phase 3's ring with ``compute_dtype`` float32, 3 rounds: only the
-      f32 K1-K3 launch, one step against the plain versions;
+      f32 K1-K3 launch; the loss of one step through the kernels against
+      the plain versions'; then at three seeds' rings, initial and
+      trained, every leaf's gradient through the kernels and through the
+      plain f32 versions within ``F32_GRAD_TOL`` of the same step in
+      f64, and the plain versions with K1 and K3 one TF32 pass outside;
    c. phase 3's ring with adam (lr 1e-3) and adamw (weight decay 1e-4),
       3 rounds each: K1-K3 launch, K4 does not, the count equals the
       steps; one adam cross-device round at phase 4's shape launches K5;
@@ -158,10 +170,10 @@ K6_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
 K6_FLIP_FRACTION, K6_FLIP_ATOL, K6_FLIP_REL_L2 = 1e-3, 1e-2, 5e-3
 # K6 with bf16 state over 19 steps is held node by node: a gate taken the
 # other way moves its node's whole state apart (a flipped h1 unit's
-# gradient reaches every w0 column through h0), so at most K6_FLIP_NODES
-# of the 64 nodes may leave the flip bounds and every other node stays
-# inside them
-K6_FLIP_NODES = 1
+# gradient reaches every w0 column through h0). The kernel sums in the
+# plain version's orders (torch.bmm's and torch.sum's, read on the card
+# with a probe kernel), so no node may leave the flip bounds
+K6_FLIP_NODES = 0
 FEMNIST_CNN_LEAVES = {
     "Conv_0.kernel": (5, 5, 1, 32), "Conv_0.bias": (32,),
     "Conv_1.kernel": (5, 5, 32, 64), "Conv_1.bias": (64,),
@@ -169,11 +181,12 @@ FEMNIST_CNN_LEAVES = {
     "Dense_1.kernel": (2048, 62), "Dense_1.bias": (62,)}
 
 # published peaks (NVIDIA data sheets, dense): bytes/s, bf16 FLOP/s,
-# f32 (non-tensor) FLOP/s; the SKU is read from the card's name
+# f32 (non-tensor) FLOP/s, TF32 FLOP/s; the SKU is read from the card's
+# name
 PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100": (3.35e12, 989e12, 67e12),  # SXM
-    "H200": (4.8e12, 989e12, 67e12),
+    "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
+    "H100": (3.35e12, 989e12, 67e12, 495e12),  # SXM
+    "H200": (4.8e12, 989e12, 67e12, 495e12),
 }
 
 
@@ -181,7 +194,7 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def peaks(name: str) -> tuple[float, float, float]:
+def peaks(name: str) -> tuple[float, float, float, float]:
     for key in ("H100 PCIe", "H200", "H100"):
         if key in name:
             return PEAKS[key]
@@ -223,7 +236,7 @@ def kernel_checks(dev, peak) -> dict:
 
     from p2pfl_tpu_torch.ops import gemm
 
-    bw, bf16_peak, f32_peak = peak
+    bw, bf16_peak, f32_peak, tf32_peak = peak
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand(*shape, dtype=torch.bfloat16):
@@ -238,8 +251,10 @@ def kernel_checks(dev, peak) -> dict:
     rows = []
 
     def record(kernel, inst, err, ok, tol, ms, plain_ms, lib_ms, nbytes,
-               flops, fpeak, on_path=True, summed=True):
-        bms, by = bound(nbytes, flops, fpeak)
+               flops, fpeak, on_path=True, summed=True, passes=1):
+        # passes: the products the bound counts (3 for an f32-accurate
+        # product from TF32 passes)
+        bms, by = bound(nbytes, passes * flops, fpeak)
         rows.append(dict(kernel=kernel, instance=inst, max_abs_err=err,
                          ok=ok, tol=tol, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bms, bound_by=by,
@@ -355,8 +370,11 @@ def kernel_checks(dev, peak) -> dict:
         del x, w, g, dx, dw, pdx, pdw, wt, xt
     torch.cuda.empty_cache()
 
+    rows.append(dict(kernel="wgmma_acc_probe", instance="tf32",
+                     ok=True, on_path=False, summed=False,
+                     probe=acc_probe(dev)))
     f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
-                  f32_peak)
+                  (bound, f32_peak, tf32_peak))
 
     # K4 and K5 over the FEMNIST CNN's 8 leaves at 8 slots: first the
     # step with every leaf in one call (the path's instance, which the
@@ -709,11 +727,26 @@ def step_checks(rows, record, same_bits, rand, lr, w, f32_peak) -> None:
 # the product in TF32 (the plain version on inputs rounded to TF32, and
 # torch.bmm with TF32 on wherever cuBLAS then runs TF32: at conv1's K of
 # 25 and 32 it stays in f32), and the sum with one slice dropped (K2: the
-# first slice of its plan; K1 and K3: the first F32_TILE_K terms, one k
-# tile of csrc/gemm_f32.cu)
+# first slice of its plan; K1 and K3: the first F32_TILE_K terms, half
+# of one 32-deep box of csrc/gemm_f32_tc.cu)
 F32_REL_C, F32_ELEM_C, F32_TILE_K = 4.0, 8.0, 16
 F32_TOL = (f"rel L2 <= {F32_REL_C:g} u sqrt(L), |d| <= {F32_ELEM_C:g} u "
            "sqrt(L) sqrt(A**2 @ B**2)")
+# phase 8b's f32 training step (check_f32_grads): one step with a zero
+# trace, so that the new trace is the gradient and neither the momentum
+# nor the params' rounding enters, at each of F32_GRAD_SEEDS' rings in
+# its initial and its trained state, on the first F32_GRAD_BATCHES
+# batches: every leaf's gradient of every node against the same step in
+# f64 that takes the same max-pool and ReLU decisions, relative L2.
+# (Near a tie a decision goes either way under any f32 sum order, and
+# against the f64 step's own decisions a few flips lift either f32 step
+# to about 2e-3: that reading is printed, not held.) The limit holds the
+# kernel step and the plain f32 step alike; the control, the plain step
+# with K1 and K3 one TF32 pass, must exceed it at every state and
+# batch. It is 10x the plain f32 step's worst reading over these 12
+# (4.37e-6 on an NVIDIA H100 80GB HBM3), rounded up
+F32_GRAD_TOL = 5e-5
+F32_GRAD_SEEDS, F32_GRAD_BATCHES = (0, 1, 2), 2
 
 
 def f32_reading(got, want, a, b) -> tuple[float, float]:
@@ -740,13 +773,18 @@ def tf32_round(t):
 def f32_check(tag, got, want, a, b, drop: int) -> tuple[float, bool, dict]:
     """One f32 K1-K3 output against its plain version ``want = a @ b``
     under the F32 limits, and the two controls, which must fail them:
-    (max |got - want|, ok, the readings)."""
+    (max |got - want|, ok, the readings). Read too, not gated: the
+    output and the plain version each against the product in f64."""
     import torch
 
     def passes(r):
         return r[0] <= F32_REL_C and r[1] <= F32_ELEM_C
 
     reading = f32_reading(got, want, a, b)
+    exact = torch.matmul(a.double(), b.double())
+    vs_f64 = dict(kernel=f32_reading(got, exact, a, b),
+                  plain=f32_reading(want, exact, a, b))
+    del exact
     cut = a.clone()
     cut[..., :drop] = 0
     mm = torch.backends.cuda.matmul  # TF32 off here (``main``)
@@ -766,7 +804,9 @@ def f32_check(tag, got, want, a, b, drop: int) -> tuple[float, bool, dict]:
           f"{F32_REL_C:g}), largest element {reading[1]:.4g} (limit "
           f"{F32_ELEM_C:g}); controls " + ", ".join(
               f"{k} {v[0]:.4g} / {v[1]:.4g}" for k, v in controls.items())
-          + f" (torch.bmm ran TF32: {on_tf32})", flush=True)
+          + f" (torch.bmm ran TF32: {on_tf32}); against the f64 product "
+          + ", ".join(f"{k} {v[0]:.4g} / {v[1]:.4g}"
+                      for k, v in vs_f64.items()), flush=True)
     gated = ["drop_one_slice", "tf32_rounded"] + (
         ["bmm_tf32"] if on_tf32 else [])
     passing = [k for k in gated if passes(controls[k])]
@@ -774,19 +814,93 @@ def f32_check(tag, got, want, a, b, drop: int) -> tuple[float, bool, dict]:
         fail(f"f32 {tag}: the controls {passing} pass the F32 limits")
     readings = dict(rel_l2_units=reading[0], elem_units=reading[1],
                     bmm_ran_tf32=on_tf32,
-                    **{f"{k}_units": v for k, v in controls.items()})
+                    **{f"{k}_units": v for k, v in controls.items()},
+                    **{f"{k}_vs_f64_units": v for k, v in vs_f64.items()})
     return float((got - want).abs().max()), passes(reading), readings
 
 
+def acc_probe(dev) -> dict:
+    """The accumulation probe of ``csrc/gemm_f32_tc.cu``: ``wgmma``
+    m64n64k8 TF32 sums in one accumulator against one ``fmaf`` chain a
+    value, on tf32-valued inputs (every product exact). (i) Small
+    integers, whose sums f32 holds exactly: both must give them (the
+    fragment layout's check). (ii) 1 at k = 0 and 1.5 * 2**-24 at k = 8
+    (the next wgmma), times ones: the exact 1 + 0.75 ulp(1) rounds to
+    1 + 2**-23 to nearest, to 1 by truncation. (iii) Normal values at
+    K = 2048: the mean and root-mean-square error of each against the
+    f64 sum, signed toward larger magnitude, in ulps of the exact sum."""
+    import torch
+
+    from p2pfl_tpu_torch.ops import _build
+
+    probe = _build.kernels().wgmma_acc_probe
+    gen = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randint(-3, 4, (64, 256), generator=gen, device=dev).float()
+    bt = torch.randint(-3, 4, (64, 256), generator=gen, device=dev).float()
+    tc, chain = probe(a, bt)
+    exact = (a.double() @ bt.double().T).float()
+    layout = torch.equal(tc, exact) and torch.equal(chain, exact)
+    a = torch.zeros(64, 32, device=dev)
+    a[:, 0], a[:, 8] = 1.0, 1.5 * 2.0 ** -24
+    tc, chain = probe(a, torch.ones(64, 32, device=dev))
+    one_tc, one_chain = float(tc[0, 0]), float(chain[0, 0])
+    mode = ("truncates" if one_tc == 1.0 else "rounds to nearest"
+            if one_tc == 1.0 + 2.0 ** -23 else "neither")
+    a = tf32_round(torch.randn(64, 2048, generator=gen, device=dev))
+    bt = tf32_round(torch.randn(64, 2048, generator=gen, device=dev))
+    tc, chain = probe(a, bt)
+    ex = a.double() @ bt.double().T
+    ulp = torch.exp2(torch.floor(torch.log2(ex.abs())) - 23)
+
+    def err(got):
+        e = (got.double() - ex) * ex.sign() / ulp
+        return float(e.mean()), float(e.square().mean().sqrt())
+
+    res = dict(layout_exact=layout, one_plus_three_quarter_ulp=dict(
+        wgmma=one_tc, fmaf_chain=one_chain), mode=mode,
+        k2048_ulps=dict(wgmma=err(tc), fmaf_chain=err(chain)))
+    print(f"  wgmma TF32 accumulation probe: integer sums exact {layout}; "
+          f"1 + 0.75 ulp -> wgmma {one_tc!r}, fmaf chain {one_chain!r}: "
+          f"the tensor core {mode}; K = 2048 normal, error toward larger "
+          f"magnitude (mean, rms, ulps): wgmma {res['k2048_ulps']['wgmma']}"
+          f", fmaf chain {res['k2048_ulps']['fmaf_chain']}", flush=True)
+    if not layout:
+        fail("wgmma_acc_probe: the TF32 fragment layout gives wrong sums")
+    return res
+
+
 def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
-                  f32_peak) -> None:
-    """K1, K2 and K3 in f32 (``csrc/gemm_f32.cu``) at the ring's shapes
-    (8 x 336 FEMNIST-CNN, the f32 arm's path; conv1's dgrad off it):
-    held to ``F32_TOL``, twice bit for bit, timed beside ``torch.bmm`` in
-    f32 with TF32 off and against the f32 non-tensor peak."""
+                  peak) -> None:
+    """K1, K2 and K3 in f32 (K1 and K3 ``csrc/gemm_f32_tc.cu``, K2
+    ``csrc/gemm_f32.cu``) at the ring's shapes (8 x 336 FEMNIST-CNN, the
+    f32 arm's path; conv1's dgrad off it): held to ``F32_TOL``, twice bit
+    for bit, timed beside ``torch.bmm`` in f32 with TF32 off and against
+    two bounds: an f32-accurate product's (three TF32 passes or the
+    bytes; the row's ``bound_ms``) and exact SIMT FFMA's at the f32
+    non-tensor peak (``simt_bound_ms``)."""
     import torch
 
     from p2pfl_tpu_torch.ops import gemm
+
+    bound, f32_peak, tf32_peak = peak
+
+    def split_and_gemm(fn):
+        """3xTF32 instances: the profiled device time a call of the
+        split pre-pass and of the GEMM kernel."""
+        sp, _ = device_time(fn, 10, "split_kernel")
+        gm, _ = device_time(fn, 10, "gemm_tc_kernel")
+        rows[-1].update(split_device_ms=sp, gemm_device_ms=gm)
+        print(f"    device: split pre-pass {sp:.4f} ms, 3xTF32 GEMM "
+              f"{gm:.4f} ms a call (profiled)", flush=True)
+
+    def bounds(nbytes, flops):
+        r = rows[-1]
+        sb, sby = bound(nbytes, flops, f32_peak)
+        r.update(simt_bound_ms=sb, simt_bound_by=sby)
+        print(f"    bounds: f32-accurate (3 TF32 passes or bytes) "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), exact SIMT FFMA "
+              f"{sb:.4f} ms ({sby}); kernel / torch.bmm "
+              f"{r['ms'] / r['library_ms']:.3f}", flush=True)
 
     f32 = torch.float32
     for inst, (m, k, nn_), on_path in [("conv1_fwd", (m1, 25, 32), True),
@@ -803,8 +917,11 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
                time_ms(lambda: gemm.stream_gemm_plain(x, w)),
                time_ms(lambda: torch.bmm(x, w)),
                4 * n * (m * k + k * nn_ + m * nn_), 2 * n * m * k * nn_,
-               f32_peak, on_path)
+               tf32_peak, on_path, passes=3)
         rows[-1].update(f32_readings=readings)
+        bounds(4 * n * (m * k + k * nn_ + m * nn_), 2 * n * m * k * nn_)
+        if k > 32:
+            split_and_gemm(lambda: gemm.stream_gemm(x, w))
         print(f"    host {host_us(lambda: gemm.stream_gemm(x, w)):.1f} us "
               "a call", flush=True)
         del x, w, got
@@ -826,8 +943,10 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
                time_ms(lambda: gemm.stream_wgrad_plain(x, g)),
                time_ms(lambda: torch.bmm(xt, g)),
                4 * n * (m * k + m * nn_) + 4 * n * k * nn_,
-               2 * n * m * k * nn_, f32_peak)
+               2 * n * m * k * nn_, tf32_peak, passes=3)
         rows[-1].update(plan=plan._asdict(), f32_readings=readings)
+        bounds(4 * n * (m * k + m * nn_) + 4 * n * k * nn_,
+               2 * n * m * k * nn_)
         print(f"    plan: {plan.route} route, {plan.slices} slices of "
               f"{plan.rows} rows a node, {plan.tiles} tiles a slice, "
               f"{n * plan.slices * plan.tiles} blocks", flush=True)
@@ -850,8 +969,11 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
            time_ms(lambda: gemm.dense_bwd_plain(x, w, g)),
            time_ms(lambda: (torch.bmm(g, wt), torch.bmm(xt, g))),
            4 * n * (2 * b * d_in + 2 * d_in * h + b * h),
-           4 * n * b * d_in * h, f32_peak)
+           4 * n * b * d_in * h, tf32_peak, passes=3)
     rows[-1].update(f32_readings=dict(dx=r1, dw=r2))
+    bounds(4 * n * (2 * b * d_in + 2 * d_in * h + b * h),
+           4 * n * b * d_in * h)
+    split_and_gemm(lambda: gemm.dense_bwd(x, w, g))
     print(f"    host {host_us(lambda: gemm.dense_bwd(x, w, g)):.1f} us a "
           "call", flush=True)
     del x, w, g, dx, dw, pdx, pdw, wt, xt
@@ -1121,10 +1243,23 @@ def smoke_config():
     )
 
 
-def plain_step(model, state, bx, by, bm, lr: float, momentum: float):
+def plain_step(model, state, bx, by, bm, lr: float, momentum: float,
+               f64: bool = False, tf32_k13: bool = False,
+               kernel_fwd: bool = False, record: list | None = None,
+               taken: list | None = None):
     """One SGD step of the FEMNIST CNN through the plain versions of
-    the kernels, by name — the reference the kernel path is held to."""
+    the kernels, by name — the reference the kernel path is held to:
+    (loss, new params, new traces, gradients). ``f64``: the same step
+    with every product and the loss in float64 (the update arithmetic in
+    f32, as the plain K4). ``tf32_k13``: the products that K1 and K3
+    take on the kernel path (the convs' forward, dense1's backward) on
+    operands rounded to TF32, i.e. one TF32 pass. ``kernel_fwd``: the
+    convs' forward through K1's wrapper, as the kernel path computes
+    it. ``record``: a list that gets the forward's decisions in order
+    (each ReLU's mask, each max-pool's argmax); ``taken``: such a list,
+    whose decisions the forward takes instead of its own."""
     import torch
+    import torch.nn.functional as F
 
     from p2pfl_tpu_torch.core.pytree import tree_leaves, tree_unflatten
     from p2pfl_tpu_torch.learning.objectives import cross_entropy_loss
@@ -1132,33 +1267,71 @@ def plain_step(model, state, bx, by, bm, lr: float, momentum: float):
     from p2pfl_tpu_torch.models.cnn import max_pool_2x2, patches
     from p2pfl_tpu_torch.ops import gemm
 
+    def mm(a, b):
+        if f64:
+            return torch.matmul(a.double(), b.double())
+        return torch.matmul(a.float(), b.float())
+
+    def k13(*ts):
+        return tuple(tf32_round(t) for t in ts) if tf32_k13 else ts
+
     class PlainConv(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x, w):
             ctx.save_for_backward(x, w)
-            return gemm.stream_gemm_plain(x, w)
+            if f64:
+                return mm(x, w).to(x.dtype)
+            if kernel_fwd:
+                return gemm.stream_gemm(x.contiguous(), w.contiguous())
+            return gemm.stream_gemm_plain(*k13(x, w))
 
         @staticmethod
         def backward(ctx, g):
             x, w = ctx.saved_tensors
             dx = None
             if ctx.needs_input_grad[0]:
-                dx = torch.matmul(g.float(),
-                                  w.float().transpose(1, 2)).to(x.dtype)
-            return dx, gemm.stream_wgrad_plain(x, g).to(w.dtype)
+                dx = mm(g, w.transpose(1, 2)).to(x.dtype)
+            dw = (mm(x.transpose(1, 2), g) if f64
+                  else gemm.stream_wgrad_plain(x, g))
+            return dx, dw.to(w.dtype)
 
     class PlainDense(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x, w):
             ctx.save_for_backward(x, w)
-            return torch.matmul(x.float(), w.float()).to(x.dtype)
+            return mm(x, w).to(x.dtype)
 
         @staticmethod
         def backward(ctx, g):
             x, w = ctx.saved_tensors
-            return gemm.dense_bwd_plain(x, w, g.to(x.dtype))
+            if f64:
+                return (mm(g, w.transpose(1, 2)).to(x.dtype),
+                        mm(x.transpose(1, 2), g).to(w.dtype))
+            return gemm.dense_bwd_plain(*k13(x, w, g.to(x.dtype)))
 
-    dt = model.dtype
+    dt = torch.float64 if f64 else model.dtype
+    given = iter(taken or ())
+
+    def relu(y):
+        if taken is not None:
+            return y * next(given).to(y.dtype)
+        if record is not None:
+            record.append(y > 0)
+        return torch.relu(y)
+
+    def pool(y):
+        if taken is None:
+            if record is not None:
+                n, b, h, w, c = y.shape
+                record.append(F.max_pool2d(
+                    y.detach().reshape(n * b, h, w, c).permute(0, 3, 1, 2),
+                    2, 2, return_indices=True)[1])
+            return max_pool_2x2(y)
+        idx = next(given)
+        n, b, h, w, c = y.shape
+        t = y.reshape(n * b, h, w, c).permute(0, 3, 1, 2).flatten(2)
+        z = t.gather(2, idx.flatten(2)).view(idx.shape)
+        return z.permute(0, 2, 3, 1).reshape(n, b, h // 2, w // 2, c)
 
     def forward(params, x):
         p = params["params"]
@@ -1172,23 +1345,26 @@ def plain_step(model, state, bx, by, bm, lr: float, momentum: float):
             wf = kern.to(dt).permute(0, 3, 1, 2, 4).reshape(n, c * k * k, f)
             y = PlainConv.apply(patches(x, k), wf).reshape(n, b, h, w, f)
             y = y + node_bias(p[f"Conv_{i}"]["bias"], dt, y.dim())
-            x = max_pool_2x2(torch.relu(y))
+            x = pool(relu(y))
         x = x.reshape(x.shape[0], x.shape[1], -1)
         d0 = p["Dense_0"]
         x = PlainDense.apply(x, d0["kernel"].to(dt))
-        x = torch.relu(x + node_bias(d0["bias"], dt, x.dim()))
-        return dense(x, p["Dense_1"], dt).float()
+        x = relu(x + node_bias(d0["bias"], dt, x.dim()))
+        return dense(x, p["Dense_1"], dt).to(
+            torch.float64 if f64 else torch.float32)
 
-    leaves = [t.detach().requires_grad_(True)
+    leaves = [(t.double() if f64 else t).detach().requires_grad_(True)
               for t in tree_leaves(state.params)]
     params = tree_unflatten(state.params, leaves)
     loss = cross_entropy_loss(forward(params, bx), by, bm)
     grads = torch.autograd.grad(loss.sum(), leaves)
     n = leaves[0].shape[0]
     lrv = torch.full((n,), lr, device=leaves[0].device)
-    new = [gemm.sgd_accum_plain(p.detach(), m, g, lrv, momentum=momentum)
+    new = [gemm.sgd_accum_plain(p.detach(), m, g.to(m.dtype), lrv,
+                                momentum=momentum)
            for p, m, g in zip(leaves, tree_leaves(state.opt_state), grads)]
-    return loss.detach(), [pm[0] for pm in new], [pm[1] for pm in new]
+    return (loss.detach(), [pm[0] for pm in new], [pm[1] for pm in new],
+            list(grads))
 
 
 def end_to_end(dev):
@@ -2028,11 +2204,12 @@ BF16_GEMMS = ("stream_gemm", "stream_wgrad", "dense_bwd")
 
 
 def ring_config(name: str, *, n: int = N_NODES, rounds: int = 3,
-                model: dict | None = None, **training):
+                model: dict | None = None, seed: int = 0, **training):
     """Phase 3's ring (FEMNIST CNN at full width, DFL, FedAvg, bf16
     wire, 750 samples a node, batch 336, 1 epoch a round) with
-    ``model`` and ``training`` overrides; the surrogate sized so that
-    every node gets its 750 samples (``bench.py``'s ``_build``)."""
+    ``model`` and ``training`` overrides, its data and init from
+    ``seed``; the surrogate sized so that every node gets its 750
+    samples (``bench.py``'s ``_build``)."""
     from p2pfl_tpu_torch.config.schema import (
         DataConfig,
         ModelConfig,
@@ -2046,11 +2223,11 @@ def ring_config(name: str, *, n: int = N_NODES, rounds: int = 3,
     return ScenarioConfig(
         name=name, federation="DFL", topology="ring", n_nodes=n,
         data=DataConfig(dataset="femnist", samples_per_node=750,
-                        batch_size=BATCH, seed=0,
+                        batch_size=BATCH, seed=seed,
                         synthetic_train=int(n * 750 / 0.9) + n),
         model=ModelConfig(model="femnist-cnn", **(model or {})),
         training=TrainingConfig(**kw), transport="dense", wire_dtype="bf16",
-        seed=0)
+        seed=seed)
 
 
 def run_arm(tag: str, sc, rounds: int | None = None) -> dict:
@@ -2096,13 +2273,15 @@ def check_step_vs_plain(tag: str, sc, bf16_params: bool) -> dict:
     """One training step from the trained state through the kernels
     (``train_step``) and through the plain versions (``plain_step``).
     f32 params: the loss within 1e-2 (bf16 compute) or 1e-5 (f32
-    compute) relative, each leaf's update within relative L2 5e-2 or
-    1e-4. bf16 params (whose updates are mostly below a bf16 ulp): the
-    loss within 1e-2, the new trace (gradient plus decayed trace) within
-    relative L2 5e-2 a leaf, and every param within one bf16 ulp (of the
-    larger value) plus lr times the most the two unrounded traces can
-    differ by (the stored traces' difference plus one bf16 ulp of the
-    trace): the most two roundings of p - lr m can differ by."""
+    compute) relative; bf16 compute: each leaf's update within relative
+    L2 5e-2 of the plain step's (f32 compute: read here, held leaf by
+    leaf on the gradients by ``check_f32_grads``). bf16 params (whose
+    updates are mostly below a bf16 ulp): the loss within 1e-2, the new
+    trace (gradient plus decayed trace) within relative L2 5e-2 a leaf,
+    and every param within one bf16 ulp (of the larger value) plus lr
+    times the most the two unrounded traces can differ by (the stored
+    traces' difference plus one bf16 ulp of the trace): the most two
+    roundings of p - lr m can differ by."""
     import torch
 
     from p2pfl_tpu_torch.core.pytree import tree_leaves
@@ -2114,10 +2293,10 @@ def check_step_vs_plain(tag: str, sc, bf16_params: bool) -> dict:
     bx, by, bm = x[:, :BATCH], y[:, :BATCH], mask[:, :BATCH]
     k_state, k_loss = sc.fns.train_step(st, bx, by, bm)
     lr = cfg.training.learning_rate
-    p_loss, p_params, p_traces = plain_step(sc.model, st, bx, by, bm, lr,
-                                            cfg.training.momentum)
+    p_loss, p_params, p_traces, _ = plain_step(
+        sc.model, st, bx, by, bm, lr, cfg.training.momentum)
     loss_err = float((k_loss - p_loss).abs().max() / p_loss.abs().max())
-    loss_tol, upd_tol = (1e-5, 1e-4) if f32 else (1e-2, 5e-2)
+    loss_tol, upd_tol = (1e-5, None) if f32 else (1e-2, 5e-2)
     worst, ok = 0.0, loss_err <= loss_tol
     for p0, pk, pp, mk, mp in zip(
             tree_leaves(st.params), tree_leaves(k_state.params), p_params,
@@ -2133,15 +2312,120 @@ def check_step_vs_plain(tag: str, sc, bf16_params: bool) -> dict:
         else:
             uk, up = (pk - p0).float(), (pp - p0).float()
             worst = max(worst, float((uk - up).norm() / up.norm()))
-    ok = ok and worst <= upd_tol
+    if upd_tol is not None:
+        ok = ok and worst <= upd_tol
     what = "trace" if bf16_params else "update"
     extra = "; params within a bf16 ulp + lr |dm|" if bf16_params else ""
+    tol = (f"tol {upd_tol:g}" if upd_tol is not None
+           else "held on the gradients against f64 below")
     print(f"  {tag}: one step kernels vs plain: loss rel err {loss_err:.3g} "
-          f"(tol {loss_tol:g}), {what} rel L2 err {worst:.3g} (tol "
-          f"{upd_tol:g}){extra}", flush=True)
+          f"(tol {loss_tol:g}), {what} rel L2 err {worst:.3g} ({tol})"
+          f"{extra}", flush=True)
     if not ok:
         fail(f"{tag}: kernel step and plain step disagree")
     return dict(loss_rel_err=loss_err, rel_l2_err=worst)
+
+
+def initial_state(sc):
+    """A copy of ``sc``'s training state, kept apart from its run."""
+    import dataclasses
+
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_map
+
+    st = sc.fed.states
+    return dataclasses.replace(st, params=tree_map(torch.clone, st.params))
+
+
+def f32_grad_readings(sc, state, batch: int) -> dict:
+    """One step from ``state`` with a zero trace on batch ``batch``, for
+    the kernel step (its new trace), the plain f32 step and the TF32
+    control: each leaf's gradient of each node against the f64 step that
+    takes the same ReLU and max-pool decisions, in relative L2 (``vs
+    f64``: ``{arm: [leaf][node]}``); the arm's worst leaf against the
+    f64 step with its own decisions (``vs free f64``); and how many
+    decisions the arm took otherwise than that f64 step (``flips``)."""
+    import dataclasses
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+
+    cfg = sc.config
+    zero = dataclasses.replace(state,
+                               opt_state=sc.fns.init_opt_state(state.params))
+    x, y, mask, _ = sc._data_args
+    cut = slice(batch * BATCH, (batch + 1) * BATCH)
+    bx, by, bm = x[:, cut], y[:, cut], mask[:, cut]
+    args = (sc.model, zero, bx, by, bm, cfg.training.learning_rate,
+            cfg.training.momentum)
+
+    def rel(g, r):
+        n = r.shape[0]
+        d = (g.double() - r).reshape(n, -1).norm(dim=1)
+        return (d / r.reshape(n, -1).norm(dim=1)).tolist()
+
+    free = []
+    free_grads = plain_step(*args, f64=True, record=free)[3]
+    k_state, _ = sc.fns.train_step(zero, bx, by, bm)
+    out = {}
+    for arm, kw in (("kernel", dict(kernel_fwd=True)), ("plain_f32", {}),
+                    ("tf32_control", dict(tf32_k13=True))):
+        seen = []
+        grads = plain_step(*args, record=seen, **kw)[3]
+        if arm == "kernel":  # the decisions of its forward through K1
+            grads = tree_leaves(k_state.opt_state)
+        ref = plain_step(*args, f64=True, taken=seen)[3]
+        out[arm] = {
+            "vs f64": [rel(g, r) for g, r in zip(grads, ref)],
+            "vs free f64": max(max(rel(g, r))
+                               for g, r in zip(grads, free_grads)),
+            "flips": sum(int((a != b).sum()) for a, b in zip(seen, free))}
+    return out
+
+
+def check_f32_grads(tag: str, states) -> dict:
+    """f32 compute: ``f32_grad_readings`` at each ``(label, scenario,
+    state)`` of ``states`` and each of the first ``F32_GRAD_BATCHES``
+    batches. Every leaf of every node of the kernel step and of the plain
+    f32 step within ``F32_GRAD_TOL`` of the f64 step through the same
+    decisions; the TF32 control's worst leaf over it at every state and
+    batch."""
+    names = list(FEMNIST_CNN_LEAVES)
+    runs, ok = [], True
+    for label, sc, state in states:
+        for batch in range(F32_GRAD_BATCHES):
+            r = f32_grad_readings(sc, state, batch)
+            worst = {arm: max(max(node) for node in rd["vs f64"])
+                     for arm, rd in r.items()}
+            print(f"    {label}, batch {batch}: worst leaf of any node " +
+                  ", ".join(f"{arm} {worst[arm]:.3g} ({v['flips']} flips, "
+                            f"{v['vs free f64']:.3g} against the free f64)"
+                            for arm, v in r.items()), flush=True)
+            ok = (ok and worst["kernel"] <= F32_GRAD_TOL
+                  and worst["plain_f32"] <= F32_GRAD_TOL
+                  and worst["tf32_control"] > F32_GRAD_TOL)
+            runs.append(dict(state=label, batch=batch, readings=r))
+    per_leaf = {arm: {name: max(max(run["readings"][arm]["vs f64"][i])
+                                for run in runs)
+                      for i, name in enumerate(names)}
+                for arm in runs[0]["readings"]}
+    control_least = min(max(max(v) for v in
+                            run["readings"]["tf32_control"]["vs f64"])
+                        for run in runs)
+    for arm, leaves in per_leaf.items():
+        print(f"  {tag}: {arm} gradient against f64, worst node and state "
+              "a leaf: " + ", ".join(f"{k} {v:.3g}" for k, v in leaves.items()),
+              flush=True)
+    print(f"  {tag}: over {len(runs)} states and batches: kernel worst "
+          f"{max(per_leaf['kernel'].values()):.4g}, plain f32 worst "
+          f"{max(per_leaf['plain_f32'].values()):.4g} (limit "
+          f"{F32_GRAD_TOL:g}); the TF32 control's worst leaf at its least "
+          f"{control_least:.4g} (must exceed the limit)", flush=True)
+    if not ok:
+        fail(f"{tag}: the f32 gradients against f64 break the limit, or "
+             "the TF32 control does not")
+    return dict(runs=runs, per_leaf=per_leaf, control_least=control_least,
+                limit=F32_GRAD_TOL)
 
 
 def headline(dev) -> dict:
@@ -2192,6 +2476,7 @@ def f32_compute(dev) -> dict:
     cfg = ring_config("femnist-cnn-ring-8-f32",
                       model={"compute_dtype": "float32"})
     sc = Scenario(cfg, device=dev)
+    start = initial_state(sc)
     out = run_arm("f32 compute", sc)
     ln = out["launches"]
     check_path("f32 compute", ln, F32_PATH + ("sgd_accum",))
@@ -2202,7 +2487,18 @@ def f32_compute(dev) -> dict:
     if not out["losses"][-1] < out["losses"][0]:
         fail(f"f32 compute: train loss did not fall: {out['losses']}")
     out["step_vs_plain"] = check_step_vs_plain("f32 compute", sc, False)
-    del sc
+    states, rings = [], [sc]
+    for seed in F32_GRAD_SEEDS:
+        if seed:
+            cfg = ring_config(f"femnist-cnn-ring-8-f32-seed{seed}", seed=seed,
+                              model={"compute_dtype": "float32"})
+            rings.append(Scenario(cfg, device=dev))
+            start = initial_state(rings[-1])
+            rings[-1].run(3)
+        states += [(f"seed {seed} initial", rings[-1], start),
+                   (f"seed {seed} trained", rings[-1], rings[-1].fed.states)]
+    out["grads_vs_f64"] = check_f32_grads("f32 compute", states)
+    del sc, rings, states, start
     torch.cuda.empty_cache()
     return out
 
@@ -2495,9 +2791,9 @@ def main(argv: list[str] | None = None) -> int:
         "sgd_accum": "p2pfl_tpu_torch/ops/csrc/sgd.cu",
         "fedavg_accum": "p2pfl_tpu_torch/ops/csrc/sgd_accum.cu",
         "fused_mlp_train_epoch": "p2pfl_tpu_torch/ops/csrc/fused_train.cu",
-        "stream_gemm_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32.cu",
+        "stream_gemm_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32_tc.cu",
         "stream_wgrad_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32.cu",
-        "dense_bwd_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32.cu",
+        "dense_bwd_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32_tc.cu",
         "sgd_accum_bf16": "p2pfl_tpu_torch/ops/csrc/sgd.cu",
         "fused_mlp_train_epoch_bf16":
             "p2pfl_tpu_torch/ops/csrc/fused_train.cu",

@@ -56,7 +56,9 @@ int as_int(int64_t v, const char* name) {
 }
 
 // K1-K3 take bf16 or f32 operands, one dtype a call: the dtype picks
-// the instantiation (the f32 ones are gemm_f32.cu's).
+// the instantiation (the f32 ones are gemm_f32_tc.cu's for K1 and K3,
+// which take scratch for the split small operand, and gemm_f32.cu's for
+// K2).
 at::ScalarType gemm_dtype(const torch::Tensor& x) {
   TORCH_CHECK(x.scalar_type() == at::kBFloat16 ||
                   x.scalar_type() == at::kFloat,
@@ -76,13 +78,17 @@ torch::Tensor stream_gemm(torch::Tensor x, torch::Tensor w) {
   if (out.numel() == 0) return out;
   const int n = as_int(x.size(0), "n"), M = as_int(x.size(1), "M");
   const int K = as_int(x.size(2), "K"), N = as_int(w.size(2), "N");
-  if (dt == at::kFloat)
+  if (dt == at::kFloat) {
+    auto scratch = torch::empty({p2pfl::stream_gemm_f32_scratch(n, K, N)},
+                                x.options());
     p2pfl::launch_stream_gemm_f32(x.data_ptr<float>(), w.data_ptr<float>(),
-                                  out.data_ptr<float>(), n, M, K, N,
+                                  out.data_ptr<float>(),
+                                  scratch.data_ptr<float>(), n, M, K, N,
                                   at::cuda::getCurrentCUDAStream());
-  else
+  } else {
     p2pfl::launch_stream_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(), n,
                               M, K, N, at::cuda::getCurrentCUDAStream());
+  }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -160,17 +166,43 @@ std::vector<torch::Tensor> dense_bwd(torch::Tensor x, torch::Tensor w,
   if (dx.numel() == 0 && dw.numel() == 0) return {dx, dw};
   const int n = as_int(x.size(0), "n"), B = as_int(x.size(1), "B");
   const int D = as_int(x.size(2), "D"), H = as_int(w.size(2), "H");
-  if (dt == at::kFloat)
+  if (dt == at::kFloat) {
+    auto scratch = torch::empty({p2pfl::dense_bwd_f32_scratch(n, B, H)},
+                                x.options());
     p2pfl::launch_dense_bwd_f32(x.data_ptr<float>(), w.data_ptr<float>(),
                                 g.data_ptr<float>(), dx.data_ptr<float>(),
-                                dw.data_ptr<float>(), n, B, D, H,
+                                dw.data_ptr<float>(),
+                                scratch.data_ptr<float>(), n, B, D, H,
                                 at::cuda::getCurrentCUDAStream());
-  else
+  } else {
     p2pfl::launch_dense_bwd(x.data_ptr(), w.data_ptr(), g.data_ptr(),
                             dx.data_ptr(), dw.data_ptr(), n, B, D, H,
                             at::cuda::getCurrentCUDAStream());
+  }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {dx, dw};
+}
+
+// The accumulation probe (gemm_f32_tc.cu): a [64, K] @ bt [64, K]^T,
+// f32 (tf32-valued for exact products), K a multiple of 8; returns
+// (wgmma's sums in one accumulator, one fmaf chain a value).
+std::vector<torch::Tensor> wgmma_acc_probe(torch::Tensor a, torch::Tensor bt) {
+  check(a, "a", at::kFloat, 2);
+  check(bt, "bt", at::kFloat, 2);
+  same_device(a, bt);
+  TORCH_CHECK(a.size(0) == 64 && bt.size(0) == 64 &&
+                  a.size(1) == bt.size(1) && a.size(1) % 8 == 0,
+              msg("wgmma_acc_probe shapes ", a.sizes(), " ", bt.sizes()));
+  const c10::cuda::CUDAGuard guard(a.device());
+  auto d_tc = torch::empty({64, 64}, a.options());
+  auto d_chain = torch::empty({64, 64}, a.options());
+  p2pfl::launch_wgmma_acc_probe(a.data_ptr<float>(), bt.data_ptr<float>(),
+                                d_tc.data_ptr<float>(),
+                                d_chain.data_ptr<float>(),
+                                as_int(a.size(1), "K"),
+                                at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {d_tc, d_chain};
 }
 
 // K4 and K5 over a list of leaves (csrc/multi_tensor.cuh). Each leaf is
@@ -471,6 +503,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stream_gemm", &stream_gemm, "K1: [n,M,K] @ [n,K,N], bf16 or f32");
   m.def("stream_wgrad", &stream_wgrad, "K2: [n,M,K]^T @ [n,M,N] -> f32");
   m.def("dense_bwd", &dense_bwd, "K3: fused dx, dw of y = x @ w");
+  m.def("wgmma_acc_probe", &wgmma_acc_probe,
+        "wgmma tf32 sums in one accumulator against fmaf chains");
   m.def("sgd", &sgd, "K4: SGD-with-momentum step over a list of leaves");
   m.def("sgd_accum", &sgd_accum,
         "K5: K4 plus acc + w * p' over a list of leaves");

@@ -24,11 +24,15 @@
 // its columns of w0 (784 x 32, 100 KB) and b0, the same 32 rows of w1
 // (32 x 128), and their traces; w2, b1 and b2 and their traces (6 KB)
 // are held by every block, which all apply the same update to them.
-// Every output is summed by one thread as an fmaf chain over its whole
-// depth in ascending order, the order of the plain version's f32 GEMMs,
-// so a ReLU sees the plain version's pre-activation wherever the state
-// agrees (a K-split forward sum flipped whole nodes' masks over 19
-// steps). A step is two cluster barriers:
+// Every product's output is summed by one thread as an fmaf chain over
+// its whole depth in ascending order, the order of the plain version's
+// f32 GEMMs (torch.bmm), and the bias gradients and the softmax
+// denominator in torch.sum's orders (batch_sum, class_sum below; all
+// read on the card with a probe kernel), so the epoch gives the
+// plain version's bits on the card and a ReLU never sees another
+// pre-activation (a K-split forward sum flipped whole nodes' masks over
+// 19 steps; sequential bias and softmax sums flipped one node's unit on
+// bf16-valued inputs). A step is two cluster barriers:
 //   - A: h0's own columns = relu(x @ w0s + b0s) as 8 chains a thread
 //     (4 batch rows by 2 columns; 4 warps), over x's 64-column chunks,
 //     copied by 16-byte cp.async with four in flight; the next step's x
@@ -106,6 +110,51 @@ __device__ __forceinline__ void sgd_rn(float& p, float& m, float g, float lr,
                                        float beta) {
   m = __fadd_rn(__fmul_rn(beta, m), g);
   p = __fsub_rn(p, __fmul_rn(lr, m));
+}
+
+// sum over the k < K with k % step == first, in ascending k
+template <typename V>
+__device__ __forceinline__ float strided_sum(V v, int first, int step,
+                                             int K) {
+  float a = 0.f;
+#pragma unroll 1
+  for (int k = first; k < K; k += step) a += v(k);
+  return a;
+}
+
+// sum over b < B of v(b), in torch.sum's order along a dimension that
+// is not the innermost (the plain version's bias gradients): four
+// accumulators, b to accumulator b % 4 in ascending b, then added in
+// order (a probe kernel on the card gave its bits). Each
+// accumulator is summed in turn, which keeps the code as small as one
+// sequential sum's (larger code here slowed the whole epoch).
+template <typename V>
+__device__ __forceinline__ float batch_sum(V v, int B) {
+  float s = strided_sum(v, 0, 4, B);
+#pragma unroll 1
+  for (int r = 1; r < 4; ++r) s += strided_sum(v, r, 4, B);
+  return s;
+}
+
+// sum over k < C of v(k), in torch.sum's order along the innermost
+// dimension at mnist-mlp's 10 classes (the plain version's softmax
+// denominator, read on the card with a probe kernel):
+// four lanes take k % 4 in ascending k, each dealing its values to two
+// accumulators in turn (k % 8 and k % 8 + 4) and adding them, and the
+// lanes meet as (0 + 2) + (1 + 3). Other class counts take the same
+// rule, which the probe has not read.
+template <typename V>
+__device__ __forceinline__ float class_sum(V v, int C) {
+  float even = 0.f, odd = 0.f;
+#pragma unroll 1
+  for (int l = 0; l < 4; ++l) {
+    const float lane = strided_sum(v, l, 8, C) + strided_sum(v, l + 4, 8, C);
+    if (l & 1)
+      odd += lane;
+    else
+      even += lane;
+  }
+  return even + odd;
 }
 
 // ---------------------------------------------------------------------------
@@ -509,8 +558,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       float* row = dl + t * C;
       float zmax = -__int_as_float(0x7f800000);  // -inf
       for (int k = 0; k < C; ++k) zmax = fmaxf(zmax, row[k]);
-      float se = 0.f;
-      for (int k = 0; k < C; ++k) se += expf(row[k] - zmax);
+      const float se =
+          class_sum([&](int k) { return expf(row[k] - zmax); }, C);
       const long long label = static_cast<long long>(y[t]);
       float lpy = 0.f;
       for (int k = 0; k < C; ++k) {
@@ -563,13 +612,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       sgd_rn(w2[e], mw2[e], g, lr, beta);
     }
     for (int k = t; k < C; k += kThreads) {
-      float g = 0.f;
-      for (int b = 0; b < B; ++b) g += dl[b * C + k];
+      const float g = batch_sum([&](int b) { return dl[b * C + k]; }, B);
       sgd_rn(b2[k], mb2[k], g, lr, beta);
     }
     for (int j = t; j < d2; j += kThreads) {
-      float g = 0.f;
-      for (int b = 0; b < B; ++b) g += dh1[b * d2s + j];
+      const float g = batch_sum([&](int b) { return dh1[b * d2s + j]; }, B);
       sgd_rn(b1[j], mb1[j], g, lr, beta);
     }
     // dh0[:, own] = (dh1 @ w1s^T) * (h0 > 0), from the old w1s: rows
@@ -714,8 +761,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
           for (int cc = 0; cc < 2; ++cc) m[ii][cc] = mn[ii][cc];
       }
       for (int c = t; c < n1; c += kThreads) {
-        float g = 0.f;
-        for (int b = 0; b < B; ++b) g += dh0[b * kHS + c];
+        const float g =
+            batch_sum([&](int b) { return dh0[b * kHS + c]; }, B);
         sgd_rn(b0s[c], mb0s[c], g, lr, beta);
       }
     }
@@ -911,8 +958,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
         float* row = dl + static_cast<long long>(b) * C;
         float zmax = -__int_as_float(0x7f800000);  // -inf
         for (int k = 0; k < C; ++k) zmax = fmaxf(zmax, ld(row + k));
-        float se = 0.f;
-        for (int k = 0; k < C; ++k) se += expf(ld(row + k) - zmax);
+        const float se =
+            class_sum([&](int k) { return expf(ld(row + k) - zmax); }, C);
         const long long label = static_cast<long long>(y[b]);
         float lpy = 0.f;
         for (int k = 0; k < C; ++k) {
@@ -946,16 +993,18 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
                        beta);
                  });
     for (int j = t; j < n2; j += kThreads) {  // b1[c2:]: sum_b dh1
-      float g = 0.f;
-      for (int b = 0; b < B; ++b)
-        g += ld(dh1 + static_cast<long long>(b) * d2 + c2 + j);
+      const float g = batch_sum(
+          [&](int b) {
+            return ld(dh1 + static_cast<long long>(b) * d2 + c2 + j);
+          },
+          B);
       sgd(b1, mb1, c2 + j, g, lr, beta);
     }
     if (rank == 0) {
       for (int k = t; k < C; k += kThreads) {  // b2: sum_b dl
-        float g = 0.f;
-        for (int b = 0; b < B; ++b)
-          g += ld(dl + static_cast<long long>(b) * C + k);
+        const float g = batch_sum(
+            [&](int b) { return ld(dl + static_cast<long long>(b) * C + k); },
+            B);
         sgd(b2, mb2, k, g, lr, beta);
       }
     }
@@ -975,9 +1024,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
                        lr, beta);
                  });
     for (int j = t; j < n1; j += kThreads) {  // b0[c1:]: sum_b dh0
-      float g = 0.f;
-      for (int b = 0; b < B; ++b)
-        g += ld(dh0 + static_cast<long long>(b) * d1 + c1 + j);
+      const float g = batch_sum(
+          [&](int b) {
+            return ld(dh0 + static_cast<long long>(b) * d1 + c1 + j);
+          },
+          B);
       sgd(b0, mb0, c1 + j, g, lr, beta);
     }
     cluster_barrier(cluster);

@@ -1,37 +1,34 @@
-// K1, K2 and K3 in float32: the instantiations of
-// p2pfl_tpu/ops/pallas_gemm.py::_stream_gemm (:116, pallas_call :122),
-// ::_stream_wgrad (:171, :177) and ::_dense_bwd (:249, :255) that the
-// JAX package runs when the model computes in float32 (its `_dot` is
-// dtype-generic, :101-112). Exact float32: no TF32, whose three decimal
-// digits the f32 compute arm exists to avoid.
+// K2 in float32: the instantiation of
+// p2pfl_tpu/ops/pallas_gemm.py::_stream_wgrad (:171, pallas_call :177)
+// that the JAX package runs when the model computes in float32 (its
+// `_dot` is dtype-generic, :101-112). Exact float32: no TF32, whose
+// three decimal digits the f32 compute arm exists to avoid. (K1 and K3
+// in float32 live in gemm_f32_tc.cu.)
 //
-//   K1: out[n, M, N] = x[n, M, K] @ w[n, K, N]
 //   K2: out[n, K, N] = x[n, M, K]^T @ g[n, M, N], summed over M
-//   K3: dx[n, B, D] = g @ w^T and dw[n, D, H] = x^T @ g in one launch
 //
-// Bound on an H100 SXM (67 TFLOP/s of float32 outside the tensor cores,
-// 3.35 TB/s), at the f32 arm's ring step (8 nodes x 336 FEMNIST-CNN
-// samples): operations for conv2 (forward and weight gradient, 54 GFLOP
-// over 1.8 GB: 0.80 ms against 0.54 ms of bytes) and dense1's backward
-// (69 GFLOP over 0.5 GB: 1.03 ms); bytes for conv1 (K = 25, N = 32:
-// 3.4 GFLOP over 0.48 GB, 0.14 ms against 0.05 ms).
+// Bound on an H100 SXM at the f32 arm's ring step (8 nodes x 336
+// FEMNIST-CNN samples), as the least time for an f32-accurate product
+// on this card (three TF32 passes at 495 TFLOP/s, or the bytes at
+// 3.35 TB/s): bytes for conv2's weight gradient (54 GFLOP over 1.8 GB:
+// 0.54 ms; exact SIMT FFMA at 67 TFLOP/s would take 0.80 ms) and for
+// conv1's (K = 25, N = 32: 3.4 GFLOP over 0.48 GB, 0.14 ms).
 //
 // Design: the simple one. One routine computes a 64 x 64 output tile of
-// C = A @ B over a range of the contraction, with A and B strided views,
-// so every layout the three kernels need (x, x^T, w, w^T, g, g^T) is a
-// view and no transpose pass touches device memory. 256 threads stage
+// C = A @ B over a range of the contraction, with A and B strided views
+// (A(k, r) = x[r, k], B(r, j) = g[r, j]). 256 threads stage
 // 16-deep tiles of A and B in shared memory (zero outside the operand,
 // so a ragged edge never enters a sum), double-buffered, the next tile's
 // global loads held in registers while the current one is consumed;
 // each thread sums a 4 x 4 block of outputs, every output one fmaf chain
 // in ascending contraction order. Loads are scalar (conv1's 100-byte
 // rows are not 16-byte aligned, so no TMA or vector path is assumed).
-// K2's long contraction is cut into slices by ops/gemm.py::wgrad_plan
+// The long contraction is cut into slices by ops/gemm.py::wgrad_plan
 // (route "f32", a function of the shape alone), each summed by its own
 // blocks, and a second kernel adds the slices' partials in slice order:
 // two runs give the same bits. What this leaves on the table: scalar
-// loads, SIMT FFMA instead of tensor cores (3xTF32 or wgmma on split
-// operands would recover most of the rate; ROADMAP Queue B).
+// loads, SIMT FFMA instead of tensor cores (3xTF32 on wgmma, as
+// gemm_f32_tc.cu does for K1 and K3: ROADMAP Queue B).
 #include "kernels.h"
 
 namespace p2pfl {
@@ -156,8 +153,12 @@ __device__ void gemm_tile(const Problem& pr, int tile, int slice, int z) {
   }
 }
 
-// blockIdx.x: a tile of problem 0, then of problem 1 (K3's dx and dw in
-// one grid); blockIdx.y: the contraction slice; blockIdx.z: the node
+// blockIdx.x: a tile of problem 0, then of problem 1; blockIdx.y: the
+// contraction slice; blockIdx.z: the node. K2 passes an empty problem 1:
+// this is the body that also ran K3's dx and dw in one grid, kept as it
+// was because its one-problem form ran slower at conv2's weight gradient
+// (2.346 -> 2.394 ms, scripts/torch_kernel_ab.py, NVIDIA H100 80GB HBM3,
+// 700 W).
 __global__ void __launch_bounds__(kFThreads)
     gemm_f32_kernel(const Problem p0, const Problem p1) {
   const int t = blockIdx.x;
@@ -209,18 +210,6 @@ void launch(const Problem& p0, const Problem& p1, int slices, int n,
 
 }  // namespace
 
-void launch_stream_gemm_f32(const float* x, const float* w, float* out,
-                            int n, int M, int K, int N, cudaStream_t stream) {
-  const long long MK = static_cast<long long>(M) * K;
-  const long long KN = static_cast<long long>(K) * N;
-  // A(m, k) = x[m, k]; B(k, j) = w[k, j]
-  const Problem p = problem(View{x, K, 1, MK}, View{w, 1, N, KN}, out, N,
-                            static_cast<long long>(M) * N, M, N, K, K);
-  Problem none = p;
-  none.tiles = 0;
-  launch(p, none, 1, n, stream);
-}
-
 void launch_stream_wgrad_f32(const float* x, const float* g, float* partial,
                              float* out, int n, int M, int K, int N,
                              int rows, int slices, cudaStream_t stream) {
@@ -241,21 +230,6 @@ void launch_stream_wgrad_f32(const float* x, const float* g, float* partial,
     slice_sum_f32_kernel<<<blocks, 256, 0, stream>>>(partial, out, slices,
                                                      KN, total);
   }
-}
-
-void launch_dense_bwd_f32(const float* x, const float* w, const float* g,
-                          float* dx, float* dw, int n, int B, int D, int H,
-                          cudaStream_t stream) {
-  const long long BD = static_cast<long long>(B) * D;
-  const long long BH = static_cast<long long>(B) * H;
-  const long long DH = static_cast<long long>(D) * H;
-  // dx: A(b, h) = g[b, h]; B(h, d) = w[d, h]
-  const Problem pdx =
-      problem(View{g, H, 1, BH}, View{w, H, 1, DH}, dx, D, BD, B, D, H, H);
-  // dw: A(d, b) = x[b, d]; B(b, h) = g[b, h]
-  const Problem pdw =
-      problem(View{x, 1, D, BD}, View{g, 1, H, BH}, dw, H, DH, D, H, B, B);
-  launch(pdx, pdw, 1, n, stream);
 }
 
 }  // namespace p2pfl

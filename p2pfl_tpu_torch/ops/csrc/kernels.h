@@ -32,19 +32,32 @@ void launch_dense_bwd(const void* x, const void* w, const void* g,
                       void* dx, void* dw, int n, int B, int D, int H,
                       cudaStream_t stream);
 
-// K1, K2 and K3 in float32 (gemm_f32.cu), the same functions on f32
-// operands and outputs. K2 cuts each node's rows as above, `rows` a
-// multiple of kWgradF32Rows; `partial` holds n * slices * K * N floats
-// when slices > 1.
+// K2 in float32 (gemm_f32.cu), the same function on f32 operands: each
+// node's rows cut as above, `rows` a multiple of kWgradF32Rows;
+// `partial` holds n * slices * K * N floats when slices > 1.
 constexpr int kWgradF32Rows = 16;
-void launch_stream_gemm_f32(const float* x, const float* w, float* out,
-                            int n, int M, int K, int N, cudaStream_t stream);
 void launch_stream_wgrad_f32(const float* x, const float* g, float* partial,
                              float* out, int n, int M, int K, int N,
                              int rows, int slices, cudaStream_t stream);
+
+// K1 and K3 in float32 (gemm_f32_tc.cu): 3xTF32 on wgmma for K > 32,
+// exact FFMA for K1 at K <= 32. `scratch` (16-byte aligned) holds the
+// split small operand: stream_gemm_f32_scratch(n, K, N) floats for K1,
+// dense_bwd_f32_scratch(n, B, H) for K3.
+long long stream_gemm_f32_scratch(int n, int K, int N);
+long long dense_bwd_f32_scratch(int n, int B, int H);
+void launch_stream_gemm_f32(const float* x, const float* w, float* out,
+                            float* scratch, int n, int M, int K, int N,
+                            cudaStream_t stream);
 void launch_dense_bwd_f32(const float* x, const float* w, const float* g,
-                          float* dx, float* dw, int n, int B, int D, int H,
-                          cudaStream_t stream);
+                          float* dx, float* dw, float* scratch, int n, int B,
+                          int D, int H, cudaStream_t stream);
+
+// The accumulation probe of gemm_f32_tc.cu: a [64, K] @ bt [64, K]^T
+// (K a multiple of 8) summed by wgmma m64n64k8 tf32 in one accumulator
+// into d_tc [64, 64], and by one fmaf chain a value into d_chain.
+void launch_wgmma_acc_probe(const float* a, const float* bt, float* d_tc,
+                            float* d_chain, int K, cudaStream_t stream);
 
 // One leaf of a K4/K5 launch: a parameter stacked over n slots (nodes
 // or cohort slots), [n, numel] contiguous. Operands a form does not use

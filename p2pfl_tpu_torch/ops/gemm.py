@@ -23,10 +23,14 @@ FEMNIST-CNN rounds run:
   ``fedavg_accum``.
 
 K1-K3 run in the operands' dtype: bf16 (the kernels above) or float32
-(``csrc/gemm_f32.cu``, exact f32 SIMT tiles, the model's
-``compute_dtype`` float32), with f32 sums either way; the launches of
-the f32 instantiations count under their own keys (``stream_gemm_f32``
-...). K4 and K5 take f32 or bf16 params and traces; of K4's launches
+(the model's ``compute_dtype`` float32), with f32 sums either way. In
+float32, K1 and K3 (``csrc/gemm_f32_tc.cu``) take 3xTF32 on ``wgmma``
+(each operand split into two TF32 halves, three products, every 32-deep
+block's sum added to the total in round-to-nearest f32) and K1 at a
+depth of 32 or less exact f32 FMA chains; K2 (``csrc/gemm_f32.cu``)
+exact f32 SIMT tiles. The launches of the f32 instantiations count
+under their own keys (``stream_gemm_f32`` ...). K4 and K5 take f32 or
+bf16 params and traces; of K4's launches
 (``sgd_accum``), those with bf16 params are counted again under
 ``sgd_accum_bf16``.
 
@@ -110,8 +114,8 @@ def stream_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def stream_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K1 (``csrc/stream_gemm.cu``; f32: ``csrc/gemm_f32.cu``): ``[n,M,K]
-    @ [n,K,N]`` in x's dtype, bf16 or f32."""
+    """K1 (``csrc/stream_gemm.cu``; f32: ``csrc/gemm_f32_tc.cu``):
+    ``[n,M,K] @ [n,K,N]`` in x's dtype, bf16 or f32."""
     if _on_cpu(x, w):
         return stream_gemm_plain(x, w)
     out = _build.kernels().stream_gemm(x, w)
@@ -210,8 +214,8 @@ def dense_bwd_plain(x: torch.Tensor, w: torch.Tensor,
 
 def dense_bwd(x: torch.Tensor, w: torch.Tensor,
               g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3 (``csrc/dense_bwd.cu``; f32: ``csrc/gemm_f32.cu``): dx and dw
-    from one launch."""
+    """K3 (``csrc/dense_bwd.cu``; f32: ``csrc/gemm_f32_tc.cu``): dx and
+    dw from one launch."""
     if _on_cpu(x, w, g):
         return dense_bwd_plain(x, w, g)
     dx, dw = _build.kernels().dense_bwd(x, w, g)

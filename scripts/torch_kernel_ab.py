@@ -1,0 +1,76 @@
+"""The f32 GEMM kernels and K6 timed in several checkouts, in turns.
+
+    python scripts/torch_kernel_ab.py TREE [TREE ...]
+
+Needs a CUDA card. Each TREE is the root of a checkout of this
+repository (e.g. the parent commit unpacked with ``git archive`` into a
+git-ignored directory, and ``.``); list them in the order to run, e.g.
+``parent . . parent``. Each runs in a process of its own, which builds
+that tree's kernels (into its own ``p2pfl_tpu_torch/ops/_build/``) and
+prints the mean time a call by CUDA events (``chip_smoke.time_ms``) of:
+
+- K1 ``stream_gemm`` in f32 at the ring's conv1 and conv2 forward
+  (8 nodes x 336 FEMNIST-CNN samples: M = 263,424 x K = 25 x N = 32 and
+  65,856 x 800 x 64), K2 ``stream_wgrad`` in f32 at conv2's weight
+  gradient, K3 ``dense_bwd`` in f32 at dense1 (B = 336, D = 3136,
+  H = 2048), seeded normal inputs;
+- K6 ``fused_mlp_train_epoch`` at ``chip_smoke.py``'s headline (64
+  mnist-mlp nodes, 784-256-128-10, 19 steps of 32, lr 0.05), with f32
+  state and inputs and with them rounded to bf16 (10 calls each).
+"""
+
+from __future__ import annotations
+
+import pathlib
+import subprocess
+import sys
+
+CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from p2pfl_tpu_torch.ops import _build, fused_train, gemm
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+_build.kernels()
+gen = torch.Generator(device=dev).manual_seed(0)
+rand = lambda *s: torch.randn(s, generator=gen, device=dev)
+n, b = cs.N_NODES, cs.BATCH
+out = []
+for tag, (m, k, nn) in (("K1 conv1", (b * 784, 25, 32)),
+                        ("K1 conv2", (b * 196, 800, 64))):
+    x, w = rand(n, m, k), rand(n, k, nn)
+    out.append(f"{tag} {cs.time_ms(lambda: gemm.stream_gemm(x, w)):.4f}")
+    del x, w
+x, g = rand(n, b * 196, 800), rand(n, b * 196, 64)
+out.append(f"K2 conv2 {cs.time_ms(lambda: gemm.stream_wgrad(x, g)):.4f}")
+del x, g
+x, w, g = rand(n, b, 3136), rand(n, 3136, 2048), rand(n, b, 2048)
+out.append(f"K3 dense1 {cs.time_ms(lambda: gemm.dense_bwd(x, w, g)):.4f}")
+del x, w, g
+torch.cuda.empty_cache()
+params, mom, bx, by = cs.mlp_epoch_inputs(dev)
+bf = lambda ts: tuple(t.to(torch.bfloat16) for t in ts)
+for tag, p, m, x in (("K6 f32", params, mom, bx),
+                     ("K6 bf16", bf(params), bf(mom), bx.to(torch.bfloat16))):
+    ms = cs.time_ms(lambda: fused_train.fused_mlp_train_epoch(
+        p, m, x, by, cs.MLP_LR, 0.9, batch_size=cs.MLP_BATCH), reps=10)
+    out.append(f"{tag} {ms:.4f}")
+print(sys.argv[1] + " (ms): " + ", ".join(out), flush=True)
+"""
+
+
+def main(trees: list[str]) -> int:
+    if not trees:
+        raise SystemExit(__doc__)
+    for tree in trees:
+        root = pathlib.Path(tree).resolve()
+        subprocess.run([sys.executable, "-c", CHILD, str(root)], check=True,
+                       cwd=root)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
