@@ -28,6 +28,9 @@ one, or when run outside a checkout of this repository). Phases:
    kernel's own device time from a profiled run (K2's beside
    ``torch.bmm``'s). K6 prints its instantiation (on chip or
    L2-resident), the clusters the card holds at once and its waves.
+   K2 in bf16 (exact products, f32 sums) is held to the f32 limits
+   below, with the sum missing its plan's first slice and the plain
+   version rounded to bf16 as the controls that must fail them.
    The dtype variants: K1, K2 and K3 in f32 (K1 and K3
    ``csrc/gemm_f32_tc.cu``, 3xTF32 on ``wgmma``; K2 ``csrc/gemm_f32.cu``)
    at the ring's shapes, held to relative L2 and elementwise limits that
@@ -131,10 +134,39 @@ one, or when run outside a checkout of this repository). Phases:
       defaults, 5 rounds each: K4 once a step, the test objective
       falling, accuracy 0.0 for the two objectives that have none;
    e. 5 epochs of K6 with bf16 state at phase 5's shape.
-9. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
+9. The CIFAR10 ResNets and MobileNets (``cifar_models``); every arm
+   zeroes the launch counts before it runs and reads them after:
+   a. ``bench.py``'s ``_cifar16`` (``BASELINE.json`` configs[2]):
+      ResNet9 at full width, 16 nodes, random topology, Dirichlet(0.5)
+      shards of the easy CIFAR10 surrogate, 1024 samples a node, batch
+      128, lr 0.1, seed 3, for the JAX bench's 32 rounds (a warm-up
+      round, then 31, evaluated every 8): s/round, train loss per round
+      (it must fall from the first measured round to the last), the
+      mean test accuracy (above ``CIFAR_ACC_GATE`` by round 32),
+      training peak memory; K1 and K2 only at the stem's K = 27, N = 64
+      (K1 once a step plus the evaluations' batches, K2 once a step), K4
+      once a step; one step against the plain versions within phase 3's
+      limits and twice bit for bit; 2 rounds each with cuDNN's
+      deterministic algorithms off and on; one profiled training round
+      by kernel bucket (cuDNN convs, GroupNorm's reductions and
+      elementwise passes, copies, K1, K2, K4);
+   b. resnet18, resnet34, resnet50, fastermobilenet and simplemobilenet
+      at full width, cut to 4 nodes and 10 rounds at lr 1e-3 (the deeper
+      ResNets' loss rises at 0.1, in JAX too): the loss falling from the
+      first round to the last, K4 ``ceil(leaves / 48)`` launches a
+      step, no K1-K3, one step against the plain versions and twice bit
+      for bit;
+   c. a's ResNet9 in f32 compute, one round: ``Scenario`` turns cuDNN's
+      TF32 off (and determinism on) after the script turned them the
+      other way; only the f32 K1 and K2 launch, at the stem.
+   Phase 2 holds K1 and K2 at the stem's shape too (16 nodes x 131,072
+   rows, K = 27, N = 64, bf16 and f32), and K4 over ResNet9's 26 leaves
+   at 16 nodes and ResNet50's 161 at 4 (one launch and four), bit for
+   bit against the list plain version.
+10. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
    dtype variants) and, last, ``{"ok": true, "device": {...}}``. With
    ``--out DIR`` the per-instance kernel numbers, the profiles and
-   phases 7's and 8's numbers are also written there as JSON.
+   phases 7's, 8's and 9's numbers are also written there as JSON.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -174,6 +206,14 @@ K6_FLIP_FRACTION, K6_FLIP_ATOL, K6_FLIP_REL_L2 = 1e-3, 1e-2, 5e-3
 # plain version's orders (torch.bmm's and torch.sum's, read on the card
 # with a probe kernel), so no node may leave the flip bounds
 K6_FLIP_NODES = 0
+# the ResNet9 stem's K1 and K2 problem at phase 9's step: 16 nodes x 128
+# CIFAR10 images of 32 x 32 rows, contraction 27, 64 filters
+STEM = (16, 128 * 32 * 32, 27, 64)
+# the leaf lists phase 2 holds K4 to, as phase 9 steps them: (model,
+# nodes); 26 leaves (one launch) and 161 (four)
+K4_MODEL_LISTS = (("resnet9", 16), ("resnet50", 4))
+# K4 takes at most this many leaves a launch (``csrc/kernels.h``)
+K4_LEAVES_A_LAUNCH = 48
 FEMNIST_CNN_LEAVES = {
     "Conv_0.kernel": (5, 5, 1, 32), "Conv_0.bias": (32,),
     "Conv_1.kernel": (5, 5, 32, 64), "Conv_1.bias": (64,),
@@ -288,12 +328,15 @@ def kernel_checks(dev, peak) -> dict:
         return dt / calls * 1e6
 
     # K1 stream_gemm: bf16 out, one bf16 ulp of an f32 sum; two runs
-    # give the same bits
+    # give the same bits. The ring's conv1 and conv2 (the instances the
+    # kernels line sums) and the ResNet9 stem at phase 9's step
     k1_tol = dict(rtol=2.0 ** -7, atol=1e-2)
-    for inst, (m, k, nn_), on_path in [("conv1_fwd", (m1, 25, 32), True),
-                                       ("conv1_dgrad", (m1, 32, 25), False),
-                                       ("conv2_fwd", (m2, 800, 64), True)]:
-        x, w = rand(n, m, k), rand(n, k, nn_)
+    for inst, (nk, m, k, nn_), on_path, summed in [
+            ("conv1_fwd", (n, m1, 25, 32), True, True),
+            ("conv1_dgrad", (n, m1, 32, 25), False, True),
+            ("conv2_fwd", (n, m2, 800, 64), True, True),
+            ("resnet9_stem_fwd", STEM, True, False)]:
+        x, w = rand(nk, m, k), rand(nk, k, nn_)
         got = gemm.stream_gemm(x, w)
         same_bits(f"stream_gemm {inst}", lambda: gemm.stream_gemm(x, w))
         err, ok = within(got, gemm.stream_gemm_plain(x, w), **k1_tol)
@@ -301,38 +344,45 @@ def kernel_checks(dev, peak) -> dict:
                time_ms(lambda: gemm.stream_gemm(x, w)),
                time_ms(lambda: gemm.stream_gemm_plain(x, w)),
                time_ms(lambda: torch.bmm(x, w)),
-               2 * n * (m * k + k * nn_ + m * nn_), 2 * n * m * k * nn_,
-               bf16_peak, on_path)
+               2 * nk * (m * k + k * nn_ + m * nn_), 2 * nk * m * k * nn_,
+               bf16_peak, on_path, summed)
         print(f"    host {host_us(lambda: gemm.stream_gemm(x, w)):.1f} us "
               "a call", flush=True)
         del x, w, got
 
-    # K2 stream_wgrad: f32 sums over M rows in another order. conv1 and
+    # K2 stream_wgrad: f32 sums of exact bf16 products over M rows in
+    # another order, so held to the f32 rows' limits (``f32_check``:
+    # relative L2 and each element scaled by its products' root sum of
+    # squares, with the sum missing its plan's first slice and the
+    # output rounded to bf16 as controls that must fail them). conv1 and
     # conv2 at the ring step (the instances the kernels line sums), the
-    # cross-device cohort step (8 slots x 20) and the Byzantine step (16
-    # nodes x 64), each with its slice plan, the host's time to enqueue
-    # a call and its profiled device time beside torch.bmm's
-    k2_tol = dict(rtol=1e-4, atol=1e-2)
+    # cross-device cohort step (8 slots x 20), the Byzantine step (16
+    # nodes x 64) and the ResNet9 stem at phase 9's step (16 nodes x 128
+    # CIFAR10 images), each with its slice plan, the host's time to
+    # enqueue a call and its profiled device time beside torch.bmm's
     for inst, (nk, m, k, nn_), summed in [
             ("conv1_wgrad", (n, m1, 25, 32), True),
             ("conv2_wgrad", (n, m2, 800, 64), True),
             ("crossdev_conv1_wgrad", (8, 20 * 784, 25, 32), False),
             ("crossdev_conv2_wgrad", (8, 20 * 196, 800, 64), False),
             ("byzantine_conv1_wgrad", (16, 64 * 784, 25, 32), False),
-            ("byzantine_conv2_wgrad", (16, 64 * 196, 800, 64), False)]:
+            ("byzantine_conv2_wgrad", (16, 64 * 196, 800, 64), False),
+            ("resnet9_stem_wgrad", STEM, False)]:
         x, g = rand(nk, m, k), rand(nk, m, nn_)
         got = gemm.stream_wgrad(x, g)
         same_bits(f"stream_wgrad {inst}", lambda: gemm.stream_wgrad(x, g))
-        err, ok = within(got, gemm.stream_wgrad_plain(x, g), **k2_tol)
         xt = x.transpose(1, 2)
         plan = gemm.wgrad_plan(nk, m, k, nn_)
-        record("stream_wgrad", inst, err, ok, k2_tol,
+        err, ok, readings = f32_check(f"stream_wgrad bf16 {inst}", got,
+                                      gemm.stream_wgrad_plain(x, g), xt, g,
+                                      plan.rows)
+        record("stream_wgrad", inst, err, ok, F32_TOL,
                time_ms(lambda: gemm.stream_wgrad(x, g)),
                time_ms(lambda: gemm.stream_wgrad_plain(x, g)),
                time_ms(lambda: torch.bmm(xt, g)),
                2 * nk * (m * k + m * nn_) + 4 * nk * k * nn_,
                2 * nk * m * k * nn_, bf16_peak, summed=summed)
-        rows[-1].update(plan=plan._asdict())
+        rows[-1].update(plan=plan._asdict(), f32_readings=readings)
         print(f"    plan: {plan.route} route, {plan.slices} slices of "
               f"{plan.rows} rows a node, {plan.tiles} tiles a slice, "
               f"{nk * plan.slices * plan.tiles} blocks", flush=True)
@@ -574,6 +624,8 @@ def kernel_checks(dev, peak) -> dict:
     del params, mom, bx, by, got, wide, plain19, f64, bf, bm, bbx
     torch.cuda.empty_cache()
 
+    k4_model_lists(rows, record, same_bits, rand, f32_peak)
+
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail("kernels outside tolerance: " + ", ".join(
@@ -717,6 +769,71 @@ def step_checks(rows, record, same_bits, rand, lr, w, f32_peak) -> None:
         torch.cuda.empty_cache()
 
 
+def k4_model_lists(rows, record, same_bits, rand, f32_peak) -> None:
+    """K4 over the leaf lists of ``K4_MODEL_LISTS`` (the models' own
+    trees, flattened as the learner flattens them, stacked over the
+    nodes phase 9 runs): one call over every leaf, f32 params, gradients
+    and trace, lr 0.1 with every other node gated off. It must give the
+    list plain version's bits, leave the gated nodes' params bit for bit,
+    launch ``ceil(leaves / 48)`` times and give the same bits twice; a
+    leaf misplaced or dropped at a chunk boundary breaks the bits."""
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+    from p2pfl_tpu_torch.models.base import get_model
+    from p2pfl_tpu_torch.ops import gemm
+
+    for model, n in K4_MODEL_LISTS:
+        tree = get_model(model).init(torch.Generator().manual_seed(0),
+                                     torch.zeros(1, 32, 32, 3))
+        shapes = [tuple(t.shape) for t in tree_leaves(tree["params"])]
+        del tree
+        ps, gs, ms = ([rand(n, *s, dtype=torch.float32) for s in shapes]
+                      for _ in range(3))
+        lr = torch.tensor([0.1, 0.0] * (n // 2), device=ps[0].device)
+        off = lr == 0
+        name = f"sgd_accum {model} {len(shapes)} leaves x {n} nodes"
+
+        def kern():
+            return gemm.sgd_accum_many(ps, ms, gs, lr, momentum=0.9)
+
+        def plain():
+            return gemm.sgd_accum_many_plain(ps, ms, gs, lr, momentum=0.9)
+
+        want = -(-len(shapes) // K4_LEAVES_A_LAUNCH)
+        before = gemm.launches["sgd_accum"]
+        got = kern()
+        torch.cuda.synchronize()
+        launched = gemm.launches["sgd_accum"] - before
+        ref = plain()
+        exact = all(a.dtype == b.dtype and torch.equal(a, b)
+                    for g, r in zip(got, ref) for a, b in zip(g, r))
+        gated = all(torch.equal(kp[off], p[off])
+                    for kp, p in zip(got[0], ps))
+        print(f"  {name}: {launched} launches (want {want}); the list plain "
+              f"version's bits {exact}; gated nodes' params kept {gated}",
+              flush=True)
+        if launched != want or not exact or not gated:
+            fail(f"{name}: {launched} launches, bits {exact}, gate {gated}")
+        same_bits(name, lambda: tuple(t for o in kern() for t in o))
+        del got, ref
+        cp, cg, cm = ([t.clone() for t in x] for x in (ps, gs, ms))
+
+        def lib_fn():
+            torch._fused_sgd_(cp, cg, cm, weight_decay=0.0, momentum=0.9,
+                              lr=0.1, dampening=0.0, nesterov=False,
+                              maximize=False, is_first_step=False)
+
+        values = n * sum(math.prod(s) for s in shapes)
+        record("sgd_accum", f"{model}_{len(shapes)}_leaves", 0.0, True,
+               "same bits", time_ms(kern, reps=10), time_ms(plain, reps=10),
+               time_ms(lib_fn, reps=10), values * 20, 4 * values, f32_peak,
+               summed=False)
+        rows[-1].update(leaves=len(shapes), nodes=n, launches_a_call=launched)
+        del ps, gs, ms, cp, cg, cm
+        torch.cuda.empty_cache()
+
+
 # the f32 instantiations of K1-K3 against their plain versions
 # (torch.matmul in f32, TF32 off). Two f32 sums of the same L products
 # in other orders differ by about u sqrt(L) relative (u = 2**-24, the
@@ -771,15 +888,20 @@ def tf32_round(t):
 
 
 def f32_check(tag, got, want, a, b, drop: int) -> tuple[float, bool, dict]:
-    """One f32 K1-K3 output against its plain version ``want = a @ b``
-    under the F32 limits, and the two controls, which must fail them:
-    (max |got - want|, ok, the readings). Read too, not gated: the
-    output and the plain version each against the product in f64."""
+    """One f32 output of K1-K3 against its plain version ``want = a @ b``
+    under the F32 limits, and the controls, which must fail them: (max
+    |got - want|, ok, the readings). Read too, not gated: the output and
+    the plain version each against the product in f64. With bf16 ``a``
+    and ``b`` (K2's bf16 instantiation: exact products, f32 sums) the
+    TF32 controls are void, since TF32 holds bf16 values exactly; the
+    plain version rounded to bf16 takes their place."""
     import torch
 
     def passes(r):
         return r[0] <= F32_REL_C and r[1] <= F32_ELEM_C
 
+    bf16_in = a.dtype == torch.bfloat16
+    a, b = a.float(), b.float()
     reading = f32_reading(got, want, a, b)
     exact = torch.matmul(a.double(), b.double())
     vs_f64 = dict(kernel=f32_reading(got, exact, a, b),
@@ -787,19 +909,26 @@ def f32_check(tag, got, want, a, b, drop: int) -> tuple[float, bool, dict]:
     del exact
     cut = a.clone()
     cut[..., :drop] = 0
-    mm = torch.backends.cuda.matmul  # TF32 off here (``main``)
-    f32_bmm = torch.bmm(a, b)
-    mm.allow_tf32 = True
-    try:
-        tf32_bmm = torch.bmm(a, b)
-    finally:
-        mm.allow_tf32 = False
-    on_tf32 = not torch.equal(tf32_bmm, f32_bmm)
     controls = dict(
-        drop_one_slice=f32_reading(torch.matmul(cut, b), want, a, b),
-        tf32_rounded=f32_reading(torch.matmul(tf32_round(a), tf32_round(b)),
-                                 want, a, b),
-        bmm_tf32=f32_reading(tf32_bmm, want, a, b))
+        drop_one_slice=f32_reading(torch.matmul(cut, b), want, a, b))
+    del cut
+    on_tf32 = False
+    if bf16_in:
+        controls["bf16_out"] = f32_reading(
+            want.to(torch.bfloat16).float(), want, a, b)
+    else:
+        mm = torch.backends.cuda.matmul  # TF32 off here (``main``)
+        f32_bmm = torch.bmm(a, b)
+        mm.allow_tf32 = True
+        try:
+            tf32_bmm = torch.bmm(a, b)
+        finally:
+            mm.allow_tf32 = False
+        on_tf32 = not torch.equal(tf32_bmm, f32_bmm)
+        controls.update(
+            tf32_rounded=f32_reading(
+                torch.matmul(tf32_round(a), tf32_round(b)), want, a, b),
+            bmm_tf32=f32_reading(tf32_bmm, want, a, b))
     print(f"    {tag}: rel L2 {reading[0]:.4g} u sqrt(L) (limit "
           f"{F32_REL_C:g}), largest element {reading[1]:.4g} (limit "
           f"{F32_ELEM_C:g}); controls " + ", ".join(
@@ -807,11 +936,10 @@ def f32_check(tag, got, want, a, b, drop: int) -> tuple[float, bool, dict]:
           + f" (torch.bmm ran TF32: {on_tf32}); against the f64 product "
           + ", ".join(f"{k} {v[0]:.4g} / {v[1]:.4g}"
                       for k, v in vs_f64.items()), flush=True)
-    gated = ["drop_one_slice", "tf32_rounded"] + (
-        ["bmm_tf32"] if on_tf32 else [])
+    gated = [k for k in controls if k != "bmm_tf32" or on_tf32]
     passing = [k for k in gated if passes(controls[k])]
     if passing:
-        fail(f"f32 {tag}: the controls {passing} pass the F32 limits")
+        fail(f"{tag}: the controls {passing} pass the F32 limits")
     readings = dict(rel_l2_units=reading[0], elem_units=reading[1],
                     bmm_ran_tf32=on_tf32,
                     **{f"{k}_units": v for k, v in controls.items()},
@@ -903,23 +1031,25 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
               f"{r['ms'] / r['library_ms']:.3f}", flush=True)
 
     f32 = torch.float32
-    for inst, (m, k, nn_), on_path in [("conv1_fwd", (m1, 25, 32), True),
-                                       ("conv1_dgrad", (m1, 32, 25), False),
-                                       ("conv2_fwd", (m2, 800, 64), True)]:
-        x, w = rand(n, m, k, dtype=f32), rand(n, k, nn_, dtype=f32)
+    for inst, (nk, m, k, nn_), on_path, summed in [
+            ("conv1_fwd", (n, m1, 25, 32), True, True),
+            ("conv1_dgrad", (n, m1, 32, 25), False, True),
+            ("conv2_fwd", (n, m2, 800, 64), True, True),
+            ("resnet9_stem_fwd", STEM, True, False)]:
+        x, w = rand(nk, m, k, dtype=f32), rand(nk, k, nn_, dtype=f32)
         got = gemm.stream_gemm(x, w)
         same_bits(f"stream_gemm f32 {inst}", lambda: gemm.stream_gemm(x, w))
-        err, ok, readings = f32_check(f"stream_gemm {inst}", got,
+        err, ok, readings = f32_check(f"stream_gemm f32 {inst}", got,
                                       gemm.stream_gemm_plain(x, w), x, w,
                                       F32_TILE_K)
         record("stream_gemm_f32", inst, err, ok, F32_TOL,
                time_ms(lambda: gemm.stream_gemm(x, w)),
                time_ms(lambda: gemm.stream_gemm_plain(x, w)),
                time_ms(lambda: torch.bmm(x, w)),
-               4 * n * (m * k + k * nn_ + m * nn_), 2 * n * m * k * nn_,
-               tf32_peak, on_path, passes=3)
+               4 * nk * (m * k + k * nn_ + m * nn_), 2 * nk * m * k * nn_,
+               tf32_peak, on_path, summed, passes=3)
         rows[-1].update(f32_readings=readings)
-        bounds(4 * n * (m * k + k * nn_ + m * nn_), 2 * n * m * k * nn_)
+        bounds(4 * nk * (m * k + k * nn_ + m * nn_), 2 * nk * m * k * nn_)
         if k > 32:
             split_and_gemm(lambda: gemm.stream_gemm(x, w))
         print(f"    host {host_us(lambda: gemm.stream_gemm(x, w)):.1f} us "
@@ -927,29 +1057,31 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
         del x, w, got
     torch.cuda.empty_cache()
 
-    for inst, (m, k, nn_) in [("conv1_wgrad", (m1, 25, 32)),
-                              ("conv2_wgrad", (m2, 800, 64))]:
-        x, g = rand(n, m, k, dtype=f32), rand(n, m, nn_, dtype=f32)
+    for inst, (nk, m, k, nn_), summed in [
+            ("conv1_wgrad", (n, m1, 25, 32), True),
+            ("conv2_wgrad", (n, m2, 800, 64), True),
+            ("resnet9_stem_wgrad", STEM, False)]:
+        x, g = rand(nk, m, k, dtype=f32), rand(nk, m, nn_, dtype=f32)
         got = gemm.stream_wgrad(x, g)
         same_bits(f"stream_wgrad f32 {inst}",
                   lambda: gemm.stream_wgrad(x, g))
         xt = x.transpose(1, 2)
-        plan = gemm.wgrad_plan(n, m, k, nn_, "f32")
-        err, ok, readings = f32_check(f"stream_wgrad {inst}", got,
+        plan = gemm.wgrad_plan(nk, m, k, nn_, "f32")
+        err, ok, readings = f32_check(f"stream_wgrad f32 {inst}", got,
                                       gemm.stream_wgrad_plain(x, g), xt, g,
                                       plan.rows)
         record("stream_wgrad_f32", inst, err, ok, F32_TOL,
                time_ms(lambda: gemm.stream_wgrad(x, g)),
                time_ms(lambda: gemm.stream_wgrad_plain(x, g)),
                time_ms(lambda: torch.bmm(xt, g)),
-               4 * n * (m * k + m * nn_) + 4 * n * k * nn_,
-               2 * n * m * k * nn_, tf32_peak, passes=3)
+               4 * nk * (m * k + m * nn_) + 4 * nk * k * nn_,
+               2 * nk * m * k * nn_, tf32_peak, summed=summed, passes=3)
         rows[-1].update(plan=plan._asdict(), f32_readings=readings)
-        bounds(4 * n * (m * k + m * nn_) + 4 * n * k * nn_,
-               2 * n * m * k * nn_)
+        bounds(4 * nk * (m * k + m * nn_) + 4 * nk * k * nn_,
+               2 * nk * m * k * nn_)
         print(f"    plan: {plan.route} route, {plan.slices} slices of "
               f"{plan.rows} rows a node, {plan.tiles} tiles a slice, "
-              f"{n * plan.slices * plan.tiles} blocks", flush=True)
+              f"{nk * plan.slices * plan.tiles} blocks", flush=True)
         host_device(rows, lambda: gemm.stream_wgrad(x, g), "f32",
                     lib_fn=lambda: torch.bmm(xt, g))
         del x, g, got, xt
@@ -962,8 +1094,8 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
     same_bits("dense_bwd f32", lambda: gemm.dense_bwd(x, w, g))
     pdx, pdw = gemm.dense_bwd_plain(x, w, g)
     wt, xt = w.transpose(1, 2), x.transpose(1, 2)
-    e1, ok1, r1 = f32_check("dense_bwd dx", dx, pdx, g, wt, F32_TILE_K)
-    e2, ok2, r2 = f32_check("dense_bwd dw", dw, pdw, xt, g, F32_TILE_K)
+    e1, ok1, r1 = f32_check("dense_bwd f32 dx", dx, pdx, g, wt, F32_TILE_K)
+    e2, ok2, r2 = f32_check("dense_bwd f32 dw", dw, pdw, xt, g, F32_TILE_K)
     record("dense_bwd_f32", "dense1_bwd", max(e1, e2), ok1 and ok2, F32_TOL,
            time_ms(lambda: gemm.dense_bwd(x, w, g)),
            time_ms(lambda: gemm.dense_bwd_plain(x, w, g)),
@@ -1247,9 +1379,11 @@ def plain_step(model, state, bx, by, bm, lr: float, momentum: float,
                f64: bool = False, tf32_k13: bool = False,
                kernel_fwd: bool = False, record: list | None = None,
                taken: list | None = None):
-    """One SGD step of the FEMNIST CNN through the plain versions of
-    the kernels, by name — the reference the kernel path is held to:
-    (loss, new params, new traces, gradients). ``f64``: the same step
+    """One SGD step of the FEMNIST CNN written out through the plain
+    versions of the kernels, for ``check_f32_grads``'s replays (the
+    kernel step's own check, ``check_step_vs_plain``, runs the model's
+    step inside ``PlainVersions``): (loss, new params, new traces,
+    gradients). ``f64``: the same step
     with every product and the loss in float64 (the update arithmetic in
     f32, as the plain K4). ``tf32_k13``: the products that K1 and K3
     take on the kernel path (the convs' forward, dense1's backward) on
@@ -1426,10 +1560,12 @@ def check_k4_per_step(sc, launches, rounds: int) -> None:
 
 def profile_round(run, out: pathlib.Path | None,
                   name: str = "chip_smoke_profile",
-                  what: str = "round + evaluation") -> None:
+                  what: str = "round + evaluation"):
     """``run()`` (one more round) under ``torch.profiler``: device time
     by operation and the device's busy share of the wall time (the
-    profiler's own cost inflates the wall)."""
+    profiler's own cost inflates the wall). Returns ``wall_ms``,
+    ``busy_ms`` (the union of the kernels' spans), ``kernel_ms`` (their
+    times summed) and ``ops`` (``(kernel, ms, count)`` by time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1451,13 +1587,26 @@ def profile_round(run, out: pathlib.Path | None,
                   and e.self_device_time_total > 0 and e.key not in cupti),
                  key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in ops)
+    # kernels on several streams overlap (cuDNN runs a grouped conv's
+    # groups side by side): the busy time is the union of their spans
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name not in cupti)
+    union, end = 0.0, -math.inf
+    for a, b in spans:
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    union /= 1e3
     print(f"  profiled {what}: {wall_ms:.1f} ms wall, device "
-          f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)", flush=True)
+          f"busy {union:.1f} ms ({100 * union / wall_ms:.1f}%; kernel "
+          f"time summed over streams {busy:.1f} ms)", flush=True)
     for op, ms, count in ops[:15]:
         print(f"    {ms:9.3f} ms {count:6d}x  {op[:90]}", flush=True)
+    res = dict(wall_ms=wall_ms, busy_ms=union, kernel_ms=busy, ops=ops)
     if out is not None:
-        (out / f"{name}.json").write_text(json.dumps(
-            {"wall_ms": wall_ms, "busy_ms": busy, "ops": ops}, indent=1))
+        (out / f"{name}.json").write_text(json.dumps(res, indent=1))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2232,18 +2381,22 @@ def ring_config(name: str, *, n: int = N_NODES, rounds: int = 3,
 
 def run_arm(tag: str, sc, rounds: int | None = None) -> dict:
     """Zero the launch counts, run, read them: s/round, the training
-    peak memory (read as each round finishes, before the final
+    peak memory (read as each round's aggregation finishes, before any
     evaluation), the mean train loss of every round."""
     import torch
 
     from p2pfl_tpu_torch.federation.events import Events
     from p2pfl_tpu_torch.ops import gemm
 
-    peak = [0]
+    peak = [0, 0]  # training's, and with the evaluations
 
     def on_round(ev, payload):
-        if ev == Events.ROUND_FINISHED:
+        if ev == Events.AGGREGATION_FINISHED:
             peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+        elif ev == Events.ROUND_FINISHED:
+            # a round's evaluation must not count as the next's training
+            peak[1] = max(peak[1], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
 
     sc.add_observer(on_round)
     torch.cuda.synchronize()
@@ -2254,10 +2407,16 @@ def run_arm(tag: str, sc, rounds: int | None = None) -> dict:
     launches = dict(gemm.launches)
     losses = [float(sum(h["train_loss"]) / len(h["train_loss"]))
               for h in res.history]
+    # (round, mean accuracy) of each evaluation; the run ends with one
+    evals = [(h["round"] + 1, h["eval"]["mean_accuracy"])
+             for h in res.history if "eval" in h]
+    if "eval" not in res.history[-1]:
+        evals.append((res.history[-1]["round"] + 1, res.final_accuracy))
     out = dict(round_s=res.round_times_s, losses=losses,
                peak_train_gib=peak[0] / 2 ** 30,
-               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               accuracy=res.final_accuracy, launches=launches)
+               peak_gib=max(peak[1], torch.cuda.max_memory_allocated())
+               / 2 ** 30,
+               accuracy=res.final_accuracy, evals=evals, launches=launches)
     print(f"  {tag}: rounds {[round(t, 4) for t in res.round_times_s]} s, "
           f"mean train loss {[round(v, 4) for v in losses]}, accuracy "
           f"{res.final_accuracy:.4f}, peak memory {out['peak_train_gib']:.2f}"
@@ -2269,19 +2428,49 @@ def run_arm(tag: str, sc, rounds: int | None = None) -> dict:
     return out
 
 
-def check_step_vs_plain(tag: str, sc, bf16_params: bool) -> dict:
-    """One training step from the trained state through the kernels
-    (``train_step``) and through the plain versions (``plain_step``).
-    f32 params: the loss within 1e-2 (bf16 compute) or 1e-5 (f32
-    compute) relative; bf16 compute: each leaf's update within relative
-    L2 5e-2 of the plain step's (f32 compute: read here, held leaf by
-    leaf on the gradients by ``check_f32_grads``). bf16 params (whose
-    updates are mostly below a bf16 ulp): the loss within 1e-2, the new
-    trace (gradient plus decayed trace) within relative L2 5e-2 a leaf,
-    and every param within one bf16 ulp (of the larger value) plus lr
-    times the most the two unrounded traces can differ by (the stored
-    traces' difference plus one bf16 ulp of the trace): the most two
-    roundings of p - lr m can differ by."""
+class PlainVersions:
+    """Inside the block the wrappers of the kernels a training step runs
+    (K1-K4) are their plain versions, module-wide (the autograd
+    functions and the learner look them up by name): the reference
+    step."""
+
+    NAMES = {"stream_gemm": "stream_gemm_plain",
+             "stream_wgrad": "stream_wgrad_plain",
+             "dense_bwd": "dense_bwd_plain",
+             "sgd_accum_many": "sgd_accum_many_plain"}
+
+    def __enter__(self):
+        from p2pfl_tpu_torch.ops import gemm
+
+        self.gemm = gemm
+        self.saved = {k: getattr(gemm, k) for k in self.NAMES}
+        for k, plain in self.NAMES.items():
+            setattr(gemm, k, getattr(gemm, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.gemm, k, fn)
+
+
+
+def check_step_vs_plain(tag: str, sc, bf16_params: bool,
+                        twice: bool = False) -> dict:
+    """One training step from ``sc``'s state on its first batch through
+    the kernels (``train_step``) and through their plain versions (the
+    same step inside ``PlainVersions``). f32 params: the loss within
+    1e-2 (bf16 compute) or 1e-5 (f32 compute) relative; bf16 compute:
+    each leaf's update within relative L2 5e-2 of the plain step's (f32
+    compute: read here, held leaf by leaf on the gradients by
+    ``check_f32_grads``). bf16 params (whose updates are mostly below a
+    bf16 ulp): the loss within 1e-2, the new trace (gradient plus
+    decayed trace) within relative L2 5e-2 a leaf, and every param
+    within one bf16 ulp (of the larger value) plus lr times the most the
+    two unrounded traces can differ by (the stored traces' difference
+    plus one bf16 ulp of the trace): the most two roundings of p - lr m
+    can differ by. ``twice``: a second kernel step from the same state
+    must give the same bits (cuDNN's deterministic algorithms, K2's
+    fixed sum order)."""
     import torch
 
     from p2pfl_tpu_torch.core.pytree import tree_leaves
@@ -2290,17 +2479,26 @@ def check_step_vs_plain(tag: str, sc, bf16_params: bool) -> dict:
     f32 = sc.model.dtype == torch.float32
     st = sc.fed.states
     x, y, mask, _ = sc._data_args
-    bx, by, bm = x[:, :BATCH], y[:, :BATCH], mask[:, :BATCH]
+    b = cfg.data.batch_size
+    bx, by, bm = x[:, :b], y[:, :b], mask[:, :b]
     k_state, k_loss = sc.fns.train_step(st, bx, by, bm)
+    same = None
+    if twice:
+        again, again_loss = sc.fns.train_step(st, bx, by, bm)
+        same = torch.equal(k_loss, again_loss) and all(
+            torch.equal(a, c) for a, c in zip(
+                tree_leaves(k_state.params), tree_leaves(again.params)))
+        del again
+    with PlainVersions():
+        p_state, p_loss = sc.fns.train_step(st, bx, by, bm)
     lr = cfg.training.learning_rate
-    p_loss, p_params, p_traces, _ = plain_step(
-        sc.model, st, bx, by, bm, lr, cfg.training.momentum)
     loss_err = float((k_loss - p_loss).abs().max() / p_loss.abs().max())
     loss_tol, upd_tol = (1e-5, None) if f32 else (1e-2, 5e-2)
     worst, ok = 0.0, loss_err <= loss_tol
     for p0, pk, pp, mk, mp in zip(
-            tree_leaves(st.params), tree_leaves(k_state.params), p_params,
-            tree_leaves(k_state.opt_state), p_traces):
+            tree_leaves(st.params), tree_leaves(k_state.params),
+            tree_leaves(p_state.params), tree_leaves(k_state.opt_state),
+            tree_leaves(p_state.opt_state)):
         if bf16_params:
             mk, mp = mk.float(), mp.float()
             worst = max(worst, float((mk - mp).norm() / mp.norm()))
@@ -2318,12 +2516,15 @@ def check_step_vs_plain(tag: str, sc, bf16_params: bool) -> dict:
     extra = "; params within a bf16 ulp + lr |dm|" if bf16_params else ""
     tol = (f"tol {upd_tol:g}" if upd_tol is not None
            else "held on the gradients against f64 below")
+    bits = "" if same is None else f"; two kernel steps bit for bit: {same}"
     print(f"  {tag}: one step kernels vs plain: loss rel err {loss_err:.3g} "
           f"(tol {loss_tol:g}), {what} rel L2 err {worst:.3g} ({tol})"
-          f"{extra}", flush=True)
+          f"{extra}{bits}", flush=True)
+    if same is False:
+        fail(f"{tag}: two kernel steps from one state differ")
     if not ok:
         fail(f"{tag}: kernel step and plain step disagree")
-    return dict(loss_rel_err=loss_err, rel_l2_err=worst)
+    return dict(loss_rel_err=loss_err, rel_l2_err=worst, same_bits=same)
 
 
 def initial_state(sc):
@@ -2673,6 +2874,270 @@ def fused_epoch_bf16(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the CIFAR10 ResNets and MobileNets
+# ---------------------------------------------------------------------------
+
+CIFAR_NODES, CIFAR_SAMPLES, CIFAR_BATCH = 16, 1024, 128  # bench _cifar16
+# 9a runs the JAX bench's horizon: it counts the rounds to 80% mean
+# accuracy, 32 on its TPU run (BENCH_r05.json), from a fresh federation;
+# the warm-up round is the first of the 32. Evaluated every 8 rounds,
+# the mean accuracy must leave chance (0.1) by round 32
+CIFAR_ROUNDS, CIFAR_EVAL_EVERY, CIFAR_ACC_GATE = 32, 8, 0.5
+# 9b: the other models at full width, cut to 4 nodes and 10 rounds, at lr
+# 1e-3: at _cifar16's 0.1, and at 0.01, the deeper ResNets' loss rises in
+# the JAX package and the port alike (resnet18 on one repeated batch of
+# 64, f32: 2.74 -> 9.64 in 6 steps at 0.01; 2.74 -> 2.03 at 1e-3)
+CIFAR_OTHERS = ("resnet18", "resnet34", "resnet50", "fastermobilenet",
+                "simplemobilenet")
+CIFAR_OTHERS_NODES, CIFAR_OTHERS_ROUNDS, CIFAR_OTHERS_LR = 4, 10, 1e-3
+# the device time of a profiled round, by kernel name (first match)
+PROFILE_BUCKETS = (
+    ("K1 stream_gemm (stem)", ("stream_gemm_", "gemm_narrow_f32")),
+    ("K2 stream_wgrad (stem)", ("wgrad_general", "wgrad_wide",
+                                "wgrad_reduce", "gemm_f32_kernel",
+                                "slice_sum_f32")),
+    ("K4 sgd_accum_many", ("stream_kernel",)),
+    ("max-pool", ("max_pool",)),
+    # cuDNN's grouped convs, with its own channel slices and casts
+    ("cuDNN convs (fprop, dgrad, wgrad)", ("cudnn", "xmma")),
+    ("copies and casts (layout, pad, bf16/f32)", ("copy", "CatArray",
+                                                  "pad")),
+    ("reductions (GroupNorm statistics, pooling head)", ("reduce",)),
+    ("elementwise (GroupNorm normalize, ReLU, adds; backward)",
+     ("elementwise",)),
+)
+
+
+def cifar_config(name: str, *, model: str = "resnet9",
+                 n: int = CIFAR_NODES, rounds: int = 3,
+                 compute_dtype: str | None = None, lr: float = 0.1,
+                 seed: int = 3, eval_every: int = 0):
+    """``bench.py``'s ``_cifar16`` (``BASELINE.json`` configs[2]):
+    CIFAR10 on the easy surrogate, sized so that every node gets its
+    1024 samples, Dirichlet(0.5) shards, the random topology (seed 3),
+    DFL FedAvg, bf16 wire, batch 128, lr 0.1, SGD momentum 0.9, 1 epoch
+    a round; evaluation every ``eval_every`` rounds and after the
+    last."""
+    from p2pfl_tpu_torch.config.schema import (
+        DataConfig,
+        ModelConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+
+    return ScenarioConfig(
+        name=name, federation="DFL", topology="random",
+        topology_kwargs={"seed": seed}, n_nodes=n,
+        data=DataConfig(dataset="cifar10", partition="dirichlet",
+                        dirichlet_alpha=0.5, samples_per_node=CIFAR_SAMPLES,
+                        batch_size=CIFAR_BATCH, seed=seed,
+                        synthetic_train=int(n * CIFAR_SAMPLES / 0.9) + n,
+                        surrogate_profile="easy"),
+        model=ModelConfig(model=model, compute_dtype=compute_dtype),
+        training=TrainingConfig(rounds=rounds, epochs_per_round=1,
+                                learning_rate=lr, eval_every=eval_every),
+        transport="dense", wire_dtype="bf16", seed=seed)
+
+
+class GemmShapes:
+    """Inside the block, record the ``(K, N, dtype)`` of every K1 and K2
+    call (their wrappers wrapped by name; the launch counts are the
+    wrappers' own)."""
+
+    NAMES = ("stream_gemm", "stream_wgrad")
+
+    def __enter__(self):
+        from p2pfl_tpu_torch.ops import gemm
+
+        self.gemm, self.seen = gemm, {k: set() for k in self.NAMES}
+        self.saved = {k: getattr(gemm, k) for k in self.NAMES}
+
+        def wrap(name, fn):
+            def call(x, w):
+                self.seen[name].add((x.shape[-1], w.shape[-1],
+                                     str(x.dtype)[6:]))
+                return fn(x, w)
+            return call
+
+        for k, fn in self.saved.items():
+            setattr(gemm, k, wrap(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.gemm, k, fn)
+
+
+def cifar_arm(tag: str, sc, rounds: int, out: dict) -> dict:
+    """``run_arm`` with the K1 and K2 shapes recorded; K4 must launch
+    ``ceil(leaves / 48)`` times a step. Returns the arm, with the
+    failures of its gates (``failed``) for the caller to raise."""
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+
+    with GemmShapes() as shapes:
+        arm = run_arm(tag, sc, rounds)
+    arm["gemm_shapes"] = {k: sorted(v) for k, v in shapes.seen.items()}
+    leaves = len(tree_leaves(sc.fed.states.params))
+    steps = steps_of(sc, rounds)
+    per_step = -(-leaves // K4_LEAVES_A_LAUNCH)
+    arm.update(leaves=leaves, steps=steps, k4_per_step=per_step, failed=[])
+    k4 = arm["launches"]["sgd_accum"]
+    print(f"    {leaves} leaves, {steps} steps: K4 {k4} launches (want "
+          f"{per_step} a step); K1/K2 (K, N, dtype) {arm['gemm_shapes']}",
+          flush=True)
+    if k4 != per_step * steps:
+        arm["failed"].append(f"{tag}: K4 launched {k4} times in {steps} "
+                             f"steps of {leaves} leaves")
+    if not arm["losses"][-1] < arm["losses"][0]:
+        arm["failed"].append(f"{tag}: train loss did not fall from the "
+                             f"first round to the last: {arm['losses']}")
+    out[tag] = arm
+    return arm
+
+
+def profile_buckets(ops, total: float) -> dict:
+    """A profiled round's kernel time by ``PROFILE_BUCKETS``, with each
+    bucket's share of ``total`` (the kernel time summed)."""
+    got = {name: 0.0 for name, _ in PROFILE_BUCKETS}
+    got["other"] = 0.0
+    for key, ms, _ in ops:
+        name = next((b for b, keys in PROFILE_BUCKETS
+                     if any(k in key for k in keys)), "other")
+        got[name] += ms
+    for name, ms in got.items():
+        print(f"    {ms:9.3f} ms ({100 * ms / total:5.1f}%)  {name}",
+              flush=True)
+    return got
+
+
+def cifar_models(dev, out_dir: pathlib.Path | None) -> dict:
+    """Phase 9: a. ``_cifar16``'s ResNet9 at full width (16 nodes, 1024
+    samples a node, batch 128) for the bench's 32 rounds: a warm-up
+    round, then 31, evaluated every 8; the loss falls from the first
+    measured round to the last, the mean accuracy passes
+    ``CIFAR_ACC_GATE`` by round 32; the stem on K1 and K2 at K = 27,
+    N = 64 (K1 also in the evaluations), K4 once a step; the step
+    against the plain versions and twice bit for bit; what cuDNN's
+    deterministic algorithms cost (2 rounds each way, the second read);
+    one profiled round by kernel bucket. b. resnet18, resnet34,
+    resnet50, fastermobilenet and simplemobilenet at full width, cut to
+    4 nodes and 10 rounds at lr 1e-3: finite loss falling from the
+    first round to the last, K4 ``ceil(leaves / 48)`` launches a step,
+    no K1 or K2 (their stems are plain convs), the step against the
+    plain versions and twice bit for bit. c. a's ResNet9 in f32 compute, one round,
+    with cuDNN TF32 on and the deterministic flag off before
+    ``Scenario`` resolves the card: the flags come back off and on, only
+    the f32 K1 and K2 launch, the loss is finite. The accuracy and loss
+    gates of a and b are raised at the end, after every arm has run."""
+    import torch
+
+    from p2pfl_tpu_torch.federation.scenario import Scenario
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    sc = Scenario(cifar_config("cifar10-resnet9-16",
+                               eval_every=CIFAR_EVAL_EVERY), device=dev)
+    print(f"  a. setup {time.perf_counter() - t0:.1f} s (data for "
+          f"{CIFAR_NODES} x {CIFAR_SAMPLES} samples, init)", flush=True)
+    t0 = time.perf_counter()
+    sc.run(1)
+    torch.cuda.synchronize()
+    print(f"  warm-up round and evaluation {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    arm = cifar_arm("resnet9", sc, CIFAR_ROUNDS - 1, out)
+    failed = list(arm["failed"])
+    ln = arm["launches"]
+    evals = len(arm["evals"]) * -(-int(sc._x_test.shape[0]) // 512)
+    stem = [(27, 64, "bfloat16")]
+    if (arm["gemm_shapes"]["stream_gemm"] != stem
+            or arm["gemm_shapes"]["stream_wgrad"] != stem):
+        fail(f"resnet9: K1/K2 ran at {arm['gemm_shapes']}, not the stem")
+    if ln["stream_gemm"] != arm["steps"] + evals or (
+            ln["stream_wgrad"] != arm["steps"]) or arm["k4_per_step"] != 1:
+        fail(f"resnet9: launches {ln} for {arm['steps']} steps and {evals} "
+             "evaluation batches")
+    if any(ln[k] for k in ("dense_bwd",) + F32_PATH):
+        fail(f"resnet9: other kernels launched: {ln}")
+    times = arm["round_s"]
+    print(f"  s/round: median {sorted(times)[len(times) // 2]:.4f}, first 3 "
+          f"{[round(t, 4) for t in times[:3]]} (NVIDIA card, host clock "
+          f"ending in torch.cuda.synchronize(), evaluation excluded); per "
+          f"step K1 1 (+{evals} in the evaluations), K2 1, K4 1; mean "
+          f"accuracy by round {[(r, round(a, 4)) for r, a in arm['evals']]}",
+          flush=True)
+    if not arm["accuracy"] > CIFAR_ACC_GATE:
+        failed.append(f"resnet9: mean accuracy {arm['accuracy']:.4f} at "
+                      f"round {CIFAR_ROUNDS}, not above {CIFAR_ACC_GATE}")
+    arm["step_vs_plain"] = check_step_vs_plain("resnet9", sc, False,
+                                               twice=True)
+    det = {}
+    for flag in (False, True):
+        torch.backends.cudnn.deterministic = flag
+        det[str(flag)] = sc.run(2).round_times_s[1]
+    torch.backends.cudnn.deterministic = True
+    arm["round_s_by_cudnn_deterministic"] = det
+    print(f"  cuDNN deterministic off / on: {det['False']:.4f} / "
+          f"{det['True']:.4f} s a round", flush=True)
+    prof = profile_round(
+        lambda: sc._round_fn(sc.fed, *sc._data_args, *sc._plan_args(None)),
+        out_dir, name="chip_smoke_cifar16_profile",
+        what="ResNet9 training round (no evaluation)")
+    arm["profile"] = dict(
+        wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+        kernel_ms=prof["kernel_ms"],
+        buckets=profile_buckets(prof["ops"], prof["kernel_ms"]))
+    del sc
+    torch.cuda.empty_cache()
+
+    print(f"  b. the other models, {CIFAR_OTHERS_NODES} nodes, "
+          f"{CIFAR_OTHERS_ROUNDS} rounds", flush=True)
+    for model in CIFAR_OTHERS:
+        sc = Scenario(cifar_config(f"cifar10-{model}-{CIFAR_OTHERS_NODES}",
+                                   model=model, n=CIFAR_OTHERS_NODES,
+                                   rounds=CIFAR_OTHERS_ROUNDS,
+                                   lr=CIFAR_OTHERS_LR), device=dev)
+        other = cifar_arm(model, sc, CIFAR_OTHERS_ROUNDS, out)
+        failed += other["failed"]
+        if any(other["launches"][k] for k in ("stream_gemm", "stream_wgrad",
+                                              "dense_bwd") + F32_PATH):
+            failed.append(f"{model}: a GEMM kernel launched: "
+                          f"{other['launches']}")
+        other["step_vs_plain"] = check_step_vs_plain(model, sc, False,
+                                                     twice=True)
+        del sc
+        torch.cuda.empty_cache()
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    sc = Scenario(cifar_config("cifar10-resnet9-16-f32", rounds=1,
+                               compute_dtype="float32"), device=dev)
+    flags = dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                 cudnn_deterministic=torch.backends.cudnn.deterministic,
+                 matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    print(f"  c. f32 compute: after Scenario(...) {flags}", flush=True)
+    if flags != dict(cudnn_allow_tf32=False, cudnn_deterministic=True,
+                     matmul_allow_tf32=False):
+        fail(f"f32 ResNet9: Scenario left the flags {flags}")
+    with GemmShapes() as shapes:
+        f32 = run_arm("resnet9 f32", sc, 1)
+    f32.update(flags=flags, gemm_shapes={k: sorted(v)
+                                         for k, v in shapes.seen.items()})
+    ln = f32["launches"]
+    stem = [(27, 64, "float32")]
+    if (f32["gemm_shapes"]["stream_gemm"] != stem
+            or f32["gemm_shapes"]["stream_wgrad"] != stem
+            or not (ln["stream_gemm_f32"] and ln["stream_wgrad_f32"])
+            or any(ln[k] for k in BF16_GEMMS)):
+        fail(f"f32 ResNet9: K1/K2 {f32['gemm_shapes']}, launches {ln}")
+    out["resnet9_f32"] = f32
+    del sc
+    torch.cuda.empty_cache()
+    if failed:
+        fail("; ".join(failed))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2769,6 +3234,14 @@ def main(argv: list[str] | None = None) -> int:
         launches[k] = phase8["f32_compute"]["launches"][k]
     launches["fused_mlp_train_epoch_bf16"] = phase8["fused_epoch_bf16"][
         "launches"]
+    torch.cuda.empty_cache()
+
+    print("[9] the CIFAR10 ResNets and MobileNets: ResNet9 at bench.py's "
+          "_cifar16 (16 nodes, random topology, Dirichlet 0.5, 1024 "
+          f"samples a node, batch 128), {CIFAR_ROUNDS} rounds; "
+          "resnet18/34/50 and the MobileNets on 4 nodes, "
+          f"{CIFAR_OTHERS_ROUNDS} rounds; ResNet9 in f32", flush=True)
+    phase9 = cifar_models(dev, args.out)
 
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
@@ -2830,6 +3303,8 @@ def main(argv: list[str] | None = None) -> int:
             json.dumps({"card": smi, **phase7}, indent=1))
         (args.out / "chip_smoke_phase8.json").write_text(
             json.dumps({"card": smi, **phase8}, indent=1))
+        (args.out / "chip_smoke_phase9.json").write_text(
+            json.dumps({"card": smi, **phase9}, indent=1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -82,8 +82,13 @@ class ScenarioResult:
 def _resolve(device: torch.device | str) -> torch.device:
     dev = resolve_device(device)
     if dev.type == "cuda":
-        # the f32 FedAvg mix and dense layers run in full f32
+        # the f32 FedAvg mix, dense layers and convs run in full f32, as
+        # in the JAX package (cuDNN would take TF32 by default); cuDNN
+        # takes only deterministic conv algorithms, so a run repeats bit
+        # for bit (K2's slice plan fixes its sum order for the same end)
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
     return dev
 
 

@@ -56,9 +56,12 @@ def patches(x: torch.Tensor, k: int) -> torch.Tensor:
     return win.reshape(n, b * h * w, c * k * k).to(x.dtype)
 
 
-def patch_conv(x: torch.Tensor, p: dict, dtype: torch.dtype) -> torch.Tensor:
+def patch_conv(x: torch.Tensor, p: dict, dtype: torch.dtype,
+               use_bias: bool = True) -> torch.Tensor:
     """Conv of ``x [n, b, H, W, C]`` with HWIO kernels ``[n, k, k, C, F]``
-    as patches times a ``[C*k*k, F]`` weight, through the kernels."""
+    as patches times a ``[C*k*k, F]`` weight, through the kernels; plus
+    the stacked bias ``[n, F]`` with ``use_bias`` (the ResNet stem has
+    none)."""
     n, b, h, w, c = x.shape
     kern = p["kernel"]
     k, f = kern.shape[1], kern.shape[-1]
@@ -70,6 +73,8 @@ def patch_conv(x: torch.Tensor, p: dict, dtype: torch.dtype) -> torch.Tensor:
     else:
         out = gemm.conv2_matmul(flat, wf)
     out = out.reshape(n, b, h, w, f)
+    if not use_bias:
+        return out
     return out + node_bias(p["bias"], dtype, out.dim())
 
 

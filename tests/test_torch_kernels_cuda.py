@@ -170,6 +170,27 @@ def test_stream_wgrad_path_shapes(dev, m, k, n):
     _wgrad_case(dev, 74, 2, m, k, n)
 
 
+# The ResNet9 stem (contraction 27, 64 filters; K = 27 is no multiple of
+# 8, so the mma.sync route): at a ragged row count, and at the 16-node
+# CIFAR10 step (128 images of 32 x 32 a node, the plan's 8 slices of
+# 16,384 rows).
+@pytest.mark.parametrize("nodes,m", [(3, 3 * 1024 + 77), (16, 128 * 1024)])
+def test_stream_wgrad_resnet_stem(dev, nodes, m):
+    _wgrad_case(dev, 76, nodes, m, 27, 64)
+
+
+# K1 at the stem's forward shape on the 16-node CIFAR10 step.
+def test_stream_gemm_resnet_stem(dev):
+    x, w = _rand(dev, 32, 16, 128 * 1024, 27), _rand(dev, 33, 16, 27, 64)
+    before = gemm.launches["stream_gemm"]
+    got = gemm.stream_gemm(x, w)
+    assert gemm.launches["stream_gemm"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               gemm.stream_gemm_plain(x, w).float(),
+                               **BF16_TOL)
+    assert torch.equal(got, gemm.stream_gemm(x, w))
+
+
 # A node whose x or g is NaN: its own sums are NaN, the other nodes'
 # stay finite and equal to their plain sums (no slice, tile or run
 # reaches across nodes).
@@ -731,7 +752,9 @@ def _f32_keys_only(before, used):
     (3, 2 * 784 + 13, 9, 32), (2, 129, 48, 16),
     # the ring's full shapes (conv1 and conv2 forward at 8 x 336), and
     # rows that TMA cannot read (K = 45) with a ragged N
-    (8, 336 * 784, 25, 32), (8, 336 * 196, 800, 64), (2, 300, 45, 70)])
+    (8, 336 * 784, 25, 32), (8, 336 * 196, 800, 64), (2, 300, 45, 70),
+    # the ResNet9 stem: ragged rows, and the 16-node CIFAR10 step
+    (3, 3 * 1024 + 77, 27, 64), (16, 128 * 1024, 27, 64)])
 def test_stream_gemm_f32_matches_plain_bit_stable(dev, nodes, m, k, n):
     torch.backends.cuda.matmul.allow_tf32 = False
     x = _rand(dev, 90, nodes, m, k, dtype=torch.float32)
@@ -747,7 +770,9 @@ def test_stream_gemm_f32_matches_plain_bit_stable(dev, nodes, m, k, n):
 
 @pytest.mark.parametrize("nodes,m,k,n", [
     (3, 12 * 784, 25, 32), (3, 12 * 196, 800, 64), (3, 4096 * 3 + 7, 25, 32),
-    (2, 1, 800, 64), (3, 2357, 21, 70)])
+    (2, 1, 800, 64), (3, 2357, 21, 70),
+    # the ResNet9 stem: ragged rows, and the 16-node CIFAR10 step
+    (3, 3 * 1024 + 77, 27, 64), (16, 128 * 1024, 27, 64)])
 def test_stream_wgrad_f32_matches_plain_bit_stable(dev, nodes, m, k, n):
     torch.backends.cuda.matmul.allow_tf32 = False
     x = _rand(dev, 92, nodes, m, k, dtype=torch.float32)

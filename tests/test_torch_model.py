@@ -139,7 +139,7 @@ def test_registered_models_run_over_the_node_axis(name):
 
 def test_unported_model_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="A21"):
-        get_model("resnet9")
+        get_model("vit-tiny")
 
 
 def test_convert_carries_one_node_to_a_stack_and_back():

@@ -13,10 +13,12 @@ import pytest
 from p2pfl_tpu_torch.ops import gemm
 
 # conv1 and conv2 at the stacked ring (b = 336), the cross-device cohort
-# step (20 samples a slot) and Byzantine DFL (16 nodes x 64)
+# step (20 samples a slot) and Byzantine DFL (16 nodes x 64); the ResNet9
+# stem (contraction 27, 64 filters) at the 16-node CIFAR10 step (b = 128)
 PATH_SHAPES = [(8, 336 * 784, 25, 32), (8, 336 * 196, 800, 64),
                (8, 20 * 784, 25, 32), (8, 20 * 196, 800, 64),
-               (16, 64 * 784, 25, 32), (16, 64 * 196, 800, 64)]
+               (16, 64 * 784, 25, 32), (16, 64 * 196, 800, 64),
+               (16, 128 * 1024, 27, 64)]
 EDGE_SHAPES = [(2, 1, 25, 32), (2, 1, 800, 64), (2, 200, 800, 64),
                (3, 2357, 21, 70), (3, 2357, 300, 32), (2, 3073, 25, 32),
                (2, 28769, 800, 64), (1, 0, 800, 64), (64, 5, 8, 8)]
@@ -54,3 +56,12 @@ def test_plan_routes_can_be_forced_and_unknown_ones_raise():
     assert gemm.wgrad_plan(2, 300, 800, 64, "general").route == "general"
     with pytest.raises(ValueError, match="unknown K2 route"):
         gemm.wgrad_plan(2, 300, 800, 64, "tiles")
+
+
+def test_resnet9_stem_plan():
+    """The ResNet9 stem's weight gradient at 16 nodes x 128 CIFAR10
+    images: K = 27 is no multiple of 8, so the mma.sync route; 2 tiles
+    a slice, so 8 slices of 16,384 rows make the route's 256 blocks."""
+    plan = gemm.wgrad_plan(16, 128 * 32 * 32, 27, 64)
+    assert plan == gemm.WgradPlan("general", 2, 16384, 8)
+    assert gemm.wgrad_plan(16, 128 * 32 * 32, 27, 64, "f32").route == "f32"
