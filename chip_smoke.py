@@ -30,9 +30,12 @@ one, or when run outside a checkout of this repository). Phases:
    L2-resident), the clusters the card holds at once and its waves.
    K2 in bf16 (exact products, f32 sums) is held to the f32 limits
    below, with the sum missing its plan's first slice and the plain
-   version rounded to bf16 as the controls that must fail them.
-   The dtype variants: K1, K2 and K3 in f32 (K1 and K3
-   ``csrc/gemm_f32_tc.cu``, 3xTF32 on ``wgmma``; K2 ``csrc/gemm_f32.cu``)
+   version rounded to bf16 as the controls that must fail them; every
+   K2 row, bf16 and f32, prints its route, its kernels' device times,
+   and the kernel and the plain version against the f64 product, and at
+   K >= 33 the kernel may be no farther from it than the plain version.
+   The dtype variants: K1, K2 and K3 in f32 (``csrc/gemm_f32_tc.cu``,
+   3xTF32 on ``wgmma``; K1 and K2 at K <= 32 exact FMA chains)
    at the ring's shapes, held to relative L2 and elementwise limits that
    scale with the square root of the summed length (``F32_REL_C``,
    ``F32_ELEM_C``), which two controls must fail at each shape (a TF32
@@ -51,7 +54,8 @@ one, or when run outside a checkout of this repository). Phases:
    the f32 kernel on the widened inputs rounded once, from one state
    within the K6 tolerance plus one bf16 ulp of its plain version, and
    over the 19 steps node by node (no node outside the flip bounds:
-   ``K6_FLIP_NODES``).
+   ``K6_FLIP_NODES``); K6 from a zero trace at other batches and class
+   counts, the leaves off the plain version's bits (``K6_ORDER_SHAPES``).
 3. End to end, the stacked federation: the port's ``Scenario`` on the
    full-width FEMNIST CNN, 8 nodes on a ring, DFL, FedAvg, bf16 wire,
    750 samples a node, batch 336, 3 rounds on the seeded synthetic
@@ -158,7 +162,9 @@ one, or when run outside a checkout of this repository). Phases:
       for bit;
    c. a's ResNet9 in f32 compute, one round: ``Scenario`` turns cuDNN's
       TF32 off (and determinism on) after the script turned them the
-      other way; only the f32 K1 and K2 launch, at the stem.
+      other way; only the f32 K1 and K2 launch, at the stem; their
+      output on the round's first step's own operands against the f64
+      product within the f32 limits, the TF32 product outside them.
    Phase 2 holds K1 and K2 at the stem's shape too (16 nodes x 131,072
    rows, K = 27, N = 64, bf16 and f32), and K4 over ResNet9's 26 leaves
    at 16 nodes and ResNet50's 161 at 4 (one launch and four), bit for
@@ -206,6 +212,13 @@ K6_FLIP_FRACTION, K6_FLIP_ATOL, K6_FLIP_REL_L2 = 1e-3, 1e-2, 5e-3
 # plain version's orders (torch.bmm's and torch.sum's, read on the card
 # with a probe kernel), so no node may leave the flip bounds
 K6_FLIP_NODES = 0
+# K6's sum orders beyond the probe's shape (batch 32, 10 classes): one
+# step from a zero trace at 64 nodes, (batch, classes) -> the leaves
+# known to leave the plain version's bits (ROADMAP Queue C); any other
+# leaf must keep them, and these stay within K6_TOL
+K6_ORDER_SHAPES = {
+    (8, 7): "all", (16, 7): (), (32, 10): (),
+    (64, 7): ("b0", "b1"), (32, 62): "all"}
 # the ResNet9 stem's K1 and K2 problem at phase 9's step: 16 nodes x 128
 # CIFAR10 images of 32 x 32 rows, contraction 27, 64 filters
 STEM = (16, 128 * 32 * 32, 27, 64)
@@ -376,7 +389,8 @@ def kernel_checks(dev, peak) -> dict:
         err, ok, readings = f32_check(f"stream_wgrad bf16 {inst}", got,
                                       gemm.stream_wgrad_plain(x, g), xt, g,
                                       plan.rows)
-        record("stream_wgrad", inst, err, ok, F32_TOL,
+        ok = f64_gate(f"stream_wgrad bf16 {inst}", readings, k) and ok
+        record("stream_wgrad", inst, err, ok, F32_TOL + K2_F64_TOL,
                time_ms(lambda: gemm.stream_wgrad(x, g)),
                time_ms(lambda: gemm.stream_wgrad_plain(x, g)),
                time_ms(lambda: torch.bmm(xt, g)),
@@ -388,6 +402,7 @@ def kernel_checks(dev, peak) -> dict:
               f"{nk * plan.slices * plan.tiles} blocks", flush=True)
         host_device(rows, lambda: gemm.stream_wgrad(x, g), "wgrad",
                     lib_fn=lambda: torch.bmm(xt, g))
+        k2_parts(rows, lambda: gemm.stream_wgrad(x, g), plan.route)
         r = rows[-1]
         print(f"    faster than torch.bmm: by events "
               f"{r['ms'] < r['library_ms']}, on the device "
@@ -624,6 +639,9 @@ def kernel_checks(dev, peak) -> dict:
     del params, mom, bx, by, got, wide, plain19, f64, bf, bm, bbx
     torch.cuda.empty_cache()
 
+    rows.append(dict(kernel="fused_mlp_train_epoch", instance="sum_orders",
+                     ok=True, on_path=False, summed=False,
+                     readings=k6_sum_orders(dev)))
     k4_model_lists(rows, record, same_bits, rand, f32_peak)
 
     bad = [r for r in rows if not r["ok"]]
@@ -849,6 +867,21 @@ def k4_model_lists(rows, record, same_bits, rand, f32_peak) -> None:
 F32_REL_C, F32_ELEM_C, F32_TILE_K = 4.0, 8.0, 16
 F32_TOL = (f"rel L2 <= {F32_REL_C:g} u sqrt(L), |d| <= {F32_ELEM_C:g} u "
            "sqrt(L) sqrt(A**2 @ B**2)")
+# K2 at K >= 33 (the wgmma routes, bf16 wide and f32_tc, whose tensor
+# core truncates its sums; each box's sum is added outside it to
+# nearest) is held one step further: against the product in f64 the
+# kernel is no farther than its plain version (torch.matmul in f32) in
+# relative L2. At K <= 32 (the mma.sync and FFMA routes) the two read
+# either way, and the readings are printed, not gated
+K2_F64_TOL = "; rel L2 vs f64 <= the plain version's at K >= 33"
+# the kernels a K2 call launches, by route, read on their own from a
+# profiled run: the sums (f32_tc splits g in shared memory: it has no
+# pre-pass), then the slice sum
+K2_KERNELS = {"wide": ("wgrad_wide_kernel", "wgrad_reduce_kernel"),
+              "general": ("wgrad_general_kernel", "wgrad_reduce_kernel"),
+              "f32_tc": ("gemm_tc_kernel", "slice_sum_f32_kernel"),
+              "f32_narrow": ("wgrad_narrow_f32_kernel",
+                             "slice_sum_f32_kernel")}
 # phase 8b's f32 training step (check_f32_grads): one step with a zero
 # trace, so that the new trace is the gradient and neither the momentum
 # nor the params' rounding enters, at each of F32_GRAD_SEEDS' rings in
@@ -947,6 +980,33 @@ def f32_check(tag, got, want, a, b, drop: int) -> tuple[float, bool, dict]:
     return float((got - want).abs().max()), passes(reading), readings
 
 
+def f64_gate(tag: str, readings: dict, k: int) -> bool:
+    """K2's gate against the f64 product (``K2_F64_TOL``): at K >= 33
+    the kernel's relative L2 is at most the plain version's."""
+    mine = readings["kernel_vs_f64_units"][0]
+    plain = readings["plain_vs_f64_units"][0]
+    gated = k >= 33
+    ok = not gated or mine <= plain
+    readings.update(f64_gated=gated, f64_ok=ok)
+    print(f"    {tag}: against f64, rel L2 kernel {mine:.4g} / plain "
+          f"{plain:.4g} u sqrt(L) ({'gated: ' if gated else 'read, K <= 32: '}"
+          f"{'ok' if ok else 'FAIL'})", flush=True)
+    return ok
+
+
+def k2_parts(rows, fn, route: str) -> None:
+    """K2's kernels in one call (``K2_KERNELS[route]``, each launched
+    once a call): each one's device time a launch, from one profiled
+    run, and the launches the profiler recorded of the 10 made."""
+    parts = device_parts(fn, 10, K2_KERNELS[route])
+    rows[-1].update(route=route, device_parts_ms={
+        k: ms for k, (ms, _) in parts.items()}, device_parts_seen={
+        k: seen for k, (_, seen) in parts.items()})
+    print(f"    route {route}; device a launch (profiled): " + ", ".join(
+        f"{k} {ms:.4f} ms ({seen:g} of 10 launches recorded)"
+        for k, (ms, seen) in parts.items()), flush=True)
+
+
 def acc_probe(dev) -> dict:
     """The accumulation probe of ``csrc/gemm_f32_tc.cu``: ``wgmma``
     m64n64k8 TF32 sums in one accumulator against one ``fmaf`` chain a
@@ -999,9 +1059,10 @@ def acc_probe(dev) -> dict:
 
 def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
                   peak) -> None:
-    """K1, K2 and K3 in f32 (K1 and K3 ``csrc/gemm_f32_tc.cu``, K2
-    ``csrc/gemm_f32.cu``) at the ring's shapes (8 x 336 FEMNIST-CNN, the
-    f32 arm's path; conv1's dgrad off it): held to ``F32_TOL``, twice bit
+    """K1, K2 and K3 in f32 (``csrc/gemm_f32_tc.cu``) at the ring's
+    shapes (8 x 336 FEMNIST-CNN, the f32 arm's path; conv1's dgrad off
+    it) and the ResNet9 stem's: held to ``F32_TOL`` (K2 also to
+    ``K2_F64_TOL``), twice bit
     for bit, timed beside ``torch.bmm`` in f32 with TF32 off and against
     two bounds: an f32-accurate product's (three TF32 passes or the
     bytes; the row's ``bound_ms``) and exact SIMT FFMA's at the f32
@@ -1066,11 +1127,13 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
         same_bits(f"stream_wgrad f32 {inst}",
                   lambda: gemm.stream_wgrad(x, g))
         xt = x.transpose(1, 2)
-        plan = gemm.wgrad_plan(nk, m, k, nn_, "f32")
+        plan = gemm.wgrad_plan(nk, m, k, nn_,
+                               gemm.wgrad_route(m, k, nn_, f32=True))
         err, ok, readings = f32_check(f"stream_wgrad f32 {inst}", got,
                                       gemm.stream_wgrad_plain(x, g), xt, g,
                                       plan.rows)
-        record("stream_wgrad_f32", inst, err, ok, F32_TOL,
+        ok = f64_gate(f"stream_wgrad f32 {inst}", readings, k) and ok
+        record("stream_wgrad_f32", inst, err, ok, F32_TOL + K2_F64_TOL,
                time_ms(lambda: gemm.stream_wgrad(x, g)),
                time_ms(lambda: gemm.stream_wgrad_plain(x, g)),
                time_ms(lambda: torch.bmm(xt, g)),
@@ -1082,8 +1145,9 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
         print(f"    plan: {plan.route} route, {plan.slices} slices of "
               f"{plan.rows} rows a node, {plan.tiles} tiles a slice, "
               f"{nk * plan.slices * plan.tiles} blocks", flush=True)
-        host_device(rows, lambda: gemm.stream_wgrad(x, g), "f32",
+        host_device(rows, lambda: gemm.stream_wgrad(x, g), None,
                     lib_fn=lambda: torch.bmm(xt, g))
+        k2_parts(rows, lambda: gemm.stream_wgrad(x, g), plan.route)
         del x, g, got, xt
     torch.cuda.empty_cache()
 
@@ -1173,10 +1237,12 @@ def k4_variants(rows, record, same_bits, rand, f32_peak) -> None:
         torch.cuda.empty_cache()
 
 
-def host_device(rows, kern, name: str, lib_fn=None, reps: int = 10) -> None:
+def host_device(rows, kern, name: str | None, lib_fn=None,
+                reps: int = 10) -> None:
     """The host's time to enqueue one call on an idle card, and a
     profiled run of ``reps`` calls: the kernel's own device time a call
-    (the kernels whose name holds ``name``) and its launches a call (and
+    (the kernels whose name holds ``name``; None: every kernel the call
+    launches) and its launches a call (and
     the library call's, where given), which the event times (host and
     device together) do not separate."""
     us, piped = enqueue_us(kern), enqueue_us(kern, idle=False)
@@ -1216,10 +1282,9 @@ def enqueue_us(fn, calls: int = 10, idle: bool = True) -> float:
     return total / calls * 1e6
 
 
-def device_time(fn, reps: int, name: str | None) -> tuple[float, float]:
-    """Device time (ms) and kernel launches a call of ``fn`` over
-    ``reps`` profiled calls: of the kernels whose name holds ``name``,
-    or of every kernel when ``name`` is None."""
+def profiled_kernels(fn, reps: int) -> list:
+    """The device-side events (kernels) of ``reps`` profiled calls of
+    ``fn``, after one call outside the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1231,14 +1296,93 @@ def device_time(fn, reps: int, name: str | None) -> tuple[float, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0
-           and (name is None or name in e.key)]
-    if not evs:
-        fail(f"the profiler saw no device time for {name or 'the call'}")
-    return (sum(e.self_device_time_total for e in evs) / 1e3 / reps,
-            sum(e.count for e in evs) / reps)
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def device_parts(fn, reps: int, names) -> dict:
+    """For each kernel whose name holds one of ``names``: (its mean device
+    time (ms) a launch, the launches the profiler recorded), from one
+    profiled run of ``reps`` calls. The profiler can drop records (it
+    kept 0.5-0.9 of a library call's launches in some runs on an H100),
+    so the mean is over the launches it kept; a second run where it kept
+    none of one kernel; none in both fails."""
+    for _ in range(2):
+        evs = profiled_kernels(fn, reps)
+        got = {}
+        for n in names:
+            mine = [e for e in evs if n in e.key]
+            count = sum(e.count for e in mine)
+            total = sum(e.self_device_time_total for e in mine)
+            got[n] = (total / 1e3 / count if count else 0.0, count)
+        if all(count for _, count in got.values()):
+            return got
+    missing = [n for n in names if not got[n][1]]
+    fail(f"the profiler saw no device time for {missing}")
+
+
+def device_time(fn, reps: int, name: str | None) -> tuple[float, float]:
+    """Device time (ms) and kernel launches a call of ``fn`` over
+    ``reps`` profiled calls: of the kernels whose name holds ``name``,
+    or of every kernel when ``name`` is None (a second profiled run
+    where the first saw none)."""
+    for _ in range(2):
+        evs = [e for e in profiled_kernels(fn, reps)
+               if name is None or name in e.key]
+        if evs:
+            return (sum(e.self_device_time_total for e in evs) / 1e3 / reps,
+                    sum(e.count for e in evs) / reps)
+    fail(f"the profiler saw no device time for {name or 'the call'}")
+
+
+def k6_sum_orders(dev) -> dict:
+    """K6 from a zero trace, one step at 64 mnist-mlp nodes, at each of
+    ``K6_ORDER_SHAPES``: the params and traces that leave the plain
+    version's bits, their largest difference and the share of their
+    elements that differ. Fails if a leaf outside the recorded set
+    differs or one leaves ``K6_TOL``."""
+    import torch
+
+    from p2pfl_tpu_torch.ops import fused_train
+
+    names = ("w0", "b0", "w1", "b1", "w2", "b2")
+    out = {}
+    for (batch, c), known in K6_ORDER_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(23)
+        shapes = [(64, 784, 256), (64, 1, 256), (64, 256, 128), (64, 1, 128),
+                  (64, 128, c), (64, 1, c)]
+        params = tuple(torch.randn(s, generator=gen, device=dev) * 0.05
+                       for s in shapes)
+        mom = tuple(torch.zeros_like(t) for t in params)
+        bx = torch.randn((64, batch, 784), generator=gen, device=dev)
+        by = torch.randint(0, c, (64, batch, 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+        got = fused_train.fused_mlp_train_epoch(params, mom, bx, by, MLP_LR,
+                                                0.9, batch_size=batch)
+        want = fused_train.fused_mlp_train_epoch_plain(
+            params, mom, bx, by, MLP_LR, 0.9, batch_size=batch)
+        off = {}
+        for kind, ks, ws in (("params", got[0], want[0]),
+                             ("trace", got[1], want[1])):
+            for name, a, b in zip(names, ks, ws):
+                if torch.equal(a, b):
+                    continue
+                d = (a - b).abs()
+                _, ok = within(a, b, **K6_TOL)
+                off[f"{kind} {name}"] = dict(
+                    max_abs=float(d.max()),
+                    share=float((d > 0).float().mean()), within_k6_tol=ok)
+                if not ok or (known != "all" and name not in known):
+                    fail(f"K6 sum orders at batch {batch}, {c} classes: "
+                         f"{kind} {name} {off[f'{kind} {name}']}")
+        out[f"batch{batch}_classes{c}"] = off
+        print(f"  K6 sum orders, one step from a zero trace, 64 nodes, "
+              f"batch {batch}, {c} classes: off the plain version's bits "
+              + (", ".join(f"{k} (max {v['max_abs']:.3g}, "
+                           f"{100 * v['share']:.2f}% of elements)"
+                           for k, v in off.items()) or "none"), flush=True)
+    return out
 
 
 def mlp_epoch_inputs(dev):
@@ -2942,9 +3086,13 @@ def cifar_config(name: str, *, model: str = "resnet9",
 class GemmShapes:
     """Inside the block, record the ``(K, N, dtype)`` of every K1 and K2
     call (their wrappers wrapped by name; the launch counts are the
-    wrappers' own)."""
+    wrappers' own). With ``keep``, also a copy of each wrapper's first
+    operands and output (``kept[name] = (x, w_or_g, out)``)."""
 
     NAMES = ("stream_gemm", "stream_wgrad")
+
+    def __init__(self, keep: bool = False):
+        self.keep, self.kept = keep, {}
 
     def __enter__(self):
         from p2pfl_tpu_torch.ops import gemm
@@ -2956,7 +3104,10 @@ class GemmShapes:
             def call(x, w):
                 self.seen[name].add((x.shape[-1], w.shape[-1],
                                      str(x.dtype)[6:]))
-                return fn(x, w)
+                out = fn(x, w)
+                if self.keep and name not in self.kept:
+                    self.kept[name] = (x.clone(), w.clone(), out.clone())
+                return out
             return call
 
         for k, fn in self.saved.items():
@@ -3010,6 +3161,33 @@ def profile_buckets(ops, total: float) -> dict:
     return got
 
 
+def stem_gate(tag: str, got, a, b) -> dict:
+    """Phase 9c's gate at the ResNet9 stem: ``got`` (the f32 K1 output or
+    K2 weight gradient from the round's own step) against the f64 product
+    ``a @ b`` within ``F32_TOL``; the product on TF32-rounded operands,
+    the control, must exceed it. Fails the run otherwise."""
+    import torch
+
+    exact = torch.matmul(a.double(), b.double())
+    mine = f32_reading(got, exact, a, b)
+    tf32 = torch.matmul(tf32_round(a), tf32_round(b))
+    control = f32_reading(tf32, exact, a, b)
+    del exact, tf32
+
+    def passes(r):
+        return r[0] <= F32_REL_C and r[1] <= F32_ELEM_C
+
+    print(f"    {tag} {tuple(a.shape)} @ {tuple(b.shape)} against f64: rel "
+          f"L2 {mine[0]:.4g} u sqrt(L), largest element {mine[1]:.4g} "
+          f"(limits {F32_REL_C:g} / {F32_ELEM_C:g}); TF32 control "
+          f"{control[0]:.4g} / {control[1]:.4g}", flush=True)
+    if not passes(mine):
+        fail(f"{tag}: outside {F32_TOL} of the f64 product: {mine}")
+    if passes(control):
+        fail(f"{tag}: the TF32 control passes {F32_TOL}: {control}")
+    return dict(kernel_units=mine, tf32_control_units=control)
+
+
 def cifar_models(dev, out_dir: pathlib.Path | None) -> dict:
     """Phase 9: a. ``_cifar16``'s ResNet9 at full width (16 nodes, 1024
     samples a node, batch 128) for the bench's 32 rounds: a warm-up
@@ -3027,7 +3205,8 @@ def cifar_models(dev, out_dir: pathlib.Path | None) -> dict:
     plain versions and twice bit for bit. c. a's ResNet9 in f32 compute, one round,
     with cuDNN TF32 on and the deterministic flag off before
     ``Scenario`` resolves the card: the flags come back off and on, only
-    the f32 K1 and K2 launch, the loss is finite. The accuracy and loss
+    the f32 K1 and K2 launch, the loss is finite, and the stem's K1 and
+    K2 on the first step's operands pass ``stem_gate``. The accuracy and loss
     gates of a and b are raised at the end, after every arm has run."""
     import torch
 
@@ -3118,10 +3297,18 @@ def cifar_models(dev, out_dir: pathlib.Path | None) -> dict:
     if flags != dict(cudnn_allow_tf32=False, cudnn_deterministic=True,
                      matmul_allow_tf32=False):
         fail(f"f32 ResNet9: Scenario left the flags {flags}")
-    with GemmShapes() as shapes:
+    with GemmShapes(keep=True) as shapes:
         f32 = run_arm("resnet9 f32", sc, 1)
     f32.update(flags=flags, gemm_shapes={k: sorted(v)
                                          for k, v in shapes.seen.items()})
+    # the stem's K1 (patches @ w) and K2 (patches^T @ upstream gradient)
+    # on the operands of the round's first step, against f64
+    x, w, y = shapes.kept["stream_gemm"]
+    f32["stem_k1_vs_f64"] = stem_gate("K1 f32 stem (9c)", y, x, w)
+    x, g, dw = shapes.kept["stream_wgrad"]
+    f32["stem_k2_vs_f64"] = stem_gate("K2 f32 stem (9c)", dw,
+                                      x.transpose(1, 2), g)
+    del shapes, x, w, y, g, dw
     ln = f32["launches"]
     stem = [(27, 64, "float32")]
     if (f32["gemm_shapes"]["stream_gemm"] != stem
@@ -3265,7 +3452,7 @@ def main(argv: list[str] | None = None) -> int:
         "fedavg_accum": "p2pfl_tpu_torch/ops/csrc/sgd_accum.cu",
         "fused_mlp_train_epoch": "p2pfl_tpu_torch/ops/csrc/fused_train.cu",
         "stream_gemm_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32_tc.cu",
-        "stream_wgrad_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32.cu",
+        "stream_wgrad_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32_tc.cu",
         "dense_bwd_f32": "p2pfl_tpu_torch/ops/csrc/gemm_f32_tc.cu",
         "sgd_accum_bf16": "p2pfl_tpu_torch/ops/csrc/sgd.cu",
         "fused_mlp_train_epoch_bf16":

@@ -21,7 +21,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
 
 SOURCES = ("binding.cpp", "stream_gemm.cu", "stream_wgrad.cu",
-           "dense_bwd.cu", "gemm_f32.cu", "gemm_f32_tc.cu", "sgd.cu",
+           "dense_bwd.cu", "gemm_f32_tc.cu", "sgd.cu",
            "sgd_accum.cu", "fused_train.cu")
 
 

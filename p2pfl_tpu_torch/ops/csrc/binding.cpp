@@ -56,9 +56,8 @@ int as_int(int64_t v, const char* name) {
 }
 
 // K1-K3 take bf16 or f32 operands, one dtype a call: the dtype picks
-// the instantiation (the f32 ones are gemm_f32_tc.cu's for K1 and K3,
-// which take scratch for the split small operand, and gemm_f32.cu's for
-// K2).
+// the instantiation (the f32 ones are gemm_f32_tc.cu's; K1 and K3 take
+// scratch for their split small operand).
 at::ScalarType gemm_dtype(const torch::Tensor& x) {
   TORCH_CHECK(x.scalar_type() == at::kBFloat16 ||
                   x.scalar_type() == at::kFloat,
@@ -93,10 +92,11 @@ torch::Tensor stream_gemm(torch::Tensor x, torch::Tensor w) {
   return out;
 }
 
-// K2 with the caller's slice plan (ops/gemm.py::wgrad_plan): `wide`
-// names the route of the bf16 instantiation (false for f32), `rows` the
-// rows of a slice, `slices` the slices of a node.
-torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, bool wide,
+// K2 with the caller's slice plan (ops/gemm.py::wgrad_plan): `route`
+// the plan's route code (p2pfl::WgradRoute), checked here against the
+// dtype and the shape, `rows` the rows of a slice, `slices` the slices
+// of a node.
+torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, int64_t route,
                            int64_t rows, int64_t slices) {
   const at::ScalarType dt = gemm_dtype(x);
   const bool f32 = dt == at::kFloat;
@@ -105,7 +105,12 @@ torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, bool wide,
   same_device(x, g);
   TORCH_CHECK(x.size(0) == g.size(0) && x.size(1) == g.size(1),
               msg("stream_wgrad shapes ", x.sizes(), " ^T@ ", g.sizes()));
-  TORCH_CHECK(!(f32 && wide), "stream_wgrad: float32 has no wide route");
+  const bool f32_route =
+      route == p2pfl::kWgradF32Tc || route == p2pfl::kWgradF32Narrow;
+  const bool bf16_route =
+      route == p2pfl::kWgradGeneral || route == p2pfl::kWgradWide;
+  TORCH_CHECK(f32 ? f32_route : bf16_route,
+              msg("stream_wgrad: route ", route, " does not take ", dt));
   const c10::cuda::CUDAGuard guard(x.device());
   const int n = as_int(x.size(0), "n"), M = as_int(x.size(1), "M");
   const int K = as_int(x.size(2), "K"), N = as_int(g.size(2), "N");
@@ -113,15 +118,16 @@ torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, bool wide,
   auto out = torch::empty({n, K, N}, f32_opts);
   if (out.numel() == 0) return out;
   if (M == 0) return out.zero_();
-  const int unit = f32    ? p2pfl::kWgradF32Rows
-                   : wide ? p2pfl::kWgradWideRows
-                          : p2pfl::kWgradGeneralRows;
+  const int unit = route == p2pfl::kWgradGeneral  ? p2pfl::kWgradGeneralRows
+                   : route == p2pfl::kWgradWide   ? p2pfl::kWgradWideRows
+                   : route == p2pfl::kWgradF32Tc  ? p2pfl::kWgradF32TcRows
+                                                  : p2pfl::kWgradF32NarrowRows;
   TORCH_CHECK(rows > 0 && rows % unit == 0 && slices > 0 &&
                   rows * slices >= M && rows * (slices - 1) < M,
               msg("stream_wgrad: ", slices, " slices of ", rows,
                   " rows do not cut M = ", M, " (rows a multiple of ", unit,
                   ")"));
-  if (wide) {
+  if (route == p2pfl::kWgradWide) {
     const auto aligned = [](const torch::Tensor& t) {
       return reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0;
     };
@@ -132,17 +138,20 @@ torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, bool wide,
   torch::Tensor partial;
   if (slices > 1) partial = torch::empty({n, slices, K, N}, f32_opts);
   float* part = slices > 1 ? partial.data_ptr<float>() : nullptr;
-  if (f32)
+  if (f32) {
     p2pfl::launch_stream_wgrad_f32(
         x.data_ptr<float>(), g.data_ptr<float>(), part,
-        out.data_ptr<float>(), n, M, K, N, as_int(rows, "rows"),
-        as_int(slices, "slices"), at::cuda::getCurrentCUDAStream());
-  else
+        out.data_ptr<float>(), n, M, K, N, static_cast<int>(route),
+        as_int(rows, "rows"), as_int(slices, "slices"),
+        at::cuda::getCurrentCUDAStream());
+  } else {
     p2pfl::launch_stream_wgrad(x.data_ptr(), g.data_ptr(), part,
                                out.data_ptr<float>(), n, M, K, N,
-                               wide ? 1 : 0, as_int(rows, "rows"),
+                               route == p2pfl::kWgradWide ? 1 : 0,
+                               as_int(rows, "rows"),
                                as_int(slices, "slices"),
                                at::cuda::getCurrentCUDAStream());
+  }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }

@@ -1,37 +1,50 @@
-// K1 and K3 in float32: the instantiations of
-// p2pfl_tpu/ops/pallas_gemm.py::_stream_gemm (:116, pallas_call :122) and
-// ::_dense_bwd (:249, :255) that the JAX package runs when the model
-// computes in float32 (its `_dot` is dtype-generic, :101-112).
+// K1, K2 and K3 in float32: the instantiations of
+// p2pfl_tpu/ops/pallas_gemm.py::_stream_gemm (:116, pallas_call :122),
+// ::_stream_wgrad (:171, :177) and ::_dense_bwd (:249, :255) that the JAX
+// package runs when the model computes in float32 (its `_dot` is
+// dtype-generic, :101-112).
 //
 //   K1: out[n, M, N] = x[n, M, K] @ w[n, K, N]
+//   K2: out[n, K, N] = x[n, M, K]^T @ g[n, M, N], summed over M
 //   K3: dx[n, B, D] = g @ w^T and dw[n, D, H] = x^T @ g in one launch
 //
 // Bound on an H100 SXM at the f32 arm's ring step (8 nodes x 336
 // FEMNIST-CNN samples), counting the least work that gives an
 // f32-accurate product on this card: three TF32 passes at 495 TFLOP/s,
-// or the bytes at 3.35 TB/s, whichever is longer. conv2's forward (M =
-// 65,856 a node, K = 800, N = 64): 54 GFLOP over 1.8 GB, bytes, 0.54 ms
-// (three TF32 passes 0.33 ms; exact SIMT FFMA at 67 TFLOP/s 0.80 ms).
-// dense1's backward (B = 336, D = 3136, H = 2048): 69 GFLOP, operations,
-// 3 x 69 / 495 = 0.42 ms (bytes 0.15 ms; SIMT 1.03 ms). conv1's forward
-// (K = 25, N = 32): bytes, 0.48 GB, 0.14 ms.
+// or the bytes at 3.35 TB/s, whichever is longer. conv2's forward and
+// weight gradient (M = 65,856 a node, K = 800, N = 64): 54 GFLOP over
+// 1.8 GB, bytes, 0.54 ms (three TF32 passes 0.33 ms; exact SIMT FFMA at
+// 67 TFLOP/s 0.80 ms). dense1's backward (B = 336, D = 3136, H = 2048):
+// 69 GFLOP, operations, 3 x 69 / 495 = 0.42 ms (bytes 0.15 ms; SIMT 1.03
+// ms). conv1's forward and weight gradient (K = 25, N = 32): bytes, 0.48
+// GB, 0.14 ms; the ResNet9 stem's weight gradient (16 x 131,072 rows,
+// K = 27, N = 64): bytes, 0.76 GB, 0.23 ms (7.2 GFLOP: FFMA 0.11 ms).
 //
-// Design, K >= 33 (conv2's forward, dense1's backward): 3xTF32 on wgmma.
+// Design, K >= 33 (conv2's forward and weight gradient, dense1's
+// backward): 3xTF32 on wgmma.
 // Each f32 operand a is split into hi = RN_tf32(a) and lo = RN_tf32(a -
 // hi) (cvt.rna.tf32.f32; the tensor core is never handed a raw f32,
 // whose low 13 bits it would drop), |a - hi - lo| <= 2^-22 |a|, and the
 // product is hi.hi + hi.lo + lo.hi, three wgmma m64nNk8 with f32
 // accumulators. wgmma takes TF32 operands from shared memory only
 // K-major, so:
-//   - the large operand (x for K1; w for dx^T and x for dw in K3) is A:
-//     TMA loads 128-row x 32-deep f32 boxes in the 128-byte swizzle into
-//     a ring of stages (one producer warp, mbarriers); each consumer
+//   - the large operand (x for K1 and K2; w for dx^T and x for dw in K3)
+//     is A: TMA loads 128-row x 32-deep f32 boxes in the 128-byte swizzle
+//     into a ring of stages (one producer warp, mbarriers); each consumer
 //     warpgroup reads its 64 rows' fragments from shared memory, splits
 //     them in registers and issues wgmma with A from registers, so A may
-//     lie K-major (x, w) or M-major (x for dw) in device memory;
-//   - the small operand (w for K1, g for K3) is B: a pre-pass in this
-//     file splits it once a call into hi and lo, K-major, into scratch
-//     the binding allocates ([n, 2, rows, depth]), which TMA loads like A.
+//     lie K-major (x for K1, w) or M-major (x for K2 and dw) in device
+//     memory;
+//   - the small operand (w for K1, g for K2 and K3) is B. K1 and K3: a
+//     pre-pass in this file splits it once a call into hi and lo,
+//     K-major, into scratch the binding allocates ([n, 2, rows, depth]),
+//     which TMA loads like A. K2: g is as long as x (conv2: 135 MB), and
+//     such a pre-pass would read it and write its two halves (405 MB,
+//     0.12 ms at the card's bytes rate beside a 0.54 ms bound) and the
+//     GEMM read them again; instead TMA loads g's raw 32 x 64 box into
+//     the stage and a fourth warpgroup (the transposer) splits it into B's
+//     two halves in shared memory, in the layout the pre-pass writes,
+//     fences them for wgmma and arrives on the stage's `ready` barrier.
 // The k order inside each 8-deep step is permuted identically in A and
 // B (the pre-pass writes B permuted), so that a thread's A fragment is
 // two 16-byte loads a row (K-major) or one 8-byte load of two rows
@@ -41,7 +54,12 @@
 // padded, as the bf16 K3's 336 -> 384), with B's 336 columns as three
 // 112-wide tiles; its transpose needs no staging: a warp's store writes 8
 // consecutive d for each of 4 b, whole 32-byte sectors. dw runs 128-wide
-// tiles; K1 64-wide (N = 64).
+// tiles; K1 and K2 64-wide (N = 64). K2 is dw's form (A M-major) over a
+// long contraction and a small output (conv2: 7 tiles of 128 x 64 a
+// node): its rows are cut into the slices of ops/gemm.py::wgrad_plan
+// (route f32_tc, 32-row multiples), the work items are (tile, slice)
+// pairs, each writing its partial to [n, slices, K, N], and a second
+// kernel adds the partials in slice order.
 // Accumulation: the tensor core adds each wgmma's products into its f32
 // accumulator by truncation, not rounding to nearest (probed on the card
 // by wgmma_acc_probe below; Fasi, Higham, Mikaitis and Pranesh found the
@@ -50,8 +68,9 @@
 // 0), and the box's sum is added to an f32 register sum with
 // round-to-nearest fadd (as FP8 GEMMs promote): every output is the same
 // sum of boxes in the same order, so two runs give the same bits.
-// Pipeline: one 288-thread persistent block per SM, warp 8 the producer,
-// two consumer warpgroups of 64 rows each; a warpgroup waits for its
+// Pipeline: one 288-thread persistent block per SM (K2: 416 with the
+// transposer), warp 8 the producer, two consumer warpgroups of 64 rows
+// each; a warpgroup waits for its
 // box's wgmma before it splits the next, and the other warpgroup's
 // wgmma fill the gap. K3 walks one tile list of both products, dx^T's
 // tiles first, dealt to the blocks so that a block with one dx^T tile
@@ -59,17 +78,25 @@
 // read (not 16-byte multiples) are loaded by the producer warp element
 // by element into the same layout (kTma = false).
 //
-// Design, K <= 32 (conv1's forward, K = 25): exact SIMT FFMA, one fmaf
-// chain a value in ascending k (the 3.4 GFLOP cost nothing). A block's
-// 128 rows of x are one contiguous span (12,800 bytes at K = 25), copied
-// with 16-byte cp.async into a ring of 4 stages; w's 32-column slice
-// stays in shared memory; a thread sums 2 rows x 8 columns and stores
-// them with 16-byte stores.
+// Design, K <= 32 (conv1's forward and weight gradient, K = 25; the
+// ResNet9 stem's, K = 27): exact SIMT FFMA, one fmaf chain a value in
+// ascending row (the 3.4 and 7.2 GFLOP cost less than the bytes). K1: a
+// block's 128 rows of x are one contiguous span (12,800 bytes at K =
+// 25), copied with 16-byte cp.async into a ring of 4 stages; w's
+// 32-column slice stays in shared memory; a thread sums 2 rows x 8
+// columns and stores them with 16-byte stores. K2 (route f32_narrow): a
+// persistent block walks its share of (node, slice, column tile) items;
+// a chunk's 64 rows of x and of g are each one contiguous span (x's rows
+// 100 or 108 bytes, g's 128 or 256), copied by 16-byte cp.async into a
+// ring of 3 stages; a thread sums a 4 x 4 block of the whole [K, N]
+// output in registers across the slice and writes its partial.
 //
-// Earlier design (gemm_f32.cu's SIMT tiles): 64 x 64 tiles, scalar loads,
-// FFMA: 2.489 ms for conv1 and conv2's forward together (0.437 + 2.045)
-// and 2.796 ms for dense1's backward, by chip_smoke.py (NVIDIA H100
-// 80GB HBM3, 700 W); PERF.md has its times beside this design's.
+// Earlier designs: gemm_f32.cu's SIMT tiles (64 x 64 tiles, scalar loads,
+// FFMA): 2.489 ms for conv1 and conv2's forward together (0.437 + 2.045),
+// 2.796 ms for dense1's backward, and for K2 0.83 ms at conv1's weight
+// gradient, 2.33 ms at conv2's and 0.738 ms at the stem's, by
+// chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W); PERF.md has their times
+// beside this design's.
 #include <algorithm>
 
 #include "hopper.cuh"
@@ -271,14 +298,15 @@ __global__ void __launch_bounds__(256)
 // the tensor-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128, kBoxK = 32, kThreads = 288, kConsumers = 256;
+constexpr int kBM = 128, kBoxK = 32, kConsumers = 256;
 constexpr int kABytes = kBM * 128;  // 128 rows x 32 f32
 constexpr int kSmemRing = 192 * 1024;
 
 // One product C = A B over the node axis. A(m, k) of node z lies at
 // a[z * a_node + m * a_ld + k] (K-major) or a[z * a_node + k * a_ld + m]
-// (M-major); B is the pre-pass's split [n, 2, b_rows, kboxes * 32];
-// C(m, j) at c[z * c_node + m * c_sm + j * c_sn].
+// (M-major); B is the pre-pass's split [n, 2, b_rows, kboxes * 32]
+// (K1, K3) or K2's g itself (TcParams::g); C(m, j) at
+// c[z * c_node + m * c_sm + j * c_sn].
 struct TcProblem {
   const float* a;
   long long a_node, a_ld;
@@ -290,11 +318,17 @@ struct TcProblem {
 
 struct TcParams {
   CUtensorMap a_map[2];  // A boxes 32 x 128 (K-major) or 32 x 32 (M-major)
-  CUtensorMap b_map[2];  // the split B, boxes 32 x BN
+  CUtensorMap b_map[2];  // the split B, boxes 32 x BN; K2: g, 64 x 32
   TcProblem pr[2];
   int tiles0, tiles;
   // problem-1 tiles a block takes after its problem-0 tiles (schedule())
   int hi1, lo1, extra1;
+  // K2 (problem 1): g [n, K, N]; the contraction cut into `slices`
+  // slices of kb_slice 32-deep boxes (its plan), slice s summed on its
+  // own into c + s * c_slice
+  const float* g;
+  int slices, kb_slice;
+  long long c_slice;
 };
 
 // Block b's share of the tile list: the problem-0 tiles b, b + G, ...,
@@ -323,21 +357,34 @@ __device__ __forceinline__ Share share_of(const TcParams& p) {
   return s;
 }
 
+// A work item: an output tile of problem p over the k-boxes [kb0, kb1):
+// all of them (K1, K3), or one slice's (K2, kWgrad: a node's items run
+// slice by slice, the tiles of a slice next to each other, sharing that
+// slice's g through L2).
 struct Tile {
-  int p, node, m0, n0;
+  int p, node, slice, m0, n0, kb0, kb1;
 };
 
-template <int kBN0, int kBN1>
+template <int kBN0, int kBN1, bool kWgrad>
 __device__ __forceinline__ Tile decode(const TcParams& p, int t) {
   Tile r;
   r.p = t < p.tiles0 ? 0 : 1;
   if (r.p) t -= p.tiles0;
   const TcProblem& pr = p.pr[r.p];
   const int per = pr.mt * pr.nt;
-  r.node = t / per;
+  r.slice = 0;
+  if constexpr (kWgrad) {
+    r.node = t / (per * p.slices);
+    t %= per * p.slices;
+    r.slice = t / per;
+  } else {
+    r.node = t / per;
+  }
   const int i = t % per;
   r.m0 = (i / pr.nt) * kBM;
   r.n0 = (i % pr.nt) * (r.p ? kBN1 : kBN0);
+  r.kb0 = kWgrad ? r.slice * p.kb_slice : 0;
+  r.kb1 = kWgrad ? min(pr.kboxes, r.kb0 + p.kb_slice) : pr.kboxes;
   return r;
 }
 
@@ -365,12 +412,76 @@ __device__ __forceinline__ void load_a_elems(const TcProblem& pr,
   }
 }
 
+// K2's g box of k-box kb (32 rows k x kBN columns j from n0, zero outside
+// g) into `s` as TMA writes it without swizzle, by the producer warp.
+template <int kBN>
+__device__ __forceinline__ void load_g_elems(const float* g0,
+                                             const TcProblem& pr,
+                                             const Tile& tl, int kb, char* s,
+                                             int lane) {
+  const float* g = g0 + tl.node * static_cast<long long>(pr.K) * pr.N;
+  float* d = reinterpret_cast<float*>(s);
+  for (int i = lane; i < kBoxK * kBN; i += 32) {
+    const int k = kb * kBoxK + i / kBN, j = tl.n0 + i % kBN;
+    d[i] = k < pr.K && j < pr.N ? g[static_cast<long long>(k) * pr.N + j]
+                                : 0.f;
+  }
+}
+
+// K2's transposer warpgroup: for each k-box, once g's box (32 rows k x
+// kBN columns j, row-major) has landed, writes its TF32 halves into the
+// stage's B as the pre-pass would (B(j, q) = half of g[k0 + perm(q)][j],
+// K-major, 128-byte swizzled), fences them for wgmma and arrives on
+// `ready`. Thread t splits column j = t % 64 at positions 16 (t / 64) ..
+// + 15, four at a time into one 16-byte chunk of each half.
+template <int kBN, int kBN0, int kBN1, int kStages, int kStageBytes,
+          int kBOff>
+__device__ __forceinline__ void transpose_g(const TcParams& p, const Share& sh,
+                                            char* smem, uint64_t* full,
+                                            uint64_t* ready, int t,
+                                            int lane) {
+  static_assert(kBN == 64, "one thread a column, two halves of the depth");
+  const int j = t & 63, q0 = 16 * (t >> 6);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < sh.n; ++i) {
+    const Tile tl = decode<kBN0, kBN1, true>(p, sh.tile(i));
+    for (int kb = tl.kb0; kb < tl.kb1; ++kb) {
+      sm90::mbar_wait(&full[stage], phase);
+      char* st = smem + stage * kStageBytes;
+      const float* g = reinterpret_cast<const float*>(st + kABytes + 2 * kBOff);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int q = q0 + 4 * c;
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(g[perm_mmajor(q + e) * kBN + j], hi[e], lo[e]);
+        *reinterpret_cast<uint4*>(st + kABytes + sm90::swz128(j, 4 * q)) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(st + kABytes + kBOff +
+                                  sm90::swz128(j, 4 * q)) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+      sm90::fence_proxy_async();
+      __syncwarp();
+      sm90::mbar_arrive_if(&ready[stage], lane == 0);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
 // One warpgroup's share of a tile: 64 rows x kBN columns over all k-boxes,
 // then its stores. kMM: A lies M-major (the fragment's rows paired).
-template <int kBN, bool kMM, int kStages, int kStageBytes, int kBOff>
+template <int kBN, bool kMM, int kStages, int kStageBytes, int kBOff,
+          bool kWgrad>
 __device__ __forceinline__ void consume(const TcProblem& pr, const Tile& tl,
-                                        char* smem, uint64_t* full,
-                                        uint64_t* empty, int& stage,
+                                        long long c_slice, char* smem,
+                                        uint64_t* full, uint64_t* empty,
+                                        uint64_t* ready, int& stage,
                                         uint32_t& phase, int wg, int lane,
                                         int wq) {
   const int gid = lane >> 2, tig = lane & 3;
@@ -379,8 +490,9 @@ __device__ __forceinline__ void consume(const TcProblem& pr, const Tile& tl,
 #pragma unroll
   for (int i = 0; i < kBN / 2; ++i) sum[i] = acc[i] = 0.f;
   sm90::fence_acc(acc);
-  for (int kb = 0; kb < pr.kboxes; ++kb) {
+  for (int kb = tl.kb0; kb < tl.kb1; ++kb) {
     sm90::mbar_wait(&full[stage], phase);
+    if constexpr (kWgrad) sm90::mbar_wait(&ready[stage], phase);
     char* st = smem + stage * kStageBytes;
     uint32_t hi[4][4], lo[4][4];
     if constexpr (!kMM) {
@@ -452,6 +564,7 @@ __device__ __forceinline__ void consume(const TcProblem& pr, const Tile& tl,
   }
   // d[4j + 2h + e] is fragment row gid + 8h, column 8j + 2 tig + e
   float* c = pr.c + tl.node * pr.c_node;
+  if constexpr (kWgrad) c += tl.slice * c_slice;
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
@@ -469,59 +582,79 @@ __device__ __forceinline__ void consume(const TcProblem& pr, const Tile& tl,
 }
 
 // kBN0: problem 0's tile width (A K-major); kBN1: problem 1's (A
-// M-major), 0 for one problem. One instantiation a kernel: K1 <64, 0>,
-// K3 <112, 128>.
-template <int kBN0, int kBN1>
+// M-major); 0 for a problem that is absent. One instantiation a kernel:
+// K1 <64, 0>, K3 <112, 128>, K2 <0, 64> with kWgrad: sliced, and g split
+// in shared memory by a fourth warpgroup (no pre-pass; a stage holds g's
+// 32 x 64 box beside the B it is split into).
+template <int kBN0, int kBN1, bool kWgrad>
 struct TcCfg {
   static constexpr int kBNMax = kBN0 > kBN1 ? kBN0 : kBN1;
   static constexpr int kBOff = kBNMax * 128;  // lo after hi
-  static constexpr int kStageBytes = kABytes + 2 * kBOff;
+  static constexpr int kGBytes = kWgrad ? kBoxK * kBNMax * 4 : 0;
+  static constexpr int kStageBytes = kABytes + 2 * kBOff + kGBytes;
   static constexpr int kStages = kSmemRing / kStageBytes;
   static constexpr int kSmem = 1024 + kStages * kStageBytes + 256;
+  // consumer warpgroups, the producer warp, K2's transposer warpgroup
+  static constexpr int kThreads = kConsumers + 32 + (kWgrad ? 128 : 0);
 };
 
-template <bool kTma, int kBN0, int kBN1>
-__global__ void __launch_bounds__(kThreads, 1)
+template <bool kTma, int kBN0, int kBN1, bool kWgrad>
+__global__ void __launch_bounds__(TcCfg<kBN0, kBN1, kWgrad>::kThreads, 1)
     gemm_tc_kernel(const __grid_constant__ TcParams p) {
-  using Cfg = TcCfg<kBN0, kBN1>;
+  using Cfg = TcCfg<kBN0, kBN1, kWgrad>;
   constexpr int kStages = Cfg::kStages, kStageBytes = Cfg::kStageBytes;
   extern __shared__ char raw[];
   char* smem = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
+  uint64_t* ready = empty + kStages;  // K2: B split from g
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&empty[s], kConsumers / 32);
+      if constexpr (kWgrad) sm90::mbar_init(&ready[s], 4);
     }
     sm90::fence_barrier_init();
   }
   __syncthreads();
   const Share sh = share_of(p);
 
+  if constexpr (kWgrad) {
+    if (warp > kConsumers / 32) {
+      transpose_g<kBN1, kBN0, kBN1, kStages, kStageBytes, Cfg::kBOff>(
+          p, sh, smem, full, ready, threadIdx.x - kConsumers - 32, lane);
+      return;
+    }
+  }
   if (warp == kConsumers / 32) {
     // the producer warp
     if (kTma && lane != 0) return;
     int stage = 0;
     uint32_t phase = 0;
     for (int i = 0; i < sh.n; ++i) {
-      const Tile tl = decode<kBN0, kBN1>(p, sh.tile(i));
+      const Tile tl = decode<kBN0, kBN1, kWgrad>(p, sh.tile(i));
       const TcProblem& pr = p.pr[tl.p];
       const int bn = tl.p ? kBN1 : kBN0;
       const bool mmajor = tl.p == 1;
-      for (int kb = 0; kb < pr.kboxes; ++kb) {
+      for (int kb = tl.kb0; kb < tl.kb1; ++kb) {
         sm90::mbar_wait(&empty[stage], phase ^ 1);
         char* s = smem + stage * kStageBytes;
         if constexpr (!kTma) {
           load_a_elems(pr, tl, kb, s, mmajor, lane);
+          if constexpr (kWgrad)
+            load_g_elems<kBN1>(p.g, pr, tl, kb,
+                               s + kABytes + 2 * Cfg::kBOff, lane);
           __syncwarp();
         }
         if (lane == 0) {
+          // K2's g box (by TMA where A is), or B's two halves (always)
+          const int b_bytes = kWgrad ? (kTma ? Cfg::kGBytes : 0)
+                                     : 2 * bn * 128;
           sm90::mbar_expect_tx(&full[stage],
-                               (kTma ? kABytes : 0) + 2 * bn * 128);
+                               (kTma ? kABytes : 0) + b_bytes);
           if constexpr (kTma) {
             if (!mmajor) {
               sm90::tma_load_3d(s, &p.a_map[tl.p], &full[stage], kb * kBoxK,
@@ -533,11 +666,17 @@ __global__ void __launch_bounds__(kThreads, 1)
                                   tl.m0 + 32 * j, kb * kBoxK, tl.node);
             }
           }
-          sm90::tma_load_3d(s + kABytes, &p.b_map[tl.p], &full[stage],
-                            kb * kBoxK, tl.n0, tl.node);
-          sm90::tma_load_3d(s + kABytes + Cfg::kBOff, &p.b_map[tl.p],
-                            &full[stage], kb * kBoxK, pr.b_rows + tl.n0,
-                            tl.node);
+          if constexpr (kWgrad) {
+            if constexpr (kTma)
+              sm90::tma_load_3d(s + kABytes + 2 * Cfg::kBOff, &p.b_map[tl.p],
+                                &full[stage], tl.n0, kb * kBoxK, tl.node);
+          } else {
+            sm90::tma_load_3d(s + kABytes, &p.b_map[tl.p], &full[stage],
+                              kb * kBoxK, tl.n0, tl.node);
+            sm90::tma_load_3d(s + kABytes + Cfg::kBOff, &p.b_map[tl.p],
+                              &full[stage], kb * kBoxK, pr.b_rows + tl.n0,
+                              tl.node);
+          }
         }
         if (++stage == kStages) {
           stage = 0;
@@ -552,16 +691,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   int stage = 0;
   uint32_t phase = 0;
   for (int i = 0; i < sh.n; ++i) {
-    const Tile tl = decode<kBN0, kBN1>(p, sh.tile(i));
+    const Tile tl = decode<kBN0, kBN1, kWgrad>(p, sh.tile(i));
     if constexpr (kBN1 > 0) {
       if (tl.p) {
-        consume<kBN1, true, kStages, kStageBytes, Cfg::kBOff>(
-            p.pr[1], tl, smem, full, empty, stage, phase, wg, lane, wq);
+        consume<kBN1, true, kStages, kStageBytes, Cfg::kBOff, kWgrad>(
+            p.pr[1], tl, p.c_slice, smem, full, empty, ready, stage, phase,
+            wg, lane, wq);
         continue;
       }
     }
-    consume<kBN0, false, kStages, kStageBytes, Cfg::kBOff>(
-        p.pr[0], tl, smem, full, empty, stage, phase, wg, lane, wq);
+    if constexpr (kBN0 > 0)
+      consume<kBN0, false, kStages, kStageBytes, Cfg::kBOff, kWgrad>(
+          p.pr[0], tl, p.c_slice, smem, full, empty, ready, stage, phase,
+          wg, lane, wq);
   }
 }
 
@@ -679,6 +821,207 @@ __global__ void __launch_bounds__(kNThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K2, K <= 32: exact SIMT FFMA over contiguous row spans
+// ---------------------------------------------------------------------------
+
+constexpr int kWnRows = kWgradF32NarrowRows;  // rows a chunk
+constexpr int kWnStages = 3;
+constexpr int kWnCols = 64;   // g columns a tile at most
+constexpr int kWnDepth = 32;  // x columns a tile at most
+constexpr int kWnMaxThreads = (kWnDepth / 4) * (kWnCols / 4);
+
+// A work item is (node, slice, column tile, depth tile): out(k, c) = the
+// sum over the slice's rows r, ascending, of x[r, k] g[r, c], for the
+// tile's k and c, one fmaf chain a value. Thread t < kgs * cgs sums the
+// 4 x 4 block k = k0 + 4 (t / cgs) + i, c = c0 + 4 (t % cgs) + j. At K <=
+// 32 (the route's shapes) one depth tile holds every k, and a chunk's
+// rows of x are one span; a wider K (a contraction of one box or less,
+// which the plan sends here) is gathered 32 columns a tile.
+struct WgradNarrowParams {
+  const float* x;  // [n, M, K]
+  const float* g;  // [n, M, N]
+  float* out;      // [n, slices, K, N]
+  int M, K, N, rows, slices, ctiles, ktiles, kgs, cgs;
+  int ldx;    // x's row stride in a stage: K (a span) or kWnDepth
+  int ldg;    // g's: N (a span) or kWnCols
+  int xspan;  // x's tile is the whole row (K <= 32)
+  int span;   // g's tile is the whole row (N <= 64, N % 4 == 0)
+  int stage_floats, x_floats;
+  long long items;
+};
+
+int wgrad_narrow_smem(const WgradNarrowParams& p) {
+  return kWnStages * p.stage_floats * 4;
+}
+
+// `count` floats from src to dst (16-byte aligned): 16-byte cp.async
+// where src is 16-byte aligned, 4-byte ones for the rest
+__device__ __forceinline__ void span_copy(float* dst, const float* src,
+                                          int count) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = threadIdx.x; i < count / 4; i += blockDim.x)
+      sm90::cp_async16(dst + 4 * i, src + 4 * i);
+    done = count / 4 * 4;
+  }
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x)
+    sm90::cp_async4(dst + i, src + i);
+}
+
+__global__ void __launch_bounds__(kWnMaxThreads)
+    wgrad_narrow_f32_kernel(const WgradNarrowParams p) {
+  extern __shared__ __align__(16) float wsm[];
+  const int K = p.K, t = threadIdx.x;
+  const long long i0 = p.items * blockIdx.x / gridDim.x;
+  const long long i1 = p.items * (blockIdx.x + 1) / gridDim.x;
+  // item i: node i / (slices * ctiles * ktiles), then its slice, its
+  // column tile, its depth tile innermost; a slice's rows [r0, r_end) of
+  // its node
+  struct Item {
+    long long node;
+    int slice, ct, kt, r0, r_end, chunks;
+  };
+  auto item = [&](long long i) {
+    Item it;
+    const int tiles = p.ctiles * p.ktiles;
+    it.node = i / (static_cast<long long>(p.slices) * tiles);
+    const int rest = static_cast<int>(i % (static_cast<long long>(p.slices) *
+                                           tiles));
+    it.slice = rest / tiles;
+    it.ct = rest % tiles / p.ktiles;
+    it.kt = rest % p.ktiles;
+    it.r0 = it.slice * p.rows;
+    it.r_end = min(p.M, it.r0 + p.rows);
+    it.chunks = (it.r_end - it.r0 + kWnRows - 1) / kWnRows;
+    return it;
+  };
+  // chunk c of item `it` into stage s: x's and g's rows each as one span
+  // (xspan, span) or the tile's columns row by row, zero past K or N
+  auto issue = [&](const Item& it, int c, int s) {
+    const int r = it.r0 + c * kWnRows;
+    const int rows = min(kWnRows, it.r_end - r);
+    float* xs = wsm + s * p.stage_floats;
+    float* gs = xs + p.x_floats;
+    const long long row = it.node * p.M + r;
+    if (p.xspan) {
+      span_copy(xs, p.x + row * K, rows * K);
+    } else {
+      const int k0 = it.kt * kWnDepth;
+      for (int e = t; e < rows * kWnDepth; e += blockDim.x) {
+        const int rr = e / kWnDepth, kk = k0 + e % kWnDepth;
+        const float* src = p.x + (row + rr) * K + (kk < K ? kk : 0);
+        sm90::cp_async4(xs + e, src, kk < K ? 4 : 0);
+      }
+    }
+    if (p.span) {
+      span_copy(gs, p.g + row * p.N, rows * p.N);
+    } else {
+      const int c0 = it.ct * kWnCols;
+      for (int e = t; e < rows * kWnCols; e += blockDim.x) {
+        const int rr = e / kWnCols, cc = c0 + e % kWnCols;
+        const float* src = p.g + (row + rr) * p.N + (cc < p.N ? cc : 0);
+        sm90::cp_async4(gs + rr * kWnCols + e % kWnCols, src,
+                        cc < p.N ? 4 : 0);
+      }
+    }
+  };
+  // the issue side walks (item, chunk) kWnStages - 1 ahead of the sums
+  long long in_i = i0;
+  int in_c = 0;
+  Item in_it = item(i0);
+  auto issue_next = [&](int s) {
+    if (in_i < i1) {
+      issue(in_it, in_c, s);
+      if (++in_c == in_it.chunks) {
+        in_c = 0;
+        if (++in_i < i1) in_it = item(in_i);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  for (int s = 0; s < kWnStages - 1; ++s) issue_next(s);
+
+  const bool mine = t < p.kgs * p.cgs;
+  const int kg = mine ? t / p.cgs : 0, cg = mine ? t % p.cgs : 0;
+  float acc[4][4] = {};
+  int stage = 0;
+  for (long long i = i0; i < i1; ++i) {
+    const Item it = item(i);
+    for (int c = 0; c < it.chunks; ++c) {
+      sm90::cp_async_wait<kWnStages - 2>();
+      __syncthreads();  // chunk c has landed; every thread is done with
+                        // the stage the next issue refills
+      issue_next(stage == 0 ? kWnStages - 1 : stage - 1);
+      const float* xs = wsm + stage * p.stage_floats + 4 * kg;
+      const int ldx = p.ldx;
+      const float* gs = wsm + stage * p.stage_floats + p.x_floats + 4 * cg;
+      const int rows = min(kWnRows, it.r_end - it.r0 - c * kWnRows);
+      if (mine) {
+#pragma unroll 4
+        for (int r = 0; r < rows; ++r) {
+          // k past K reads the next row's values (or the stage's
+          // padding) into sums that are never stored
+          const float xv[4] = {xs[r * ldx], xs[r * ldx + 1],
+                               xs[r * ldx + 2], xs[r * ldx + 3]};
+          const float4 gv = *reinterpret_cast<const float4*>(gs + r * p.ldg);
+          const float gw[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              acc[a][b] = fmaf(xv[a], gw[b], acc[a][b]);
+        }
+      }
+      stage = stage == kWnStages - 1 ? 0 : stage + 1;
+    }
+    if (mine) {
+      float* o = p.out + ((it.node * p.slices + it.slice) *
+                              static_cast<long long>(K)) * p.N;
+      const int c0 = it.ct * kWnCols + 4 * cg;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int k = it.kt * kWnDepth + 4 * kg + a;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (k < K && c0 + b < p.N) o[k * p.N + c0 + b] = acc[a][b];
+          acc[a][b] = 0.f;
+        }
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+}
+
+// out[node, e] = sum over s in order of partial[node, s, e]. A few
+// thousand outputs take hundreds of slices each (conv1: 6,400 x 458), so
+// the pass is bound by load latency: each thread loads kSumBatch slices
+// into registers before it adds them, in order.
+constexpr int kSumBatch = 32;
+
+__global__ void slice_sum_f32_kernel(const float* __restrict__ partial,
+                                     float* __restrict__ out, int slices,
+                                     long long per_node, long long total) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long node = i / per_node, e = i % per_node;
+    const float* q = partial + node * slices * per_node + e;
+    float s = 0.0f;
+    for (int k = 0; k < slices; k += kSumBatch, q += kSumBatch * per_node) {
+      const int n = min(kSumBatch, slices - k);
+      float v[kSumBatch];
+#pragma unroll
+      for (int j = 0; j < kSumBatch; ++j)
+        v[j] = j < n ? q[j * per_node] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < kSumBatch; ++j)
+        if (j < n) s += v[j];
+    }
+    out[i] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the accumulation probe
 // ---------------------------------------------------------------------------
 
@@ -753,22 +1096,25 @@ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // A TMA descriptor of an f32 operand [n, outer, inner] (row stride ld
 // elements, node stride node elements) loading boxes of 32 x box_rows in
-// the 128-byte swizzle, zero-filled outside the operand.
+// the 128-byte swizzle (or, for K2's g, box_inner x box_rows unswizzled),
+// zero-filled outside the operand.
 CUtensorMap make_tmap_f32(const float* p, int inner, int outer, int n,
-                          long long ld, long long node, int box_rows) {
+                          long long ld, long long node, int box_rows,
+                          int box_inner = 32, bool swizzle = true) {
   CUtensorMap m;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer),
                               static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 4,
                                  static_cast<cuuint64_t>(node) * 4};
-  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = sm90::encode_tiled()(
       &m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(p), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS)
     throw std::runtime_error("cuTensorMapEncodeTiled failed: " +
                              std::to_string(static_cast<int>(r)));
@@ -827,13 +1173,15 @@ void schedule(TcParams& p, int grid, int bn0, int bn1) {
   p.extra1 = rest - p.lo1 * (grid - r);
 }
 
-template <bool kTma, int kBN0, int kBN1>
+template <bool kTma, int kBN0, int kBN1, bool kWgrad = false>
 void launch_tc(const TcParams& p, cudaStream_t stream) {
-  constexpr int smem = TcCfg<kBN0, kBN1>::kSmem;
-  cudaFuncSetAttribute(gemm_tc_kernel<kTma, kBN0, kBN1>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using Cfg = TcCfg<kBN0, kBN1, kWgrad>;
+  cudaFuncSetAttribute(gemm_tc_kernel<kTma, kBN0, kBN1, kWgrad>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       Cfg::kSmem);
   const int grid = p.tiles < sm90::sm_count() ? p.tiles : sm90::sm_count();
-  gemm_tc_kernel<kTma, kBN0, kBN1><<<grid, kThreads, smem, stream>>>(p);
+  gemm_tc_kernel<kTma, kBN0, kBN1, kWgrad>
+      <<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
 }
 
 // The A map of a problem (K-major: boxes of 32 k x 128 rows; M-major:
@@ -859,7 +1207,7 @@ bool tma_ok(const float* p, long long ld, long long node) {
          node % 4 == 0;
 }
 
-constexpr int kK1BN = 64, kDxBN = 112, kDwBN = 128;
+constexpr int kK1BN = 64, kDxBN = 112, kDwBN = 128, kK2BN = 64;
 
 }  // namespace
 
@@ -957,6 +1305,82 @@ void launch_dense_bwd_f32(const float* x, const float* w, const float* g,
     launch_tc<true, kDxBN, kDwBN>(p, stream);
   else
     launch_tc<false, kDxBN, kDwBN>(p, stream);
+}
+
+void launch_stream_wgrad_f32(const float* x, const float* g, float* partial,
+                             float* out, int n, int M, int K, int N,
+                             int route, int rows, int slices,
+                             cudaStream_t stream) {
+  if (n == 0 || M == 0 || K == 0 || N == 0) return;
+  const long long KN = static_cast<long long>(K) * N;
+  float* dst = slices > 1 ? partial : out;
+  if (route == kWgradF32Tc) {
+    TcParams p;
+    // A(k, m) = x[m, k] (M-major); B(c, m) = g[m, c], split in shared
+    // memory; C(k, c) = dst[slice][k, c]
+    p.pr[1] = tc_problem(x, static_cast<long long>(M) * K, K, dst,
+                         slices * KN, N, 1, K, N, M, kK2BN, 0);
+    p.g = g;
+    p.slices = slices;
+    p.kb_slice = rows / kBoxK;
+    p.c_slice = KN;
+    p.pr[0] = p.pr[1];  // no tiles
+    p.tiles0 = 0;
+    p.tiles = n * p.pr[1].mt * p.pr[1].nt * slices;
+    const long long MN = static_cast<long long>(M) * N;
+    const bool tma = tma_ok(x, K, static_cast<long long>(M) * K) &&
+                     tma_ok(g, N, MN);
+    if (tma) {
+      p.a_map[1] = make_tmap_f32(x, K, M, n, K,
+                                 static_cast<long long>(M) * K, 32);
+      p.b_map[1] = make_tmap_f32(g, N, M, n, N, MN, kBoxK, kK2BN, false);
+    }
+    const int grid = p.tiles < sm90::sm_count() ? p.tiles : sm90::sm_count();
+    schedule(p, grid, kK2BN, kK2BN);
+    if (tma)
+      launch_tc<true, 0, kK2BN, true>(p, stream);
+    else
+      launch_tc<false, 0, kK2BN, true>(p, stream);
+  } else {
+    WgradNarrowParams p;
+    p.x = x;
+    p.g = g;
+    p.out = dst;
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    p.rows = rows;
+    p.slices = slices;
+    p.ctiles = (N + kWnCols - 1) / kWnCols;
+    p.ktiles = (K + kWnDepth - 1) / kWnDepth;
+    p.xspan = K <= kWnDepth;
+    p.ldx = p.xspan ? K : kWnDepth;
+    p.kgs = (p.xspan ? K + 3 : kWnDepth) / 4;
+    p.span = N <= kWnCols && N % 4 == 0;
+    p.ldg = p.span ? N : kWnCols;
+    p.cgs = (p.span ? N : kWnCols) / 4;
+    // x's rows plus padding for the k past K that a span's last row reads
+    p.x_floats = round_up(kWnRows * p.ldx + 4, 4);
+    p.stage_floats = p.x_floats + kWnRows * p.ldg;
+    p.items = static_cast<long long>(n) * slices * p.ctiles * p.ktiles;
+    const int threads = round_up(p.kgs * p.cgs, 32);
+    const int smem = wgrad_narrow_smem(p);
+    cudaFuncSetAttribute(wgrad_narrow_f32_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int per_sm = 1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, wgrad_narrow_f32_kernel, threads, smem);
+    const long long cap =
+        static_cast<long long>(per_sm < 1 ? 1 : per_sm) * sm90::sm_count();
+    const int grid = static_cast<int>(p.items < cap ? p.items : cap);
+    wgrad_narrow_f32_kernel<<<grid, threads, smem, stream>>>(p);
+  }
+  if (slices > 1) {
+    const long long total = KN * n;
+    const int blocks = static_cast<int>((total + 255) / 256);
+    slice_sum_f32_kernel<<<blocks, 256, 0, stream>>>(partial, out, slices,
+                                                     KN, total);
+  }
 }
 
 void launch_wgmma_acc_probe(const float* a, const float* bt, float* d_tc,

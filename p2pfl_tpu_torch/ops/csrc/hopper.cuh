@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the port's kernels (K1, K2, K3 and
-// K6), as inline PTX: mbarriers, TMA tensor loads, 16-byte cp.async,
+// K6), as inline PTX: mbarriers, TMA tensor loads, 16- and 4-byte cp.async,
 // wgmma descriptors and instructions, and the host-side encoding of TMA
 // descriptors (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint so the build needs no -lcuda).
@@ -149,6 +149,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// 4 bytes; with src_bytes 0 the destination is zero-filled and nothing
+// is read
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          uint32_t src_bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -238,11 +248,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x 128] += A[64 x 16] B[16 x 128], bf16 in, f32 sums; kTA / kTB:
-// 0 = K-major, 1 = MN-major.
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 in, f32 sums; kTA /
+// kTB: 0 = K-major, 1 = MN-major; scale_d = 0 overwrites D.
 template <int kTA, int kTB>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
-                                              uint64_t db) {
+                                              uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -272,7 +282,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
 // D[64 x 256] += A[64 x 16] B[16 x 256], as above.

@@ -16,12 +16,26 @@ void launch_stream_gemm(const void* x, const void* w, void* out, int n,
 // Each node's rows are cut into `slices` slices of `rows` rows (the last
 // one shorter), each summed on its own; when there is more than one,
 // `partial` (n * slices * K * N floats) holds the slices' sums, which a
-// second kernel adds in slice order. wide = 1 takes the TMA + wgmma
-// route (K and N multiples of 8, 16-byte-aligned bases; rows a multiple
-// of kWgradWideRows), wide = 0 the mma.sync route (any width; rows a
-// multiple of kWgradGeneralRows).
-constexpr int kWgradWideRows = 32;
+// second kernel adds in slice order. The route (ops/gemm.py::
+// WGRAD_ROUTES, in this order) and its unit of rows:
+//   kWgradGeneral (bf16, cp.async + mma.sync, any width): rows a
+//     multiple of kWgradGeneralRows;
+//   kWgradWide (bf16, TMA + wgmma; K and N multiples of 8, 16-byte-
+//     aligned bases): kWgradWideRows;
+//   kWgradF32Tc (f32, 3xTF32 on wgmma): kWgradF32TcRows;
+//   kWgradF32Narrow (f32, exact FFMA; the plan's route at K <= 32 and
+//     at M <= 32): kWgradF32NarrowRows.
+enum WgradRoute {
+  kWgradGeneral = 0,
+  kWgradWide = 1,
+  kWgradF32Tc = 2,
+  kWgradF32Narrow = 3
+};
+constexpr int kWgradWideRows = 64;
 constexpr int kWgradGeneralRows = 256;
+constexpr int kWgradF32TcRows = 32;
+constexpr int kWgradF32NarrowRows = 64;
+// The bf16 routes (stream_wgrad.cu): wide = 1 for kWgradWide.
 void launch_stream_wgrad(const void* x, const void* g, float* partial,
                          float* out, int n, int M, int K, int N, int wide,
                          int rows, int slices, cudaStream_t stream);
@@ -31,14 +45,6 @@ void launch_stream_wgrad(const void* x, const void* g, float* partial,
 void launch_dense_bwd(const void* x, const void* w, const void* g,
                       void* dx, void* dw, int n, int B, int D, int H,
                       cudaStream_t stream);
-
-// K2 in float32 (gemm_f32.cu), the same function on f32 operands: each
-// node's rows cut as above, `rows` a multiple of kWgradF32Rows;
-// `partial` holds n * slices * K * N floats when slices > 1.
-constexpr int kWgradF32Rows = 16;
-void launch_stream_wgrad_f32(const float* x, const float* g, float* partial,
-                             float* out, int n, int M, int K, int N,
-                             int rows, int slices, cudaStream_t stream);
 
 // K1 and K3 in float32 (gemm_f32_tc.cu): 3xTF32 on wgmma for K > 32,
 // exact FFMA for K1 at K <= 32. `scratch` (16-byte aligned) holds the
@@ -52,6 +58,12 @@ void launch_stream_gemm_f32(const float* x, const float* w, float* out,
 void launch_dense_bwd_f32(const float* x, const float* w, const float* g,
                           float* dx, float* dw, float* scratch, int n, int B,
                           int D, int H, cudaStream_t stream);
+
+// K2 in float32 (gemm_f32_tc.cu) on the f32 routes above.
+void launch_stream_wgrad_f32(const float* x, const float* g, float* partial,
+                             float* out, int n, int M, int K, int N,
+                             int route, int rows, int slices,
+                             cudaStream_t stream);
 
 // The accumulation probe of gemm_f32_tc.cu: a [64, K] @ bt [64, K]^T
 // (K a multiple of 8) summed by wgmma m64n64k8 tf32 in one accumulator

@@ -25,16 +25,28 @@
 //     tiled as out^T = g^T x, so g's N columns form one wgmma M tile (64)
 //     and up to 256 of x's K columns its N side; x's 64-column boxes are
 //     dealt evenly to the column chunks (conv2's 13 as 4, 3, 3, 3). A
-//     block (one producer warp, one consumer warpgroup, two blocks an SM)
-//     streams 32-row stages of its slice by TMA from 3-D maps over
-//     [n, M, .] (zero-filled past M and past K or N) into a 5-stage
+//     block (one producer warp, two consumer warpgroups, one block an
+//     SM) streams 32-row stages of its slice by TMA from 3-D maps over
+//     [n, M, .] (zero-filled past M and past K or N) into an 8-stage
 //     mbarrier ring: one g box (32 x 64, 128-byte swizzled) and the
-//     chunk's x boxes, up to 20 KB a stage. The warpgroup runs wgmma
-//     m64n256k16 with both operands MN-major straight from the boxes
-//     (K3's dw form), so x and g are read from HBM once: a slice of g is
-//     shared through L2 by the blocks of its column chunks, which sit
-//     next to each other in the grid. f32 accumulators stay in registers
-//     for the whole slice.
+//     chunk's x boxes, up to 20 KB a stage. Each warpgroup runs wgmma
+//     m64n128k16 on its half of the chunk's columns with both operands
+//     MN-major straight from the boxes (K3's dw form), so x and g are
+//     read from HBM once: a slice of g is shared through L2 by the
+//     blocks of its column chunks, which sit next to each other in the
+//     grid. A slice is whole boxes of two stages (the plan's rows a
+//     multiple of 64). Sums: the tensor core adds each wgmma's products
+//     into its f32 accumulator by truncation (gemm_f32_tc.cu's probe), a
+//     bias that grows with the rows one accumulator takes (a whole
+//     slice of about 4,100 rows, as this route first did, summed farther
+//     from the f64 product than torch.matmul). So each box of kWBoxRows
+//     = 64 rows (two stages) starts from a fresh accumulator (scale-d 0)
+//     and its sum is added to an f32 register total with
+//     round-to-nearest fadd; 64 was the depth closest to f64 of 32 to
+//     512 in a CPU emulation of these sums
+//     (tests/test_torch_wgrad_numerics.py). The total and the box's
+//     accumulator take 128 registers a thread, so a chunk's 256 columns
+//     are split over two warpgroups.
 //   - general (any other width; conv1, whose 50-byte x rows defeat 2-D
 //     TMA): a block covers a 32 x 32 output tile and walks its slice in
 //     256-row chunks through a 3-stage cp.async ring. Where a tile spans
@@ -45,11 +57,13 @@
 //     copied element by element. Eight warps run mma.sync m16n8k16 on 32
 //     rows each, their fragments gathered from the raw rows by 16-bit
 //     loads, and the eight partial tiles are summed in warp order.
-// Earlier design (PR 1): one 128-thread block per 64 x 64 tile and
-// 4,096-row slice, x and g staged transposed through scalar 2-byte loads,
-// every 64-row K tile re-reading g: 3.008 ms for conv1 + conv2 at the
-// ring shape by chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W); PERF.md
-// has its time beside this design's.
+// Earlier designs: one 128-thread block per 64 x 64 tile and 4,096-row
+// slice, x and g staged transposed through scalar 2-byte loads, every
+// 64-row K tile re-reading g: 3.008 ms for conv1 + conv2 at the ring
+// shape by chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W); then this one
+// with the wide route's sums in one accumulator a slice (one consumer
+// warpgroup of m64n256, two blocks an SM): 0.438 ms. PERF.md has their
+// times beside this design's.
 #include "hopper.cuh"
 #include "kernels.h"
 
@@ -63,12 +77,15 @@ using sm90::Operand;
 // wide route: TMA + wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kWRows = kWgradWideRows;  // rows (depth) a stage
-constexpr int kWStages = 5;
+constexpr int kWBoxRows = kWgradWideRows;  // rows a fresh accumulator takes
+constexpr int kWRows = kWBoxRows / 2;       // rows (depth) a stage
+constexpr int kWStages = 8;
 constexpr int kWCols = 256;                // x columns a block at most
+constexpr int kWHalf = kWCols / 2;         // a consumer warpgroup's
 constexpr int kWBox = kWRows * 128;        // a 32 x 64 bf16 box
 constexpr int kWStageBytes = kWBox * (1 + kWCols / 64);
-constexpr int kWThreads = 160;             // warpgroup + producer warp
+constexpr int kWConsumerWarps = 8;         // two warpgroups
+constexpr int kWThreads = 32 * kWConsumerWarps + 32;  // + producer warp
 constexpr int kWSmem = 1024 + kWStages * kWStageBytes + 2 * kWStages * 8;
 
 struct WideParams {
@@ -81,7 +98,7 @@ struct WideParams {
   int chunks_k, box_base, extra;
 };
 
-__global__ void __launch_bounds__(kWThreads, 2)
+__global__ void __launch_bounds__(kWThreads, 1)
     wgrad_wide_kernel(const __grid_constant__ WideParams p) {
   extern __shared__ char raw[];
   char* smem = reinterpret_cast<char*>(
@@ -97,23 +114,25 @@ __global__ void __launch_bounds__(kWThreads, 2)
   const int n0 = (blockIdx.x / p.chunks_k) * 64;
   const int slice = blockIdx.y, node = blockIdx.z;
   const int row0 = slice * p.rows;
-  const int iters = (min(p.rows, p.M - row0) + kWRows - 1) / kWRows;
+  // whole boxes: a slice is a multiple of kWBoxRows rows, and the rows of
+  // the last box past the node's M are zero-filled by TMA
+  const int boxes = (min(p.rows, p.M - row0) + kWBoxRows - 1) / kWBoxRows;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWStages; ++s) {
       sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 4);  // one arrive per consumer warp
+      sm90::mbar_init(&empty[s], kWConsumerWarps);  // one arrive a warp
     }
     sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == 4) {
+  if (warp == kWConsumerWarps) {
     // producer: lane 0 keeps the ring full
     if (lane != 0) return;
     int stage = 0;
     uint32_t phase = 0;
-    for (int it = 0; it < iters; ++it) {
+    for (int it = 0; it < 2 * boxes; ++it) {
       sm90::mbar_wait(&empty[stage], phase ^ 1);
       char* s = smem + stage * kWStageBytes;
       const int r = row0 + it * kWRows;
@@ -130,52 +149,67 @@ __global__ void __launch_bounds__(kWThreads, 2)
     return;
   }
 
-  // consumer warpgroup: acc(c, k) = sum over the slice of g[m, c] x[m, k].
-  // The wgmma always spans four boxes; the columns of a box this chunk
-  // does not load hold stale values and are never stored.
-  float acc[kWCols / 2];
+  // consumer warpgroup wg: columns 128 wg .. 128 wg + 127 of the chunk,
+  // acc(c, k) = sum over a box of g[m, c] x[m, k], sum = the boxes' sums
+  // to nearest. The wgmma always spans two boxes; the columns of a box
+  // this chunk does not load hold stale values and are never stored.
+  const int wg = warp >> 2, wq = warp & 3;
+  float acc[kWHalf / 2], sum[kWHalf / 2];
 #pragma unroll
-  for (int i = 0; i < kWCols / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kWHalf / 2; ++i) sum[i] = acc[i] = 0.0f;
   sm90::fence_acc(acc);
-  int stage = 0, prev = -1;
+  int stage = 0;
   uint32_t phase = 0;
-  for (int it = 0; it < iters; ++it) {
-    sm90::mbar_wait(&full[stage], phase);
-    const uint32_t a = sm90::smem_u32(smem + stage * kWStageBytes);
-    sm90::wgmma_fence();
+  for (int bx = 0; bx < boxes; ++bx) {
+    // the box's two stages, one commit group; straight-line code, so
+    // that no use of the accumulator sits on a branch (ptxas would
+    // serialize every wgmma of the kernel)
+    const int first_stage = stage;
 #pragma unroll
-    for (int kk = 0; kk < kWRows / 16; ++kk)
-      // both MN-major: +16 rows of 128 B per k16; x's 64-wide column
-      // blocks lie one box apart
-      sm90::wgmma_m64n256<1, 1>(acc, sm90::make_desc(a + kk * 2048, kWBox),
-                                sm90::make_desc(a + kWBox + kk * 2048, kWBox));
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<1>();
-    // the stage before this one has been read
-    sm90::mbar_arrive_if(&empty[prev], prev >= 0 && lane == 0);
-    prev = stage;
-    if (++stage == kWStages) {
-      stage = 0;
-      phase ^= 1;
+    for (int h = 0; h < 2; ++h) {
+      sm90::mbar_wait(&full[stage], phase);
+      const uint32_t a = sm90::smem_u32(smem + stage * kWStageBytes);
+      const uint32_t b = a + kWBox * (1 + 2 * wg);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWRows / 16; ++kk)
+        // both MN-major: +16 rows of 128 B per k16; x's 64-wide column
+        // blocks lie one box apart; the box's first wgmma restarts the
+        // sum
+        sm90::wgmma_m64n128<1, 1>(acc, sm90::make_desc(a + kk * 2048, kWBox),
+                                  sm90::make_desc(b + kk * 2048, kWBox),
+                                  h == 0 && kk == 0 ? 0 : 1);
+      if (++stage == kWStages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(acc);
+    // the box's stages are free; its sum joins the total to nearest
+    sm90::mbar_arrive_if(&empty[first_stage], lane == 0);
+    sm90::mbar_arrive_if(&empty[first_stage + 1 == kWStages ? 0
+                                                            : first_stage + 1],
+                         lane == 0);
+#pragma unroll
+    for (int i = 0; i < kWHalf / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
   }
-  sm90::wgmma_wait<0>();
-  sm90::fence_acc(acc);
 
-  // d[4j + 2h + e] holds (c, k) = (16w + l/4 + 8h, 8j + 2(l%4) + e); a
+  // d[4j + 2h + e] holds (c, k) = (16 wq + l/4 + 8h, 8j + 2(l%4) + e); a
   // warp's store covers 8 consecutive c of 4 rows k: whole 32-byte sectors
   float* out = p.out + (static_cast<long long>(node) * p.slices + slice) *
                            static_cast<long long>(p.K) * p.N;
 #pragma unroll
-  for (int j = 0; j < kWCols / 8; ++j) {
+  for (int j = 0; j < kWHalf / 8; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int c = n0 + 16 * warp + (lane >> 2) + 8 * h;
+      const int c = n0 + 16 * wq + (lane >> 2) + 8 * h;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int k = k0 + 8 * j + 2 * (lane & 3) + e;
+        const int k = k0 + kWHalf * wg + 8 * j + 2 * (lane & 3) + e;
         if (c < p.N && k < k_end)
-          out[static_cast<long long>(k) * p.N + c] = acc[4 * j + 2 * h + e];
+          out[static_cast<long long>(k) * p.N + c] = sum[4 * j + 2 * h + e];
       }
     }
   }

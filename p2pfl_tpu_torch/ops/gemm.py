@@ -27,10 +27,12 @@ K1-K3 run in the operands' dtype: bf16 (the kernels above) or float32
 float32, K1 and K3 (``csrc/gemm_f32_tc.cu``) take 3xTF32 on ``wgmma``
 (each operand split into two TF32 halves, three products, every 32-deep
 block's sum added to the total in round-to-nearest f32) and K1 at a
-depth of 32 or less exact f32 FMA chains; K2 (``csrc/gemm_f32.cu``)
-exact f32 SIMT tiles. The launches of the f32 instantiations count
-under their own keys (``stream_gemm_f32`` ...). K4 and K5 take f32 or
-bf16 params and traces; of K4's launches
+depth of 32 or less exact f32 FMA chains; K2 (the same file) takes
+3xTF32 on ``wgmma`` at K >= 33 and exact f32 FMA chains over
+``cp.async`` row spans at K <= 32 (and over 32 rows or fewer). The
+launches of the f32 instantiations count under their own keys
+(``stream_gemm_f32`` ...). K4 and K5 take f32 or bf16 params and
+traces; of K4's launches
 (``sgd_accum``), those with bf16 params are counted again under
 ``sgd_accum_bf16``.
 
@@ -57,7 +59,8 @@ from p2pfl_tpu_torch.ops import _build
 
 __all__ = [
     "stream_gemm", "stream_gemm_plain",
-    "stream_wgrad", "stream_wgrad_plain", "wgrad_plan", "WgradPlan",
+    "stream_wgrad", "stream_wgrad_plain", "wgrad_plan", "wgrad_route",
+    "WgradPlan", "WGRAD_ROUTES",
     "dense_bwd", "dense_bwd_plain",
     "sgd_accum", "sgd_accum_plain",
     "sgd_accum_many", "sgd_accum_many_plain",
@@ -133,66 +136,101 @@ def stream_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float().transpose(1, 2), g.float())
 
 
-#: blocks the slice plan aims for on each route, and the fewest rows it
-#: gives a slice where M allows: constants, never the card's SM count, so
-#: the plan and the sums' order are the same on every card
-WGRAD_TARGET_BLOCKS = {"wide": 512, "general": 256, "f32": 512}
+#: K2's routes, in the order of the binding's route codes
+#: (``csrc/kernels.h``): bf16 "general" (cp.async + mma.sync, any width)
+#: and "wide" (TMA + wgmma, K and N multiples of 8); float32 "f32_tc"
+#: (3xTF32 on wgmma) and "f32_narrow" (exact FFMA over cp.async row
+#: spans), the second at K <= 32 and wherever M <= WGRAD_F32_TC_MIN_M - 1:
+#: 3xTF32 drops up to about 3 x 2**-22 of each product (lo.lo, and what
+#: lo leaves of each operand), an error that only a sum of several rows
+#: averages under the f32 limits
+WGRAD_ROUTES = ("general", "wide", "f32_tc", "f32_narrow")
+WGRAD_F32_TC_MIN_M = 33
+#: rows a route's slice is a multiple of: the general route's stage, the
+#: wide route's and f32_tc's box (the rows one accumulator takes before
+#: its sum is added to the total to nearest), f32_narrow's cp.async chunk
+WGRAD_ROUTE_ROWS = {"general": 256, "wide": 64, "f32_tc": 32,
+                    "f32_narrow": 64}
+#: work items (blocks, or (tile, slice) items of a persistent grid) the
+#: slice plan aims for on each route, and the fewest rows it gives a
+#: slice where M allows: constants, never the card's SM count, so the
+#: plan and the sums' order are the same on every card. The f32 routes
+#: run persistent grids, whose last round is full only when the items
+#: are many; f32_narrow's slices may be shorter, its partials being 800
+#: to 1,728 floats a slice
+WGRAD_TARGET_BLOCKS = {"wide": 512, "general": 256, "f32_tc": 2048,
+                       "f32_narrow": 4096}
 WGRAD_MIN_SLICE_ROWS = 1024
+WGRAD_NARROW_MIN_SLICE_ROWS = 512
 
 
 class WgradPlan(NamedTuple):
-    """How K2 cuts one call: ``route`` "wide" (bf16, TMA + wgmma, K and
-    N multiples of 8), "general" (bf16, mma.sync, any width) or "f32"
-    (the float32 instantiation, SIMT tiles); ``tiles`` output tiles
-    (blocks) a slice; ``rows`` rows a slice (a multiple of the route's
-    stage: 32, 256 or 16); ``slices`` slices a node, whose f32 sums a
-    second kernel adds in slice order when there are two or more."""
+    """How K2 cuts one call: ``route`` (one of :data:`WGRAD_ROUTES`);
+    ``tiles`` output tiles a slice (bf16: blocks; f32_tc: 128 x 64
+    tiles; f32_narrow: 32 x 64 tiles); ``rows`` rows a
+    slice (a multiple of the route's ``WGRAD_ROUTE_ROWS``); ``slices``
+    slices a node, whose f32 sums a second kernel adds in slice order
+    when there are two or more."""
     route: str
     tiles: int
     rows: int
     slices: int
 
 
+def wgrad_route(M: int, K: int, N: int, f32: bool = False) -> str:
+    """The route K2 takes at this shape: bf16 "wide" when K and N are
+    multiples of 8, else "general"; float32 "f32_tc" when K >= 33 and M
+    >= ``WGRAD_F32_TC_MIN_M``, else "f32_narrow"."""
+    if f32:
+        tc = K > 32 and M >= WGRAD_F32_TC_MIN_M
+        return "f32_tc" if tc else "f32_narrow"
+    return "wide" if K % 8 == 0 and N % 8 == 0 else "general"
+
+
 @functools.cache
 def wgrad_plan(n: int, M: int, K: int, N: int,
                route: str | None = None) -> WgradPlan:
-    """K2's slice plan, a function of the shape (and, for float32, the
-    route) only: about ``WGRAD_TARGET_BLOCKS[route]`` blocks over ``n``
-    nodes, and no slice shorter than ``WGRAD_MIN_SLICE_ROWS`` rows where
-    ``M`` allows. ``route`` defaults to the bf16 shape's: "wide" when K
-    and N are multiples of 8; the f32 instantiation passes "f32"."""
+    """K2's slice plan, a function of the shape (and the route) only:
+    about ``WGRAD_TARGET_BLOCKS[route]`` work items over ``n`` nodes,
+    and no slice shorter than ``WGRAD_MIN_SLICE_ROWS`` rows
+    (f32_narrow: ``WGRAD_NARROW_MIN_SLICE_ROWS``) where ``M`` allows.
+    ``route`` defaults to the bf16 shape's (:func:`wgrad_route`)."""
     if route is None:
-        route = "wide" if K % 8 == 0 and N % 8 == 0 else "general"
+        route = wgrad_route(M, K, N)
     if route == "wide":
-        tiles, unit = -(-K // 256) * -(-N // 64), 32
+        tiles = -(-K // 256) * -(-N // 64)
     elif route == "general":
-        tiles, unit = -(-K // 32) * -(-N // 32), 256
-    elif route == "f32":
-        tiles, unit = -(-K // 64) * -(-N // 64), 16
+        tiles = -(-K // 32) * -(-N // 32)
+    elif route == "f32_tc":
+        tiles = -(-K // 128) * -(-N // 64)
+    elif route == "f32_narrow":
+        tiles = -(-K // 32) * -(-N // 64)
     else:
         raise ValueError(f"unknown K2 route {route!r}")
+    unit = WGRAD_ROUTE_ROWS[route]
+    least = (WGRAD_NARROW_MIN_SLICE_ROWS if route == "f32_narrow"
+             else WGRAD_MIN_SLICE_ROWS)
     M = max(M, 1)
     want = -(-WGRAD_TARGET_BLOCKS[route] // max(n * tiles, 1))
-    slices = max(1, min(want, -(-M // WGRAD_MIN_SLICE_ROWS)))
+    slices = max(1, min(want, -(-M // least)))
     rows = -(-(-(-M // slices)) // unit) * unit
     return WgradPlan(route, tiles, rows, -(-M // rows))
 
 
 def stream_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K2 (``csrc/stream_wgrad.cu``; f32: ``csrc/gemm_f32.cu``): slices
-    of rows summed per block in a fixed order, then in slice order
-    (:func:`wgrad_plan`)."""
+    """K2 (bf16: ``csrc/stream_wgrad.cu``; f32: ``csrc/gemm_f32_tc.cu``):
+    slices of rows summed per block or work item in a fixed order, then
+    in slice order (:func:`wgrad_plan`)."""
     if _on_cpu(x, g):
         return stream_wgrad_plain(x, g)
     n, M, K = x.shape
-    if x.dtype == torch.float32:
-        plan = wgrad_plan(n, M, K, g.shape[-1], "f32")
-    else:
-        plan = wgrad_plan(n, M, K, g.shape[-1])
-        if plan.route == "wide" and (x.data_ptr() % 16 or g.data_ptr() % 16):
-            plan = wgrad_plan(n, M, K, g.shape[-1], "general")
-    out = _build.kernels().stream_wgrad(x, g, plan.route == "wide",
-                                        plan.rows, plan.slices)
+    N = g.shape[-1]
+    plan = wgrad_plan(n, M, K, N,
+                      wgrad_route(M, K, N, x.dtype == torch.float32))
+    if plan.route == "wide" and (x.data_ptr() % 16 or g.data_ptr() % 16):
+        plan = wgrad_plan(n, M, K, N, "general")
+    out = _build.kernels().stream_wgrad(
+        x, g, WGRAD_ROUTES.index(plan.route), plan.rows, plan.slices)
     launches[_key("stream_wgrad", x)] += 1
     return out
 

@@ -1,4 +1,4 @@
-"""The f32 GEMM kernels and K6 timed in several checkouts, in turns.
+"""The GEMM kernels and K6 timed in several checkouts, in turns.
 
     python scripts/torch_kernel_ab.py TREE [TREE ...]
 
@@ -11,9 +11,14 @@ prints the mean time a call by CUDA events (``chip_smoke.time_ms``) of:
 
 - K1 ``stream_gemm`` in f32 at the ring's conv1 and conv2 forward
   (8 nodes x 336 FEMNIST-CNN samples: M = 263,424 x K = 25 x N = 32 and
-  65,856 x 800 x 64), K2 ``stream_wgrad`` in f32 at conv2's weight
-  gradient, K3 ``dense_bwd`` in f32 at dense1 (B = 336, D = 3136,
-  H = 2048), seeded normal inputs;
+  65,856 x 800 x 64), K2 ``stream_wgrad`` in f32 at conv1's and conv2's
+  weight gradients and at the ResNet9 stem's (16 nodes x 131,072 rows,
+  K = 27, N = 64), K2 in bf16 at the ring's conv1 and conv2 weight
+  gradients (each, and their sum: the pair a ring step runs) and at
+  the cross-device (8 x 20 samples) and Byzantine (16 x 64) conv2
+  weight gradients, each beside ``torch.bmm`` on the same inputs, K3
+  ``dense_bwd`` in f32 at dense1 (B = 336, D = 3136, H = 2048), seeded
+  normal inputs;
 - K6 ``fused_mlp_train_epoch`` at ``chip_smoke.py``'s headline (64
   mnist-mlp nodes, 784-256-128-10, 19 steps of 32, lr 0.05), with f32
   state and inputs and with them rounded to bf16 (10 calls each).
@@ -44,9 +49,30 @@ for tag, (m, k, nn) in (("K1 conv1", (b * 784, 25, 32)),
     x, w = rand(n, m, k), rand(n, k, nn)
     out.append(f"{tag} {cs.time_ms(lambda: gemm.stream_gemm(x, w)):.4f}")
     del x, w
-x, g = rand(n, b * 196, 800), rand(n, b * 196, 64)
-out.append(f"K2 conv2 {cs.time_ms(lambda: gemm.stream_wgrad(x, g)):.4f}")
-del x, g
+for tag, (nk, m, k, nn) in (("K2 conv1", (n, b * 784, 25, 32)),
+                            ("K2 conv2", (n, b * 196, 800, 64)),
+                            ("K2 stem", (16, 128 * 1024, 27, 64))):
+    x, g = rand(nk, m, k), rand(nk, m, nn)
+    out.append(f"{tag} {cs.time_ms(lambda: gemm.stream_wgrad(x, g)):.4f}")
+    del x, g
+pair = []
+for tag, (m, k, nn) in (("K2 bf16 conv1", (b * 784, 25, 32)),
+                        ("K2 bf16 conv2", (b * 196, 800, 64))):
+    x = rand(n, m, k).to(torch.bfloat16)
+    g = rand(n, m, nn).to(torch.bfloat16)
+    pair.append(cs.time_ms(lambda: gemm.stream_wgrad(x, g)))
+    out.append(f"{tag} {pair[-1]:.4f}")
+    del x, g
+out.append(f"K2 bf16 pair {sum(pair):.4f}")
+for tag, (nk, m) in (("crossdev", (8, 20 * 196)), ("byzantine", (16, 64 * 196))):
+    x = rand(nk, m, 800).to(torch.bfloat16)
+    g = rand(nk, m, 64).to(torch.bfloat16)
+    xt = x.transpose(1, 2)
+    out.append(f"K2 bf16 {tag} conv2 "
+               f"{cs.time_ms(lambda: gemm.stream_wgrad(x, g)):.4f} "
+               f"(bmm {cs.time_ms(lambda: torch.bmm(xt, g)):.4f})")
+    del x, g, xt
+torch.cuda.empty_cache()
 x, w, g = rand(n, b, 3136), rand(n, 3136, 2048), rand(n, b, 2048)
 out.append(f"K3 dense1 {cs.time_ms(lambda: gemm.dense_bwd(x, w, g)):.4f}")
 del x, w, g

@@ -106,10 +106,17 @@ def test_stream_gemm_widths_match_plain_bit_stable(dev, nodes, m, k, n):
     assert torch.equal(got, gemm.stream_gemm(x, w))
 
 
+# Two runs give the same bits, on every route: bf16 (conv1's widths on
+# mma.sync, conv2's on wgmma) and f32 (conv1's on FFMA, conv2's on
+# 3xTF32).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(784 * 3, 25, 32), (4096 * 2 + 7, 25, 32),
                                    (196 * 3 + 5, 800, 64)])
-def test_stream_wgrad_matches_plain_and_is_deterministic(dev, m, k, n):
-    x, g = _rand(dev, 2, 3, m, k), _rand(dev, 3, 3, m, n)
+def test_stream_wgrad_matches_plain_and_is_deterministic(dev, m, k, n,
+                                                         dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, g = _rand(dev, 2, 3, m, k, dtype=dtype), _rand(dev, 3, 3, m, n,
+                                                      dtype=dtype)
     got = gemm.stream_wgrad(x, g)
     assert got.dtype == torch.float32
     assert torch.equal(got, gemm.stream_wgrad(x, g))
@@ -192,13 +199,17 @@ def test_stream_gemm_resnet_stem(dev):
 
 
 # A node whose x or g is NaN: its own sums are NaN, the other nodes'
-# stay finite and equal to their plain sums (no slice, tile or run
-# reaches across nodes).
+# stay finite and equal to their plain sums (no slice, tile, run or
+# chunk reaches across nodes), in bf16 and in f32.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("operand", ["x", "g"])
 @pytest.mark.parametrize("m,k,n", [(3 * 784 + 5, 25, 32),
                                    (3 * 196 + 7, 800, 64)])
-def test_stream_wgrad_nan_node_stays_in_its_node(dev, m, k, n, operand):
-    x, g = _rand(dev, 76, 3, m, k), _rand(dev, 77, 3, m, n)
+def test_stream_wgrad_nan_node_stays_in_its_node(dev, m, k, n, operand,
+                                                 dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _rand(dev, 76, 3, m, k, dtype=dtype)
+    g = _rand(dev, 77, 3, m, n, dtype=dtype)
     (x if operand == "x" else g)[1] = float("nan")
     got = gemm.stream_wgrad(x, g)
     assert bool(got[1].isnan().all())
@@ -207,6 +218,25 @@ def test_stream_wgrad_nan_node_stays_in_its_node(dev, m, k, n, operand):
     torch.testing.assert_close(got[keep],
                                gemm.stream_wgrad_plain(x[keep], g[keep]),
                                **F32_SUM_TOL)
+
+
+# The wide route (TMA + wgmma) sums each 64-row box in a fresh
+# accumulator and adds it to the total to nearest: against the f64
+# product it is no farther than the plain version (torch.matmul in f32)
+# in relative L2, at the three paths' conv2 shapes (two nodes).
+@pytest.mark.parametrize("m", [336 * 196, 20 * 196, 64 * 196])
+def test_stream_wgrad_wide_route_no_farther_from_f64_than_plain(dev, m):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, g = _rand(dev, 78, 2, m, 800), _rand(dev, 79, 2, m, 64)
+    assert gemm.wgrad_plan(2, m, 800, 64).route == "wide"
+    exact = torch.matmul(x.double().transpose(1, 2), g.double())
+
+    def rel(t):
+        return float((t.double() - exact).norm() / exact.norm())
+
+    kernel, plain = rel(gemm.stream_wgrad(x, g)), rel(
+        gemm.stream_wgrad_plain(x, g))
+    assert kernel <= plain, (kernel, plain)
 
 
 @pytest.mark.parametrize("b,d,h", [(48, 3136, 256), (21, 300, 70)])
@@ -596,6 +626,47 @@ def test_fused_mlp_epoch_instantiations(dev, n, d_in, d1, d2, c, rows, batch,
         assert torch.equal(a, b)
 
 
+# K6's sum orders beyond the probe's shape (batch 32, 10 classes, where
+# the kernel gives the plain version's bits): one step from a zero trace
+# at 64 nodes, every param and trace against the plain version's bits.
+# The kernel sums its bias gradients and softmax denominator in the
+# orders torch.sum took at the probe's shape. At batch 16 with 7 classes
+# they still agree. At batch 8, at batch 64 (the L2-resident kernel) and
+# at 62 classes they do not (ROADMAP Queue C, a fault not yet repaired):
+# there the leaves that differ must be among those recorded, each within
+# the one-state tolerance. The loss is held to K6_LOSS_TOL (its sum is
+# not the plain version's at any shape).
+_P = ("params w0", "params b0", "params w1", "params b1", "params w2",
+      "params b2")
+_M = tuple("trace" + k[6:] for k in _P)
+K6_ORDER_FAULTS = {
+    (8, 7): _P + _M,
+    (16, 7): (),
+    (32, 10): (),
+    (64, 7): ("params b0", "params b1", "trace b0", "trace b1"),
+    (32, 62): _P + _M,
+}
+
+
+@pytest.mark.parametrize("batch,c", sorted(K6_ORDER_FAULTS))
+def test_fused_mlp_epoch_sum_orders_bits(dev, batch, c):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, _, bx, by = _mlp_epoch_inputs(dev, 64, 784, 256, 128, c, batch,
+                                          seed=23)
+    mom = tuple(torch.zeros_like(t) for t in params)
+    kp, km, kl = fused_train.fused_mlp_train_epoch(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
+    pp, pm, pl = fused_train.fused_mlp_train_epoch_plain(
+        params, mom, bx, by, 0.05, 0.9, batch_size=batch)
+    off = []
+    for name, a, b in zip(_P + _M, kp + km, pp + pm):
+        if not torch.equal(a, b):
+            off.append(name)
+            torch.testing.assert_close(a, b, **K6_STATE_TOL)
+    assert set(off) <= set(K6_ORDER_FAULTS[batch, c]), off
+    torch.testing.assert_close(kl, pl, **K6_LOSS_TOL)
+
+
 def test_fused_mlp_epoch_refusals(dev):
     params, mom, bx, by = _mlp_epoch_inputs(dev, 2, 16, 8, 8, 4, 24)
     with pytest.raises(ValueError, match="multiple of batch_size"):
@@ -772,7 +843,9 @@ def test_stream_gemm_f32_matches_plain_bit_stable(dev, nodes, m, k, n):
     (3, 12 * 784, 25, 32), (3, 12 * 196, 800, 64), (3, 4096 * 3 + 7, 25, 32),
     (2, 1, 800, 64), (3, 2357, 21, 70),
     # the ResNet9 stem: ragged rows, and the 16-node CIFAR10 step
-    (3, 3 * 1024 + 77, 27, 64), (16, 128 * 1024, 27, 64)])
+    (3, 3 * 1024 + 77, 27, 64), (16, 128 * 1024, 27, 64),
+    # 3xTF32 on rows TMA cannot read (K = 45, N = 70: element-wise loads)
+    (2, 300, 45, 70)])
 def test_stream_wgrad_f32_matches_plain_bit_stable(dev, nodes, m, k, n):
     torch.backends.cuda.matmul.allow_tf32 = False
     x = _rand(dev, 92, nodes, m, k, dtype=torch.float32)
