@@ -32,8 +32,9 @@ one, or when run outside a checkout of this repository). Phases:
    below, with the sum missing its plan's first slice and the plain
    version rounded to bf16 as the controls that must fail them; every
    K2 row, bf16 and f32, prints its route, its kernels' device times,
-   and the kernel and the plain version against the f64 product, and at
-   K >= 33 the kernel may be no farther from it than the plain version.
+   and the kernel and the plain version against the f64 product, and
+   the kernel may be no farther from it than the plain version; every
+   K1 row prints its branch.
    The dtype variants: K1, K2 and K3 in f32 (``csrc/gemm_f32_tc.cu``,
    3xTF32 on ``wgmma``; K1 and K2 at K <= 32 exact FMA chains)
    at the ring's shapes, held to relative L2 and elementwise limits that
@@ -214,11 +215,14 @@ K6_FLIP_FRACTION, K6_FLIP_ATOL, K6_FLIP_REL_L2 = 1e-3, 1e-2, 5e-3
 K6_FLIP_NODES = 0
 # K6's sum orders beyond the probe's shape (batch 32, 10 classes): one
 # step from a zero trace at 64 nodes, (batch, classes) -> the leaves
-# known to leave the plain version's bits (ROADMAP Queue C); any other
-# leaf must keep them, and these stay within K6_TOL
+# known to leave the plain version's bits; any other leaf must keep
+# them, and these stay within K6_TOL. The plain version sums its bias
+# gradients and softmax denominator in the kernel's stated orders; at
+# batch 8, torch.bmm's forward products at 8 rows (x @ w0, h0 @ w1) are
+# not one ascending chain, so every leaf differs (ROADMAP Queue C)
 K6_ORDER_SHAPES = {
     (8, 7): "all", (16, 7): (), (32, 10): (),
-    (64, 7): ("b0", "b1"), (32, 62): "all"}
+    (64, 7): (), (32, 62): ()}
 # the ResNet9 stem's K1 and K2 problem at phase 9's step: 16 nodes x 128
 # CIFAR10 images of 32 x 32 rows, contraction 27, 64 filters
 STEM = (16, 128 * 32 * 32, 27, 64)
@@ -351,6 +355,7 @@ def kernel_checks(dev, peak) -> dict:
             ("resnet9_stem_fwd", STEM, True, False)]:
         x, w = rand(nk, m, k), rand(nk, k, nn_)
         got = gemm.stream_gemm(x, w)
+        branch = gemm.stream_gemm_branch()
         same_bits(f"stream_gemm {inst}", lambda: gemm.stream_gemm(x, w))
         err, ok = within(got, gemm.stream_gemm_plain(x, w), **k1_tol)
         record("stream_gemm", inst, err, ok, k1_tol,
@@ -359,8 +364,10 @@ def kernel_checks(dev, peak) -> dict:
                time_ms(lambda: torch.bmm(x, w)),
                2 * nk * (m * k + k * nn_ + m * nn_), 2 * nk * m * k * nn_,
                bf16_peak, on_path, summed)
-        print(f"    host {host_us(lambda: gemm.stream_gemm(x, w)):.1f} us "
-              "a call", flush=True)
+        rows[-1].update(branch=branch)
+        print(f"    branch: {rows[-1]['branch']}; host "
+              f"{host_us(lambda: gemm.stream_gemm(x, w)):.1f} us a call",
+              flush=True)
         del x, w, got
 
     # K2 stream_wgrad: f32 sums of exact bf16 products over M rows in
@@ -372,30 +379,38 @@ def kernel_checks(dev, peak) -> dict:
     # cross-device cohort step (8 slots x 20), the Byzantine step (16
     # nodes x 64) and the ResNet9 stem at phase 9's step (16 nodes x 128
     # CIFAR10 images), each with its slice plan, the host's time to
-    # enqueue a call and its profiled device time beside torch.bmm's
-    for inst, (nk, m, k, nn_), summed in [
-            ("conv1_wgrad", (n, m1, 25, 32), True),
-            ("conv2_wgrad", (n, m2, 800, 64), True),
-            ("crossdev_conv1_wgrad", (8, 20 * 784, 25, 32), False),
-            ("crossdev_conv2_wgrad", (8, 20 * 196, 800, 64), False),
-            ("byzantine_conv1_wgrad", (16, 64 * 784, 25, 32), False),
-            ("byzantine_conv2_wgrad", (16, 64 * 196, 800, 64), False),
-            ("resnet9_stem_wgrad", STEM, False)]:
-        x, g = rand(nk, m, k), rand(nk, m, nn_)
+    # enqueue a call and its profiled device time beside torch.bmm's.
+    # The general route, which no path's operands take: conv1's shape
+    # with g a view one element into a buffer (g_off), a base that no
+    # TMA map can start at
+    for inst, (nk, m, k, nn_), summed, g_off in [
+            ("conv1_wgrad", (n, m1, 25, 32), True, 0),
+            ("conv2_wgrad", (n, m2, 800, 64), True, 0),
+            ("crossdev_conv1_wgrad", (8, 20 * 784, 25, 32), False, 0),
+            ("crossdev_conv2_wgrad", (8, 20 * 196, 800, 64), False, 0),
+            ("byzantine_conv1_wgrad", (16, 64 * 784, 25, 32), False, 0),
+            ("byzantine_conv2_wgrad", (16, 64 * 196, 800, 64), False, 0),
+            ("resnet9_stem_wgrad", STEM, False, 0),
+            ("conv1_wgrad_general", (n, m1, 25, 32), False, 1)]:
+        x = rand(nk, m, k)
+        g = rand(nk * m * nn_ + g_off)[g_off:].view(nk, m, nn_)
+        plan = gemm.wgrad_call_plan(x, g)
+        if (plan.route == "general") != bool(g_off):
+            fail(f"stream_wgrad {inst} takes the {plan.route} route")
         got = gemm.stream_wgrad(x, g)
         same_bits(f"stream_wgrad {inst}", lambda: gemm.stream_wgrad(x, g))
         xt = x.transpose(1, 2)
-        plan = gemm.wgrad_plan(nk, m, k, nn_)
         err, ok, readings = f32_check(f"stream_wgrad bf16 {inst}", got,
                                       gemm.stream_wgrad_plain(x, g), xt, g,
                                       plan.rows)
-        ok = f64_gate(f"stream_wgrad bf16 {inst}", readings, k) and ok
+        ok = f64_gate(f"stream_wgrad bf16 {inst}", readings) and ok
         record("stream_wgrad", inst, err, ok, F32_TOL + K2_F64_TOL,
                time_ms(lambda: gemm.stream_wgrad(x, g)),
                time_ms(lambda: gemm.stream_wgrad_plain(x, g)),
                time_ms(lambda: torch.bmm(xt, g)),
                2 * nk * (m * k + m * nn_) + 4 * nk * k * nn_,
-               2 * nk * m * k * nn_, bf16_peak, summed=summed)
+               2 * nk * m * k * nn_, bf16_peak, on_path=not g_off,
+               summed=summed)
         rows[-1].update(plan=plan._asdict(), f32_readings=readings)
         print(f"    plan: {plan.route} route, {plan.slices} slices of "
               f"{plan.rows} rows a node, {plan.tiles} tiles a slice, "
@@ -867,13 +882,11 @@ def k4_model_lists(rows, record, same_bits, rand, f32_peak) -> None:
 F32_REL_C, F32_ELEM_C, F32_TILE_K = 4.0, 8.0, 16
 F32_TOL = (f"rel L2 <= {F32_REL_C:g} u sqrt(L), |d| <= {F32_ELEM_C:g} u "
            "sqrt(L) sqrt(A**2 @ B**2)")
-# K2 at K >= 33 (the wgmma routes, bf16 wide and f32_tc, whose tensor
-# core truncates its sums; each box's sum is added outside it to
-# nearest) is held one step further: against the product in f64 the
+# Every K2 row is held one step further: against the product in f64 the
 # kernel is no farther than its plain version (torch.matmul in f32) in
-# relative L2. At K <= 32 (the mma.sync and FFMA routes) the two read
-# either way, and the readings are printed, not gated
-K2_F64_TOL = "; rel L2 vs f64 <= the plain version's at K >= 33"
+# relative L2 (the wgmma routes, bf16 wide and f32_tc, whose tensor core
+# truncates its sums, add each box's sum outside it to nearest)
+K2_F64_TOL = "; rel L2 vs f64 <= the plain version's"
 # the kernels a K2 call launches, by route, read on their own from a
 # profiled run: the sums (f32_tc splits g in shared memory: it has no
 # pre-pass), then the slice sum
@@ -881,7 +894,8 @@ K2_KERNELS = {"wide": ("wgrad_wide_kernel", "wgrad_reduce_kernel"),
               "general": ("wgrad_general_kernel", "wgrad_reduce_kernel"),
               "f32_tc": ("gemm_tc_kernel", "slice_sum_f32_kernel"),
               "f32_narrow": ("wgrad_narrow_f32_kernel",
-                             "slice_sum_f32_kernel")}
+                             "slice_sum_f32_kernel"),
+              "narrow": ("wgrad_narrow_bf16_kernel", "wgrad_reduce_kernel")}
 # phase 8b's f32 training step (check_f32_grads): one step with a zero
 # trace, so that the new trace is the gradient and neither the momentum
 # nor the params' rounding enters, at each of F32_GRAD_SEEDS' rings in
@@ -980,17 +994,16 @@ def f32_check(tag, got, want, a, b, drop: int) -> tuple[float, bool, dict]:
     return float((got - want).abs().max()), passes(reading), readings
 
 
-def f64_gate(tag: str, readings: dict, k: int) -> bool:
-    """K2's gate against the f64 product (``K2_F64_TOL``): at K >= 33
-    the kernel's relative L2 is at most the plain version's."""
+def f64_gate(tag: str, readings: dict) -> bool:
+    """K2's gate against the f64 product (``K2_F64_TOL``): the kernel's
+    relative L2 is at most the plain version's."""
     mine = readings["kernel_vs_f64_units"][0]
     plain = readings["plain_vs_f64_units"][0]
-    gated = k >= 33
-    ok = not gated or mine <= plain
-    readings.update(f64_gated=gated, f64_ok=ok)
+    ok = mine <= plain
+    readings.update(f64_gated=True, f64_ok=ok)
     print(f"    {tag}: against f64, rel L2 kernel {mine:.4g} / plain "
-          f"{plain:.4g} u sqrt(L) ({'gated: ' if gated else 'read, K <= 32: '}"
-          f"{'ok' if ok else 'FAIL'})", flush=True)
+          f"{plain:.4g} u sqrt(L) (gated: {'ok' if ok else 'FAIL'})",
+          flush=True)
     return ok
 
 
@@ -1099,6 +1112,7 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
             ("resnet9_stem_fwd", STEM, True, False)]:
         x, w = rand(nk, m, k, dtype=f32), rand(nk, k, nn_, dtype=f32)
         got = gemm.stream_gemm(x, w)
+        branch = gemm.stream_gemm_branch()
         same_bits(f"stream_gemm f32 {inst}", lambda: gemm.stream_gemm(x, w))
         err, ok, readings = f32_check(f"stream_gemm f32 {inst}", got,
                                       gemm.stream_gemm_plain(x, w), x, w,
@@ -1109,7 +1123,8 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
                time_ms(lambda: torch.bmm(x, w)),
                4 * nk * (m * k + k * nn_ + m * nn_), 2 * nk * m * k * nn_,
                tf32_peak, on_path, summed, passes=3)
-        rows[-1].update(f32_readings=readings)
+        rows[-1].update(f32_readings=readings, branch=branch)
+        print(f"    branch: {rows[-1]['branch']}", flush=True)
         bounds(4 * nk * (m * k + k * nn_ + m * nn_), 2 * nk * m * k * nn_)
         if k > 32:
             split_and_gemm(lambda: gemm.stream_gemm(x, w))
@@ -1127,12 +1142,11 @@ def f32_instances(rows, record, same_bits, rand, host_us, n, m1, m2, b,
         same_bits(f"stream_wgrad f32 {inst}",
                   lambda: gemm.stream_wgrad(x, g))
         xt = x.transpose(1, 2)
-        plan = gemm.wgrad_plan(nk, m, k, nn_,
-                               gemm.wgrad_route(m, k, nn_, f32=True))
+        plan = gemm.wgrad_call_plan(x, g)
         err, ok, readings = f32_check(f"stream_wgrad f32 {inst}", got,
                                       gemm.stream_wgrad_plain(x, g), xt, g,
                                       plan.rows)
-        ok = f64_gate(f"stream_wgrad f32 {inst}", readings, k) and ok
+        ok = f64_gate(f"stream_wgrad f32 {inst}", readings) and ok
         record("stream_wgrad_f32", inst, err, ok, F32_TOL + K2_F64_TOL,
                time_ms(lambda: gemm.stream_wgrad(x, g)),
                time_ms(lambda: gemm.stream_wgrad_plain(x, g)),
@@ -3037,9 +3051,9 @@ CIFAR_OTHERS_NODES, CIFAR_OTHERS_ROUNDS, CIFAR_OTHERS_LR = 4, 10, 1e-3
 # the device time of a profiled round, by kernel name (first match)
 PROFILE_BUCKETS = (
     ("K1 stream_gemm (stem)", ("stream_gemm_", "gemm_narrow_f32")),
-    ("K2 stream_wgrad (stem)", ("wgrad_general", "wgrad_wide",
-                                "wgrad_reduce", "gemm_f32_kernel",
-                                "slice_sum_f32")),
+    ("K2 stream_wgrad (stem)", ("wgrad_narrow", "wgrad_general",
+                                "wgrad_wide", "wgrad_reduce",
+                                "gemm_f32_kernel", "slice_sum_f32")),
     ("K4 sgd_accum_many", ("stream_kernel",)),
     ("max-pool", ("max_pool",)),
     # cuDNN's grouped convs, with its own channel slices and casts

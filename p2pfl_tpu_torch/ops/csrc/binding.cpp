@@ -65,6 +65,10 @@ at::ScalarType gemm_dtype(const torch::Tensor& x) {
   return x.scalar_type();
 }
 
+// The branch of K1's last launch, as its launcher chose it
+// (stream_gemm_last_branch).
+int last_gemm_branch = -1;
+
 torch::Tensor stream_gemm(torch::Tensor x, torch::Tensor w) {
   const at::ScalarType dt = gemm_dtype(x);
   check(x, "x", dt, 3);
@@ -78,6 +82,7 @@ torch::Tensor stream_gemm(torch::Tensor x, torch::Tensor w) {
   const int n = as_int(x.size(0), "n"), M = as_int(x.size(1), "M");
   const int K = as_int(x.size(2), "K"), N = as_int(w.size(2), "N");
   if (dt == at::kFloat) {
+    last_gemm_branch = p2pfl::stream_gemm_f32_branch(K);
     auto scratch = torch::empty({p2pfl::stream_gemm_f32_scratch(n, K, N)},
                                 x.options());
     p2pfl::launch_stream_gemm_f32(x.data_ptr<float>(), w.data_ptr<float>(),
@@ -85,11 +90,19 @@ torch::Tensor stream_gemm(torch::Tensor x, torch::Tensor w) {
                                   scratch.data_ptr<float>(), n, M, K, N,
                                   at::cuda::getCurrentCUDAStream());
   } else {
+    last_gemm_branch = p2pfl::stream_gemm_branch(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, M, K, N);
     p2pfl::launch_stream_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(), n,
                               M, K, N, at::cuda::getCurrentCUDAStream());
   }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
+}
+
+// The branch (p2pfl::GemmBranch) of K1's last launch.
+int64_t stream_gemm_last_branch() {
+  TORCH_CHECK(last_gemm_branch >= 0, "stream_gemm has not launched yet");
+  return last_gemm_branch;
 }
 
 // K2 with the caller's slice plan (ops/gemm.py::wgrad_plan): `route`
@@ -107,8 +120,9 @@ torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, int64_t route,
               msg("stream_wgrad shapes ", x.sizes(), " ^T@ ", g.sizes()));
   const bool f32_route =
       route == p2pfl::kWgradF32Tc || route == p2pfl::kWgradF32Narrow;
-  const bool bf16_route =
-      route == p2pfl::kWgradGeneral || route == p2pfl::kWgradWide;
+  const bool bf16_route = route == p2pfl::kWgradGeneral ||
+                          route == p2pfl::kWgradWide ||
+                          route == p2pfl::kWgradNarrow;
   TORCH_CHECK(f32 ? f32_route : bf16_route,
               msg("stream_wgrad: route ", route, " does not take ", dt));
   const c10::cuda::CUDAGuard guard(x.device());
@@ -121,19 +135,26 @@ torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, int64_t route,
   const int unit = route == p2pfl::kWgradGeneral  ? p2pfl::kWgradGeneralRows
                    : route == p2pfl::kWgradWide   ? p2pfl::kWgradWideRows
                    : route == p2pfl::kWgradF32Tc  ? p2pfl::kWgradF32TcRows
+                   : route == p2pfl::kWgradNarrow ? p2pfl::kWgradNarrowRows
                                                   : p2pfl::kWgradF32NarrowRows;
   TORCH_CHECK(rows > 0 && rows % unit == 0 && slices > 0 &&
                   rows * slices >= M && rows * (slices - 1) < M,
               msg("stream_wgrad: ", slices, " slices of ", rows,
                   " rows do not cut M = ", M, " (rows a multiple of ", unit,
                   ")"));
+  const auto aligned = [](const torch::Tensor& t) {
+    return reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0;
+  };
   if (route == p2pfl::kWgradWide) {
-    const auto aligned = [](const torch::Tensor& t) {
-      return reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0;
-    };
     TORCH_CHECK(K % 8 == 0 && N % 8 == 0 && aligned(x) && aligned(g),
                 msg("stream_wgrad: the wide route needs K (", K, ") and N (",
                     N, ") multiples of 8 and 16-byte-aligned operands"));
+  }
+  if (route == p2pfl::kWgradNarrow) {
+    TORCH_CHECK(K <= 32 && N <= 64 && N % 8 == 0 && aligned(g),
+                msg("stream_wgrad: the narrow route needs K (", K,
+                    ") <= 32, N (", N, ") <= 64 a multiple of 8 and a "
+                    "16-byte-aligned g"));
   }
   torch::Tensor partial;
   if (slices > 1) partial = torch::empty({n, slices, K, N}, f32_opts);
@@ -147,8 +168,7 @@ torch::Tensor stream_wgrad(torch::Tensor x, torch::Tensor g, int64_t route,
   } else {
     p2pfl::launch_stream_wgrad(x.data_ptr(), g.data_ptr(), part,
                                out.data_ptr<float>(), n, M, K, N,
-                               route == p2pfl::kWgradWide ? 1 : 0,
-                               as_int(rows, "rows"),
+                               static_cast<int>(route), as_int(rows, "rows"),
                                as_int(slices, "slices"),
                                at::cuda::getCurrentCUDAStream());
   }
@@ -510,6 +530,8 @@ std::tuple<std::string, int64_t, int64_t> fused_mlp_epoch_plan(
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stream_gemm", &stream_gemm, "K1: [n,M,K] @ [n,K,N], bf16 or f32");
+  m.def("stream_gemm_last_branch", &stream_gemm_last_branch,
+        "K1: the branch code of the last launch");
   m.def("stream_wgrad", &stream_wgrad, "K2: [n,M,K]^T @ [n,M,N] -> f32");
   m.def("dense_bwd", &dense_bwd, "K3: fused dx, dw of y = x @ w");
   m.def("wgmma_acc_probe", &wgmma_acc_probe,

@@ -1223,11 +1223,15 @@ long long dense_bwd_f32_scratch(int n, int B, int H) {
                         round_up(B, kBoxK));
 }
 
+int stream_gemm_f32_branch(int K) {
+  return K <= 32 ? kGemmF32Ffma : kGemmF32Tc;
+}
+
 void launch_stream_gemm_f32(const float* x, const float* w, float* out,
                             float* scratch, int n, int M, int K, int N,
                             cudaStream_t stream) {
   if (n == 0 || M == 0 || N == 0) return;
-  if (K <= 32) {
+  if (stream_gemm_f32_branch(K) == kGemmF32Ffma) {
     NarrowParams p;
     p.x = x;
     p.w = w;

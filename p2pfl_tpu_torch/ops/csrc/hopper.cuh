@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's kernels (K1, K2, K3 and
-// K6), as inline PTX: mbarriers, TMA tensor loads, 16- and 4-byte cp.async,
-// wgmma descriptors and instructions, and the host-side encoding of TMA
+// K6), as inline PTX: mbarriers, TMA tensor loads and stores, 1-D bulk
+// copies of contiguous runs, 16- and 4-byte cp.async, ldmatrix, wgmma
+// descriptors and instructions, and the host-side encoding of TMA
 // descriptors (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint so the build needs no -lcuda).
 //
@@ -118,6 +119,59 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 1-D bulk copy (TMA's non-tensor form): `bytes` (a multiple of 16) from
+// global `src` to shared `dst`, both 16-byte aligned, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A run of `count` bf16 at `src` (rows of an operand whose rows are not
+// 16-byte multiples, taken as they lie) goes into a shared-memory slot
+// at slot + run_offset(src), so that its 16-byte-aligned middle lands on
+// a 16-byte boundary: the slot (16-byte aligned) holds count * 2 + 16
+// bytes. The middle goes by one bulk copy; the at most 7 elements on
+// either side of it (an unaligned start, a ragged end) by plain loads, so
+// that nothing outside the run is read.
+__device__ __forceinline__ uint32_t run_offset(const void* src) {
+  return static_cast<uint32_t>(reinterpret_cast<uintptr_t>(src) & 15);
+}
+
+struct RunCopy {
+  const char* mid;   // the middle's first byte (16-byte aligned)
+  uint32_t dst_off;  // its offset in the slot (0 or 16)
+  uint32_t bytes;    // its length, a multiple of 16 (0: no middle)
+};
+
+// Called by the one producer thread: copies the run's edges into the
+// slot and returns its middle, which the thread issues with bulk_load
+// after its mbar_expect_tx (the arrive releases the edge stores to the
+// threads that wait on the barrier).
+__device__ __forceinline__ RunCopy copy_run_edges(char* slot, const bf16* src,
+                                                  long long count) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t lo = (a + 15) & ~uintptr_t(15);
+  const uintptr_t hi = (a + 2 * count) & ~uintptr_t(15);
+  unsigned short* d = reinterpret_cast<unsigned short*>(slot + (a & 15));
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  RunCopy r{reinterpret_cast<const char*>(lo),
+            static_cast<uint32_t>((a & 15) + (lo - a)), 0};
+  if (hi <= lo) {  // no whole 16 aligned bytes (14 elements at most)
+    for (long long i = 0; i < count; ++i) d[i] = s[i];
+    return r;
+  }
+  r.bytes = static_cast<uint32_t>(hi - lo);
+  const long long head = static_cast<long long>(lo - a) / 2;
+  for (long long i = 0; i < head; ++i) d[i] = s[i];
+  for (long long i = static_cast<long long>(hi - a) / 2; i < count; ++i)
+    d[i] = s[i];
+  return r;
+}
+
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2) {
@@ -132,9 +186,12 @@ __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// The thread's committed TMA stores have read their shared memory.
+// The thread's committed TMA stores but the last kPending have read
+// their shared memory.
+template <int kPending = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
+               : "memory");
 }
 
 // The thread's committed TMA stores are complete.
@@ -171,6 +228,27 @@ __device__ __forceinline__ void cp_async_wait() {
 // Byte offset of (row r, byte b) in a 128-byte-swizzled box.
 __device__ __forceinline__ uint32_t swz128(uint32_t r, uint32_t b) {
   return r * 128u + ((((b >> 4) ^ r) & 7u) << 4) + (b & 15u);
+}
+
+// The same in a 64-byte swizzle (rows of 64 bytes from a 512-byte-
+// aligned base): chunk c of row r lies at r * 64 + ((c ^ (r / 2) % 4) *
+// 16), so that the 8 rows of an mma fragment store fall in 8 different
+// 16-byte chunks of the banks.
+__device__ __forceinline__ uint32_t swz64(uint32_t r, uint32_t b) {
+  return r * 64u + ((((b >> 4) ^ (r >> 1)) & 3u) << 4) + (b & 15u);
+}
+
+// Four 8 x 8 bf16 matrices, transposed: lane 8q + i gives the address of
+// row i of matrix q, and r[q] of thread (gid, tig) = lane / 4, lane % 4
+// holds its elements (2 tig, gid) and (2 tig + 1, gid) — an mma B
+// fragment when the rows run along the depth.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // A 2-D operand per node: element (o, i) of node z at
@@ -489,21 +567,25 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A TMA descriptor of a bf16 operand [n, outer, inner] (row stride ld
-// elements, a multiple of 8) that loads boxes of box_rows x 64 in the
-// 128-byte swizzle, zero-filled outside the operand.
-inline CUtensorMap make_tmap(const Operand& op, int n, int box_rows) {
+// elements, a multiple of 8) for boxes of box_rows x box_inner (64 in
+// the 128-byte swizzle by default; 32 in the 64-byte one), zero-filled
+// outside the operand on loads and clipped to it on stores.
+inline CUtensorMap make_tmap(
+    const Operand& op, int n, int box_rows, int box_inner = 64,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   CUtensorMap m;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(op.inner),
                               static_cast<cuuint64_t>(op.outer),
                               static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(op.ld) * 2,
                                  static_cast<cuuint64_t>(op.node) * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode_tiled()(
       &m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(op.p), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS)
     throw std::runtime_error("cuTensorMapEncodeTiled failed: " +

@@ -12,6 +12,25 @@ namespace p2pfl {
 void launch_stream_gemm(const void* x, const void* w, void* out, int n,
                         int M, int K, int N, cudaStream_t stream);
 
+// K1's branches (ops/gemm.py::STREAM_GEMM_BRANCHES, in this order): bf16
+// at K <= 32 and N <= 64 the narrow kernel, its tiles stored by 2-D TMA
+// (N = 32 or 64 and an output TMA can map) or copied out from a stage;
+// the TMA + wgmma kernel (N = 64, TMA-mappable operands); the guarded
+// tile routine. float32: exact FFMA at K <= 32, else 3xTF32 on wgmma.
+// stream_gemm_branch and stream_gemm_f32_branch are the launchers' own
+// choice, for these operands.
+enum GemmBranch {
+  kGemmNarrowTma = 0,
+  kGemmNarrowStaged = 1,
+  kGemmWide = 2,
+  kGemmTiles = 3,
+  kGemmF32Ffma = 4,
+  kGemmF32Tc = 5
+};
+int stream_gemm_branch(const void* x, const void* w, const void* out, int n,
+                       int M, int K, int N);
+int stream_gemm_f32_branch(int K);
+
 // K2: out[n, K, N] = x[n, M, K]^T @ g[n, M, N] in f32, summed over M.
 // Each node's rows are cut into `slices` slices of `rows` rows (the last
 // one shorter), each summed on its own; when there is more than one,
@@ -24,20 +43,27 @@ void launch_stream_gemm(const void* x, const void* w, void* out, int n,
 //     aligned bases): kWgradWideRows;
 //   kWgradF32Tc (f32, 3xTF32 on wgmma): kWgradF32TcRows;
 //   kWgradF32Narrow (f32, exact FFMA; the plan's route at K <= 32 and
-//     at M <= 32): kWgradF32NarrowRows.
+//     at M <= 32): kWgradF32NarrowRows;
+//   kWgradNarrow (bf16, K <= 32 and N <= 64 a multiple of 8, a slice's
+//     whole output a work item; x by 1-D bulk copy, g by TMA, mma.sync;
+//     g 16-byte aligned): kWgradNarrowRows.
+// The codes are indices: a new route is appended, never inserted.
 enum WgradRoute {
   kWgradGeneral = 0,
   kWgradWide = 1,
   kWgradF32Tc = 2,
-  kWgradF32Narrow = 3
+  kWgradF32Narrow = 3,
+  kWgradNarrow = 4
 };
 constexpr int kWgradWideRows = 64;
 constexpr int kWgradGeneralRows = 256;
 constexpr int kWgradF32TcRows = 32;
 constexpr int kWgradF32NarrowRows = 64;
-// The bf16 routes (stream_wgrad.cu): wide = 1 for kWgradWide.
+constexpr int kWgradNarrowRows = 128;
+// The bf16 routes (stream_wgrad.cu): route kWgradGeneral, kWgradWide or
+// kWgradNarrow.
 void launch_stream_wgrad(const void* x, const void* g, float* partial,
-                         float* out, int n, int M, int K, int N, int wide,
+                         float* out, int n, int M, int K, int N, int route,
                          int rows, int slices, cudaStream_t stream);
 
 // K3: dx[n, B, D] = g @ w^T and dw[n, D, H] = x^T @ g in one launch;

@@ -11,16 +11,35 @@
 //
 // Design. Each node's rows are cut into slices by a plan that depends
 // on (n, M, K, N) only (ops/gemm.py::wgrad_plan): about 512 blocks over
-// the grid on the wide route and 256 on the other, and no slice shorter
-// than 1,024 rows where M allows, so the f32 partials stay small beside
-// the operands. A block
-// sums one slice of one output tile in a fixed order; when a node has
-// more than one slice, a second kernel adds the partials of each element
-// in slice order. No float atomics, no dependence on the SM count: two
-// runs give the same bits, on any H100. Nothing outside a node's rows
-// [0, M) enters its sums, so a NaN in one node stays in that node.
+// the grid on the wide route, 256 on the general and 128 work items on
+// the narrow, and no slice shorter than 1,024 rows where M allows, so
+// the f32 partials stay small beside the operands. A block (or a work
+// item) sums one slice of one output tile in a fixed order; when a node
+// has more than one slice, a second kernel adds the partials of each
+// element in slice order. No float atomics, no dependence on the SM
+// count: two runs give the same bits, on any H100. Nothing outside a
+// node's rows [0, M) enters its sums, so a NaN in one node stays in that
+// node.
 //
-// Two routes, chosen by shape:
+// Three routes, chosen by shape:
+//   - narrow (K <= 32 and N <= 64 a multiple of 8, g's base on a
+//     16-byte boundary: conv1's and the ResNet9 stem's weight
+//     gradients): a work item is (node, slice) and covers the whole K x
+//     N output, so x is read once. A persistent grid, one 288-thread
+//     block an SM, takes a contiguous run of items. A producer warp
+//     streams 128-row stages into a 5-stage mbarrier ring: x's rows (50
+//     or 54 bytes, no 2-D TMA row) as one contiguous run by a 1-D bulk
+//     copy (the run lands at its address mod 16; an unaligned head and a
+//     ragged tail, at any node base, are copied by hand:
+//     sm90::copy_run_edges), g's (64 or 128 bytes) as one 128 x 64 TMA
+//     box in the 128-byte swizzle, zero-filled past the node's M. Each of eight
+//     consumer warps takes 16 rows of a stage as one k16 step of
+//     mma.sync m16n8k16 into its own f32 accumulators over the item's
+//     rows: A = x^T gathered from the packed run by 16-bit loads (rows
+//     past a stage's valid ones as zero), B = g by ldmatrix.trans, whose
+//     8 row addresses the swizzle puts in 8 different bank groups. At
+//     the item's end the eight warps' sums meet in warp order through
+//     shared memory.
 //   - wide (rows of x and g 16-byte multiples, conv2): the product is
 //     tiled as out^T = g^T x, so g's N columns form one wgmma M tile (64)
 //     and up to 256 of x's K columns its N side; x's 64-column boxes are
@@ -47,8 +66,10 @@
 //     (tests/test_torch_wgrad_numerics.py). The total and the box's
 //     accumulator take 128 registers a thread, so a chunk's 256 columns
 //     are split over two warpgroups.
-//   - general (any other width; conv1, whose 50-byte x rows defeat 2-D
-//     TMA): a block covers a 32 x 32 output tile and walks its slice in
+//   - general (any other width, and operands whose base no TMA map can
+//     start at: g's on the narrow route's widths, x's or g's on the
+//     wide route's): a block
+//     covers a 32 x 32 output tile and walks its slice in
 //     256-row chunks through a 3-stage cp.async ring. Where a tile spans
 //     the whole row (K or N <= 32) and a node's rows start on a 16-byte
 //     boundary, a chunk's rows are one contiguous run, copied as it lies
@@ -62,8 +83,11 @@
 // 64-row K tile re-reading g: 3.008 ms for conv1 + conv2 at the ring
 // shape by chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W); then this one
 // with the wide route's sums in one accumulator a slice (one consumer
-// warpgroup of m64n256, two blocks an SM): 0.438 ms. PERF.md has their
-// times beside this design's.
+// warpgroup of m64n256, two blocks an SM): 0.438 ms. Before the narrow
+// route, conv1 and the stem ran the general route (the stem's 128-byte
+// g rows copied element by element, x read once for each of 2 column
+// tiles): 0.094 and 0.413 ms. PERF.md has their times beside this
+// design's.
 #include "hopper.cuh"
 #include "kernels.h"
 
@@ -388,6 +412,198 @@ __global__ void __launch_bounds__(kGThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// narrow route: a slice's whole K x N output, both operands as streamed
+// rows (x by 1-D bulk copy, g by TMA), mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kNRows = kWgradNarrowRows;  // rows a stage
+constexpr int kNStages = 5;
+constexpr int kNConsumers = 8;            // 16 rows of a stage each
+constexpr int kNThreads = 32 * kNConsumers + 32;  // + the producer warp
+constexpr int kNBox = kNRows * 128;       // g's box: kNRows x 64 bf16
+constexpr int kNRedLd = 72;               // a reduction row: 64 + 8 floats
+constexpr int kNRedBytes = kNConsumers * 32 * kNRedLd * 4;
+
+struct NarrowParams {
+  CUtensorMap g_map;  // g [n, M, N], boxes kNRows x 64, 128-byte swizzle
+  const bf16* x;      // [n, M, K]
+  float* out;         // [n, slices, K, N]
+  int M, K, N, rows, slices;
+  int stage;  // bytes a stage: g's box, then x's slot (kNRows * K * 2 +
+              // 16, rounded up to 1024)
+  long long items;  // n * slices
+};
+
+int narrow_stage(int K) {
+  return kNBox + (kNRows * K * 2 + 16 + 1023) / 1024 * 1024;
+}
+int narrow_smem(int K) {
+  return 1024 + kNStages * narrow_stage(K) + kNRedBytes + 2 * kNStages * 8;
+}
+
+// A work item is (node, slice): out(k, n) = the sum over the slice's rows
+// of x[r, k] g[r, n] for every k < K and n < N. Warp w sums rows 16 w ..
+// 16 w + 15 of each stage into its own accumulators (mma.sync m16n8k16,
+// A = x^T gathered from the packed run, B = g by ldmatrix.trans from the
+// swizzled box: conflict-free); at the item's end the eight warps' sums
+// are added in warp order. kNT: g's 8-column blocks (4 for N <= 32).
+template <int kNT>
+__global__ void __launch_bounds__(kNThreads, 1)
+    wgrad_narrow_bf16_kernel(const __grid_constant__ NarrowParams p) {
+  extern __shared__ char nraw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(nraw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(smem + kNStages * p.stage);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + kNStages * p.stage + kNRedBytes);
+  uint64_t* empty = full + kNStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int K = p.K, N = p.N;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kNStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kNConsumers);  // one arrive a warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const long long i0 = p.items * blockIdx.x / gridDim.x;
+  const long long i1 = p.items * (blockIdx.x + 1) / gridDim.x;
+  // item i: node i / slices, rows [r0, r_end) of it
+  auto node_of = [&](long long i) { return static_cast<int>(i / p.slices); };
+  auto r0_of = [&](long long i) {
+    return static_cast<int>(i % p.slices) * p.rows;
+  };
+  auto r_end_of = [&](long long i) { return min(p.M, r0_of(i) + p.rows); };
+  auto x_run = [&](int node, int r) {
+    return p.x + (static_cast<long long>(node) * p.M + r) * K;
+  };
+
+  if (warp == kNConsumers) {
+    // producer: lane 0 keeps the ring full, across items
+    if (lane != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (long long i = i0; i < i1; ++i) {
+      const int node = node_of(i), r_end = r_end_of(i);
+      for (int r = r0_of(i); r < r_end; r += kNRows) {
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        char* st = smem + stage * p.stage;
+        const sm90::RunCopy rc = sm90::copy_run_edges(
+            st + kNBox, x_run(node, r),
+            static_cast<long long>(min(kNRows, r_end - r)) * K);
+        // g's box is zero-filled past the node's M
+        sm90::mbar_expect_tx(&full[stage], kNBox + rc.bytes);
+        sm90::tma_load_3d(st, &p.g_map, &full[stage], 0, r, node);
+        if (rc.bytes)
+          sm90::bulk_load(st + kNBox + rc.dst_off, rc.mid, rc.bytes,
+                          &full[stage]);
+        if (++stage == kNStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int t256 = threadIdx.x;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rw = 16 * warp;  // the warp's rows of a stage
+  // ldmatrix: lane 8 q + i addresses row rw + i + 8 (q % 2) of chunk
+  // 2 jj + q / 2 (jj: a pair of 8-column blocks)
+  const int lrow = rw + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int lchunk = lane >> 4;
+  // acc[I][J]: out(k, n) for k in 16 I + [0, 16), n in 8 J + [0, 8)
+  float acc[2][kNT][4];
+#pragma unroll
+  for (int I = 0; I < 2; ++I)
+#pragma unroll
+    for (int J = 0; J < kNT; ++J)
+      acc[I][J][0] = acc[I][J][1] = acc[I][J][2] = acc[I][J][3] = 0.0f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (long long i = i0; i < i1; ++i) {
+    const int node = node_of(i), r_end = r_end_of(i);
+    for (int r = r0_of(i); r < r_end; r += kNRows) {
+      sm90::mbar_wait(&full[stage], phase);
+      const int valid = min(kNRows, r_end - r);
+      if (rw < valid) {
+        const char* st = smem + stage * p.stage;
+        const unsigned short* xt = reinterpret_cast<const unsigned short*>(
+            st + kNBox + sm90::run_offset(x_run(node, r)));
+        // A(k, m) = x[m, k]: rows k = 16 I + gid (+8), depth m = rw +
+        // 2 tig (+1, +8); rows past the stage's valid ones are zero (their
+        // slot holds stale values; g's are zero-filled past M). Columns k
+        // >= K read the next row's values into sums never stored.
+        const int m = rw + 2 * tig;
+        auto pair = [&](int mm, int k) -> uint32_t {
+          const uint32_t lo = mm < valid ? xt[mm * K + k] : 0;
+          const uint32_t hi = mm + 1 < valid ? xt[(mm + 1) * K + k] : 0;
+          return lo | (hi << 16);
+        };
+        uint32_t a[2][4];
+#pragma unroll
+        for (int I = 0; I < 2; ++I) {
+          const int k = 16 * I + gid;
+          a[I][0] = pair(m, k);
+          a[I][1] = pair(m, k + 8);
+          a[I][2] = pair(m + 8, k);
+          a[I][3] = pair(m + 8, k + 8);
+        }
+        const uint32_t box = sm90::smem_u32(st);
+#pragma unroll
+        for (int jj = 0; jj < kNT / 2; ++jj) {
+          // b[0], b[1]: block 2 jj's depth halves; b[2], b[3]: 2 jj + 1's
+          uint32_t b[4];
+          const int c = 2 * jj + lchunk;
+          sm90::ldmatrix_x4_trans(
+              b, box + lrow * 128 + (((c ^ lrow) & 7) << 4));
+#pragma unroll
+          for (int I = 0; I < 2; ++I) {
+            mma16816(acc[I][2 * jj], a[I], b[0], b[1]);
+            mma16816(acc[I][2 * jj + 1], a[I], b[2], b[3]);
+          }
+        }
+      }
+      // the stage is free once every lane's loads have fed its mma
+      __syncwarp();
+      sm90::mbar_arrive_if(&empty[stage], lane == 0);
+      if (++stage == kNStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // the item's sums: the eight warps' accumulators added in warp order
+#pragma unroll
+    for (int I = 0; I < 2; ++I)
+#pragma unroll
+      for (int J = 0; J < kNT; ++J)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 16 * I + gid + 8 * h, n = 8 * J + 2 * tig;
+          *reinterpret_cast<float2*>(&red[(warp * 32 + k) * kNRedLd + n]) =
+              make_float2(acc[I][J][2 * h], acc[I][J][2 * h + 1]);
+          acc[I][J][2 * h] = acc[I][J][2 * h + 1] = 0.0f;
+        }
+    sm90::named_bar_sync(1, 32 * kNConsumers);
+    float* out = p.out + i * static_cast<long long>(K) * N;
+    for (int e = t256; e < K * N; e += 32 * kNConsumers) {
+      const int k = e / N, n = e % N;
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kNConsumers; ++w)
+        s += red[(w * 32 + k) * kNRedLd + n];
+      out[e] = s;
+    }
+    sm90::named_bar_sync(1, 32 * kNConsumers);  // red is free again
+  }
+}
+
 // out[node, e] = sum over s in order of partial[node, s, e]
 __global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
                                     float* __restrict__ out, int slices,
@@ -407,10 +623,37 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
 }  // namespace
 
 void launch_stream_wgrad(const void* x, const void* g, float* partial,
-                         float* out, int n, int M, int K, int N, int wide,
+                         float* out, int n, int M, int K, int N, int route,
                          int rows, int slices, cudaStream_t stream) {
   float* dst = slices > 1 ? partial : out;
-  if (wide) {
+  if (route == kWgradNarrow) {
+    NarrowParams p;
+    p.g_map = sm90::make_tmap(
+        Operand{static_cast<const bf16*>(g), static_cast<long long>(M) * N,
+                N, N, M},
+        n, kNRows);
+    p.x = static_cast<const bf16*>(x);
+    p.out = dst;
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    p.rows = rows;
+    p.slices = slices;
+    p.stage = narrow_stage(K);
+    p.items = static_cast<long long>(n) * slices;
+    const int smem = narrow_smem(K);
+    const int sms = sm90::sm_count();
+    const int grid = static_cast<int>(p.items < sms ? p.items : sms);
+    if (N <= 32) {
+      cudaFuncSetAttribute(wgrad_narrow_bf16_kernel<4>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      wgrad_narrow_bf16_kernel<4><<<grid, kNThreads, smem, stream>>>(p);
+    } else {
+      cudaFuncSetAttribute(wgrad_narrow_bf16_kernel<8>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      wgrad_narrow_bf16_kernel<8><<<grid, kNThreads, smem, stream>>>(p);
+    }
+  } else if (route == kWgradWide) {
     WideParams p;
     const long long nM = M;
     p.g_map = sm90::make_tmap(

@@ -8,7 +8,9 @@ for each of ``steps`` batches, the forward pass, softmax cross-entropy
 each node's mean over the steps.
 
 - ``fused_mlp_train_epoch_plain``: the epoch in plain PyTorch, batched
-  over the node axis with ``torch.bmm`` in f32.
+  over the node axis with ``torch.bmm`` in f32; its bias gradients and
+  softmax denominator are summed in the orders the kernel states
+  (``batch_sum``, ``class_sum``).
 - ``fused_mlp_train_epoch``: the wrapper. CPU tensors go to the plain
   version; CUDA tensors go to the hand-written kernel
   (``csrc/fused_train.cu``: one 8-block thread-block cluster per node,
@@ -38,6 +40,7 @@ from p2pfl_tpu_torch.ops import _build
 from p2pfl_tpu_torch.ops.gemm import _on_cpu, launches
 
 __all__ = ["fused_mlp_train_epoch", "fused_mlp_train_epoch_plain",
+           "batch_sum", "class_sum",
            "mlp_params_to_tuple", "tuple_to_mlp_params"]
 
 
@@ -56,12 +59,45 @@ def _epoch_shape(rows: int, batch_size: int) -> tuple[int, int]:
     return steps, batch_size
 
 
+def batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t [n, B, d]`` summed over the batch (dim 1) into ``[n, 1, d]`` in
+    the kernel's order (``csrc/fused_train.cu::batch_sum``): accumulator
+    r takes the rows b = r (mod 4) in ascending b, from zero, and the
+    four are added as ((a0 + a1) + a2) + a3. Elementwise adds only, so
+    the bits are the same on every device."""
+    n, b, d = t.shape
+    acc = torch.zeros((n, 4, d), dtype=t.dtype, device=t.device)
+    for b0 in range(0, b, 4):
+        k = min(4, b - b0)
+        acc[:, :k] = acc[:, :k] + t[:, b0:b0 + k]
+    return ((acc[:, 0:1] + acc[:, 1:2]) + acc[:, 2:3]) + acc[:, 3:4]
+
+
+def class_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t [..., C]`` summed over the classes (the last dim), keeping it,
+    in the kernel's order (``csrc/fused_train.cu::class_sum``): lane l
+    (0-3) is the sum over k = l (mod 8) plus the sum over k = l + 4
+    (mod 8), each in ascending k from zero, and the lanes meet as
+    (l0 + l2) + (l1 + l3). Elementwise adds only."""
+    c = t.shape[-1]
+    acc = torch.zeros(t.shape[:-1] + (8,), dtype=t.dtype, device=t.device)
+    for k0 in range(0, c, 8):
+        k = min(8, c - k0)
+        acc[..., :k] = acc[..., :k] + t[..., k0:k0 + k]
+    lane = acc[..., 0:4] + acc[..., 4:8]
+    return (lane[..., 0:1] + lane[..., 2:3]) + (lane[..., 1:2]
+                                                + lane[..., 3:4])
+
+
 def fused_mlp_train_epoch_plain(params, momentum_state, bx, by, lr: float,
                                 momentum: float = 0.9,
                                 batch_size: int = 32):
     """The epoch in plain PyTorch (f32 products and sums, bf16 inputs
     widened on entry); returns ``(params', momentum', loss [n])``, each
-    leaf rounded once to its input dtype."""
+    leaf rounded once to its input dtype. The bias gradients and the
+    softmax denominator are summed in the kernel's stated orders
+    (:func:`batch_sum`, :func:`class_sum`), not in ``torch.sum``'s,
+    which change with the shape and the device."""
     n, rows, _ = bx.shape
     steps, b = _epoch_shape(rows, int(batch_size))
     lr, beta = float(lr), float(momentum)
@@ -80,16 +116,16 @@ def fused_mlp_train_epoch_plain(params, momentum_state, bx, by, lr: float,
         z = torch.bmm(h1, w2) + b2
         z = z - z.amax(-1, keepdim=True)
         ez = torch.exp(z)
-        se = ez.sum(-1, keepdim=True)
+        se = class_sum(ez)
         logp = z - torch.log(se)
         loss_sum = loss_sum + -(onehot * logp).sum((1, 2)) / b
         dlogits = (ez / se - onehot) / b
         dh1 = torch.bmm(dlogits, w2.transpose(1, 2)) * (h1 > 0)
         dh0 = torch.bmm(dh1, w1.transpose(1, 2)) * (h0 > 0)
-        grads = (torch.bmm(x.transpose(1, 2), dh0), dh0.sum(1, keepdim=True),
-                 torch.bmm(h0.transpose(1, 2), dh1), dh1.sum(1, keepdim=True),
+        grads = (torch.bmm(x.transpose(1, 2), dh0), batch_sum(dh0),
+                 torch.bmm(h0.transpose(1, 2), dh1), batch_sum(dh1),
                  torch.bmm(h1.transpose(1, 2), dlogits),
-                 dlogits.sum(1, keepdim=True))
+                 batch_sum(dlogits))
         m = [beta * mi + gi for mi, gi in zip(m, grads)]
         p = [pi - lr * mi for pi, mi in zip(p, m)]
     return (tuple(a.to(t.dtype) for a, t in zip(p, params)),

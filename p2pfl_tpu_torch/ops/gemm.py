@@ -58,9 +58,10 @@ import torch
 from p2pfl_tpu_torch.ops import _build
 
 __all__ = [
-    "stream_gemm", "stream_gemm_plain",
+    "stream_gemm", "stream_gemm_plain", "stream_gemm_branch",
+    "STREAM_GEMM_BRANCHES",
     "stream_wgrad", "stream_wgrad_plain", "wgrad_plan", "wgrad_route",
-    "WgradPlan", "WGRAD_ROUTES",
+    "wgrad_call_plan", "WgradPlan", "WGRAD_ROUTES",
     "dense_bwd", "dense_bwd_plain",
     "sgd_accum", "sgd_accum_plain",
     "sgd_accum_many", "sgd_accum_many_plain",
@@ -126,6 +127,23 @@ def stream_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: K1's branches, in the order of the binding's branch codes
+#: (``csrc/kernels.h``, ``GemmBranch``): bf16 "narrow_tma" (K <= 32,
+#: N <= 64: bulk-copied row runs, mma.sync, tiles stored by 2-D TMA at
+#: N = 32 and 64), "narrow_staged" (the same with a staged copy-out),
+#: "wide" (TMA + wgmma, N = 64), "tiles" (guarded tiles, any other
+#: width); float32 "f32_ffma" (K <= 32, exact FFMA) and "f32_tc"
+#: (3xTF32 on wgmma)
+STREAM_GEMM_BRANCHES = ("narrow_tma", "narrow_staged", "wide", "tiles",
+                        "f32_ffma", "f32_tc")
+
+
+def stream_gemm_branch() -> str:
+    """The branch K1's launcher took at its last launch on the card (one
+    of :data:`STREAM_GEMM_BRANCHES`), as the launcher decided it."""
+    return STREAM_GEMM_BRANCHES[_build.kernels().stream_gemm_last_branch()]
+
+
 # ---------------------------------------------------------------------------
 # K2 stream_wgrad: [n, M, K]^T @ [n, M, N] -> [n, K, N] f32
 # ---------------------------------------------------------------------------
@@ -137,37 +155,44 @@ def stream_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 #: K2's routes, in the order of the binding's route codes
-#: (``csrc/kernels.h``): bf16 "general" (cp.async + mma.sync, any width)
-#: and "wide" (TMA + wgmma, K and N multiples of 8); float32 "f32_tc"
-#: (3xTF32 on wgmma) and "f32_narrow" (exact FFMA over cp.async row
-#: spans), the second at K <= 32 and wherever M <= WGRAD_F32_TC_MIN_M - 1:
-#: 3xTF32 drops up to about 3 x 2**-22 of each product (lo.lo, and what
-#: lo leaves of each operand), an error that only a sum of several rows
-#: averages under the f32 limits
-WGRAD_ROUTES = ("general", "wide", "f32_tc", "f32_narrow")
+#: (``csrc/kernels.h``; a new route is appended): bf16 "general"
+#: (cp.async + mma.sync, any width), "wide" (TMA + wgmma, K and N
+#: multiples of 8) and "narrow" (K <= 32 and N <= 64 a multiple of 8: a
+#: slice's whole output a work item, x's rows by 1-D bulk copy and g's by
+#: TMA, mma.sync); float32 "f32_tc" (3xTF32 on wgmma) and "f32_narrow"
+#: (exact FFMA over cp.async row spans), the second at K <= 32 and
+#: wherever M <= WGRAD_F32_TC_MIN_M - 1: 3xTF32 drops up to about 3 x
+#: 2**-22 of each product (lo.lo, and what lo leaves of each operand), an
+#: error that only a sum of several rows averages under the f32 limits
+WGRAD_ROUTES = ("general", "wide", "f32_tc", "f32_narrow", "narrow")
 WGRAD_F32_TC_MIN_M = 33
 #: rows a route's slice is a multiple of: the general route's stage, the
 #: wide route's and f32_tc's box (the rows one accumulator takes before
-#: its sum is added to the total to nearest), f32_narrow's cp.async chunk
+#: its sum is added to the total to nearest), f32_narrow's cp.async
+#: chunk, the narrow route's stage
 WGRAD_ROUTE_ROWS = {"general": 256, "wide": 64, "f32_tc": 32,
-                    "f32_narrow": 64}
+                    "f32_narrow": 64, "narrow": 128}
 #: work items (blocks, or (tile, slice) items of a persistent grid) the
 #: slice plan aims for on each route, and the fewest rows it gives a
 #: slice where M allows: constants, never the card's SM count, so the
 #: plan and the sums' order are the same on every card. The f32 routes
 #: run persistent grids, whose last round is full only when the items
 #: are many; f32_narrow's slices may be shorter, its partials being 800
-#: to 1,728 floats a slice
+#: to 1,728 floats a slice. The narrow route's persistent grid (one block
+#: an SM) takes 128 items: every further item a block costs its
+#: reduction and, in the slice sum, one more slice, more than the
+#: balance it buys (conv1 and the stem on the card, ``PERF.md``)
 WGRAD_TARGET_BLOCKS = {"wide": 512, "general": 256, "f32_tc": 2048,
-                       "f32_narrow": 4096}
+                       "f32_narrow": 4096, "narrow": 128}
 WGRAD_MIN_SLICE_ROWS = 1024
 WGRAD_NARROW_MIN_SLICE_ROWS = 512
 
 
 class WgradPlan(NamedTuple):
     """How K2 cuts one call: ``route`` (one of :data:`WGRAD_ROUTES`);
-    ``tiles`` output tiles a slice (bf16: blocks; f32_tc: 128 x 64
-    tiles; f32_narrow: 32 x 64 tiles); ``rows`` rows a
+    ``tiles`` output tiles a slice (general and wide: blocks; narrow: 1,
+    the whole output; f32_tc: 128 x 64 tiles; f32_narrow: 32 x 64
+    tiles); ``rows`` rows a
     slice (a multiple of the route's ``WGRAD_ROUTE_ROWS``); ``slices``
     slices a node, whose f32 sums a second kernel adds in slice order
     when there are two or more."""
@@ -178,12 +203,15 @@ class WgradPlan(NamedTuple):
 
 
 def wgrad_route(M: int, K: int, N: int, f32: bool = False) -> str:
-    """The route K2 takes at this shape: bf16 "wide" when K and N are
-    multiples of 8, else "general"; float32 "f32_tc" when K >= 33 and M
-    >= ``WGRAD_F32_TC_MIN_M``, else "f32_narrow"."""
+    """The route K2 takes at this shape: bf16 "narrow" when K <= 32 and N
+    <= 64 is a multiple of 8, else "wide" when K and N are multiples of
+    8, else "general"; float32 "f32_tc" when K >= 33 and M >=
+    ``WGRAD_F32_TC_MIN_M``, else "f32_narrow"."""
     if f32:
         tc = K > 32 and M >= WGRAD_F32_TC_MIN_M
         return "f32_tc" if tc else "f32_narrow"
+    if K <= 32 and N <= 64 and N % 8 == 0:
+        return "narrow"
     return "wide" if K % 8 == 0 and N % 8 == 0 else "general"
 
 
@@ -205,6 +233,8 @@ def wgrad_plan(n: int, M: int, K: int, N: int,
         tiles = -(-K // 128) * -(-N // 64)
     elif route == "f32_narrow":
         tiles = -(-K // 32) * -(-N // 64)
+    elif route == "narrow":
+        tiles = 1
     else:
         raise ValueError(f"unknown K2 route {route!r}")
     unit = WGRAD_ROUTE_ROWS[route]
@@ -217,18 +247,30 @@ def wgrad_plan(n: int, M: int, K: int, N: int,
     return WgradPlan(route, tiles, rows, -(-M // rows))
 
 
-def stream_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K2 (bf16: ``csrc/stream_wgrad.cu``; f32: ``csrc/gemm_f32_tc.cu``):
-    slices of rows summed per block or work item in a fixed order, then
-    in slice order (:func:`wgrad_plan`)."""
-    if _on_cpu(x, g):
-        return stream_wgrad_plain(x, g)
+def wgrad_call_plan(x: torch.Tensor, g: torch.Tensor) -> WgradPlan:
+    """The plan :func:`stream_wgrad` takes for these operands: the
+    shape's (:func:`wgrad_route`), or "general" where a TMA map cannot
+    start at an operand's base (16 bytes): x's or g's on the wide route,
+    g's on the narrow one (x's rows there go by 1-D bulk copies whose
+    unaligned edges are copied by hand, as in K1's narrow branch; g's
+    node bases are 16-byte multiples at any M, N being one of 8)."""
     n, M, K = x.shape
     N = g.shape[-1]
     plan = wgrad_plan(n, M, K, N,
                       wgrad_route(M, K, N, x.dtype == torch.float32))
-    if plan.route == "wide" and (x.data_ptr() % 16 or g.data_ptr() % 16):
+    if (plan.route == "wide" and (x.data_ptr() % 16 or g.data_ptr() % 16)
+            or plan.route == "narrow" and g.data_ptr() % 16):
         plan = wgrad_plan(n, M, K, N, "general")
+    return plan
+
+
+def stream_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K2 (bf16: ``csrc/stream_wgrad.cu``; f32: ``csrc/gemm_f32_tc.cu``):
+    slices of rows summed per block or work item in a fixed order, then
+    in slice order (:func:`wgrad_plan`, :func:`wgrad_call_plan`)."""
+    if _on_cpu(x, g):
+        return stream_wgrad_plain(x, g)
+    plan = wgrad_call_plan(x, g)
     out = _build.kernels().stream_wgrad(
         x, g, WGRAD_ROUTES.index(plan.route), plan.rows, plan.slices)
     launches[_key("stream_wgrad", x)] += 1

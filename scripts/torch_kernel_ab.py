@@ -9,16 +9,18 @@ git-ignored directory, and ``.``); list them in the order to run, e.g.
 that tree's kernels (into its own ``p2pfl_tpu_torch/ops/_build/``) and
 prints the mean time a call by CUDA events (``chip_smoke.time_ms``) of:
 
-- K1 ``stream_gemm`` in f32 at the ring's conv1 and conv2 forward
-  (8 nodes x 336 FEMNIST-CNN samples: M = 263,424 x K = 25 x N = 32 and
-  65,856 x 800 x 64), K2 ``stream_wgrad`` in f32 at conv1's and conv2's
-  weight gradients and at the ResNet9 stem's (16 nodes x 131,072 rows,
-  K = 27, N = 64), K2 in bf16 at the ring's conv1 and conv2 weight
-  gradients (each, and their sum: the pair a ring step runs) and at
-  the cross-device (8 x 20 samples) and Byzantine (16 x 64) conv2
-  weight gradients, each beside ``torch.bmm`` on the same inputs, K3
-  ``dense_bwd`` in f32 at dense1 (B = 336, D = 3136, H = 2048), seeded
-  normal inputs;
+- in bf16, K1 ``stream_gemm`` at the ring's conv1 forward (8 nodes x
+  336 FEMNIST-CNN samples: M = 263,424 x K = 25 x N = 32) and at the
+  ResNet9 stem's (16 nodes x 131,072 rows, K = 27, N = 64), and K2
+  ``stream_wgrad`` at the same two shapes' weight gradients, each
+  beside ``torch.bmm`` on the same inputs;
+- in f32, K1 at the ring's conv1 and conv2 forward (65,856 x 800 x 64)
+  and K2 at conv1's, conv2's and the stem's weight gradients;
+- K2 in bf16 at the ring's conv1 and conv2 weight gradients (each, and
+  their sum: the pair a ring step runs) and at the cross-device (8 x 20
+  samples) and Byzantine (16 x 64) conv2 weight gradients beside
+  ``torch.bmm``; K3 ``dense_bwd`` in f32 at dense1 (B = 336, D = 3136,
+  H = 2048); seeded normal inputs;
 - K6 ``fused_mlp_train_epoch`` at ``chip_smoke.py``'s headline (64
   mnist-mlp nodes, 784-256-128-10, 19 steps of 32, lr 0.05), with f32
   state and inputs and with them rounded to bf16 (10 calls each).
@@ -44,6 +46,26 @@ gen = torch.Generator(device=dev).manual_seed(0)
 rand = lambda *s: torch.randn(s, generator=gen, device=dev)
 n, b = cs.N_NODES, cs.BATCH
 out = []
+for tag, op, (nk, m, k, nn) in (
+        ("K1 bf16 conv1", "gemm", (n, b * 784, 25, 32)),
+        ("K1 bf16 stem", "gemm", (16, 128 * 1024, 27, 64)),
+        ("K2 bf16 conv1 (ring)", "wgrad", (n, b * 784, 25, 32)),
+        ("K2 bf16 stem", "wgrad", (16, 128 * 1024, 27, 64))):
+    x = rand(nk, m, k).to(torch.bfloat16)
+    if op == "gemm":
+        w = rand(nk, k, nn).to(torch.bfloat16)
+        ms = cs.time_ms(lambda: gemm.stream_gemm(x, w))
+        lib = cs.time_ms(lambda: torch.bmm(x, w))
+        del w
+    else:
+        g = rand(nk, m, nn).to(torch.bfloat16)
+        xt = x.transpose(1, 2)
+        ms = cs.time_ms(lambda: gemm.stream_wgrad(x, g))
+        lib = cs.time_ms(lambda: torch.bmm(xt, g))
+        del g, xt
+    out.append(f"{tag} {ms:.4f} (bmm {lib:.4f})")
+    del x
+torch.cuda.empty_cache()
 for tag, (m, k, nn) in (("K1 conv1", (b * 784, 25, 32)),
                         ("K1 conv2", (b * 196, 800, 64))):
     x, w = rand(n, m, k), rand(n, k, nn)

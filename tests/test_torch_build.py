@@ -13,11 +13,12 @@ import re
 
 import pytest
 
-from p2pfl_tpu_torch.ops import _build
+from p2pfl_tpu_torch.ops import _build, gemm
 
 CSRC = pathlib.Path(_build.__file__).resolve().parent / "csrc"
 _DECL = re.compile(r"^void (launch_\w+)\(", re.M)
 _INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
+_ENUM = re.compile(r"^enum (\w+) \{([^}]*)\}", re.M)
 
 
 def _launches_declared() -> list[str]:
@@ -62,3 +63,17 @@ def test_every_launch_is_defined_in_exactly_one_source(name):
 @pytest.mark.parametrize("name", _launches_declared())
 def test_every_launch_is_called_by_the_binding(name):
     assert f"p2pfl::{name}(" in (CSRC / "binding.cpp").read_text()
+
+
+# The codes the binding takes or returns are indices into tuples of names
+# on the Python side: kernels.h's enums must list the same names, in the
+# same order, numbered from 0.
+@pytest.mark.parametrize("enum,names", [
+    ("WgradRoute", gemm.WGRAD_ROUTES),
+    ("GemmBranch", gemm.STREAM_GEMM_BRANCHES)])
+def test_binding_codes_follow_the_python_names(enum, names):
+    body = dict(_ENUM.findall((CSRC / "kernels.h").read_text()))[enum]
+    entries = re.findall(r"k(?:Wgrad|Gemm)(\w+) = (\d+)", body)
+    assert [int(v) for _, v in entries] == list(range(len(names)))
+    assert [e.lower() for e, _ in entries] == [
+        name.replace("_", "") for name in names]

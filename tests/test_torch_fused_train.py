@@ -146,3 +146,54 @@ def test_param_bridge_round_trips_the_mnist_mlp_tree():
         jax.tree.map(np.asarray, jstacked)))
     for a, b in zip(jt, pt):
         assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def _sequential(vals, order):
+    """The float32 values ``vals[k]`` for k in ``order`` added one f32
+    add at a time, from zero."""
+    out = np.float32(0.0)
+    for k in order:
+        out = np.float32(out + vals[k])
+    return out
+
+
+@pytest.mark.parametrize("batch", [8, 16, 32, 64])
+@pytest.mark.parametrize("classes", [7, 10, 62])
+def test_written_out_sums_follow_the_stated_orders(batch, classes):
+    """The plain epoch's bias-gradient and softmax-denominator sums
+    (``batch_sum``, ``class_sum``) give, bit for bit, one f32 add at a
+    time in the order ``csrc/fused_train.cu`` states: over the batch,
+    accumulator r takes b = r (mod 4) ascending and the four meet as
+    ((a0 + a1) + a2) + a3; over the classes, lane l is the sum over
+    k = l (mod 8) plus the sum over k = l + 4 (mod 8) and the lanes meet
+    as (l0 + l2) + (l1 + l3)."""
+    rng = np.random.default_rng(batch * 100 + classes)
+    # values of mixed scale, so that another order changes the bits
+    t = (rng.standard_normal((2, batch, classes))
+         * np.exp(rng.uniform(-8, 8, (2, batch, classes)))).astype(
+             np.float32)
+    got_b = tfused.batch_sum(torch.from_numpy(t)).numpy()
+    got_c = tfused.class_sum(torch.from_numpy(t)).numpy()
+    assert got_b.shape == (2, 1, classes) and got_c.shape == (2, batch, 1)
+    for i in range(2):
+        for j in range(classes):
+            col = t[i, :, j]
+            a = [_sequential(col, range(r, batch, 4)) for r in range(4)]
+            want = np.float32(np.float32(np.float32(a[0] + a[1]) + a[2])
+                              + a[3])
+            assert got_b[i, 0, j].view(np.int32) == want.view(np.int32)
+        for j in range(batch):
+            row = t[i, j]
+            lane = [np.float32(_sequential(row, range(q, classes, 8))
+                               + _sequential(row, range(q + 4, classes, 8)))
+                    for q in range(4)]
+            want = np.float32(np.float32(lane[0] + lane[2])
+                              + np.float32(lane[1] + lane[3]))
+            assert got_c[i, j, 0].view(np.int32) == want.view(np.int32)
+    # one chain in ascending order gives other bits (the check has teeth)
+    chain_b = [_sequential(t[i, :, j], range(batch))
+               for i in range(2) for j in range(classes)]
+    chain_c = [_sequential(t[i, j], range(classes))
+               for i in range(2) for j in range(batch)]
+    assert not np.array_equal(np.array(chain_b), got_b[:, 0].reshape(-1))
+    assert not np.array_equal(np.array(chain_c), got_c[..., 0].reshape(-1))
