@@ -170,10 +170,31 @@ one, or when run outside a checkout of this repository). Phases:
    rows, K = 27, N = 64, bf16 and f32), and K4 over ResNet9's 26 leaves
    at 16 nodes and ResNet50's 161 at 4 (one launch and four), bit for
    bit against the list plain version.
-10. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
+10. The round-boundary services on phase 3's ring (``round_services``;
+   scratch files in the git-ignored ``.chip_smoke_phase10/``, removed
+   at the end):
+   a. resume, bit for bit: the ring as DFL and as SDFL with node 3
+      crashing at round 1 and joining at round 3 (4 s heartbeat, 3 s
+      timeout), 4 rounds with ``checkpoint_every=2``; a fresh
+      ``Scenario`` on a directory holding only round 2's file resumes
+      and runs 2 rounds. Every param, trace, step, alive mask, round,
+      the leaders, train losses, the evaluation and round 4's file must
+      equal the uninterrupted run's; the file's MB and one more save
+      and load of it in seconds are printed;
+   b. logs: with ``log_dir`` and ``profile_dir``, 3 rounds:
+      metrics.jsonl's rows a round (``LOG_ROWS_PER_ROUND``), a status
+      record an alive node with keys inside ``STATUS_KEYS``, the
+      profiled round's Chrome trace naming K1-K4 by their kernels'
+      symbols (``TRACE_KERNELS``), its wall time beside an unprofiled
+      round's;
+   c. the staged exchange, 3 rounds: round 0's params the bits of the
+      fit before the mix rounded through the bf16 wire, the loss
+      falling, K1-K4 launched as often as in phase 3, s/round staged
+      and eager (medians of rounds 2-3).
+11. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
    dtype variants) and, last, ``{"ok": true, "device": {...}}``. With
    ``--out DIR`` the per-instance kernel numbers, the profiles and
-   phases 7's, 8's and 9's numbers are also written there as JSON.
+   phases 7's to 10's numbers are also written there as JSON.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -216,13 +237,18 @@ K6_FLIP_NODES = 0
 # K6's sum orders beyond the probe's shape (batch 32, 10 classes): one
 # step from a zero trace at 64 nodes, (batch, classes) -> the leaves
 # known to leave the plain version's bits; any other leaf must keep
-# them, and these stay within K6_TOL. The plain version sums its bias
-# gradients and softmax denominator in the kernel's stated orders; at
-# batch 8, torch.bmm's forward products at 8 rows (x @ w0, h0 @ w1) are
-# not one ascending chain, so every leaf differs (ROADMAP Queue C)
+# them, and these stay within K6_TOL. The plain version takes its
+# forward products as ascending chains (``fused_train.chain_matmul``)
+# and sums its bias gradients and softmax denominator in the kernel's
+# stated orders; at batch 8 torch.bmm's forward products over 8 rows
+# were not one ascending chain, and every leaf differed (closed, ROADMAP
+# Queue C)
 K6_ORDER_SHAPES = {
-    (8, 7): "all", (16, 7): (), (32, 10): (),
+    (8, 7): (), (16, 7): (), (32, 10): (),
     (64, 7): (), (32, 62): ()}
+# the plain K6 epoch takes its forward products as emulated chains (a
+# few thousand launches a step): phase 2 times it over fewer calls
+K6_PLAIN_REPS = 3
 # the ResNet9 stem's K1 and K2 problem at phase 9's step: 16 nodes x 128
 # CIFAR10 images of 32 x 32 rows, contraction 27, 64 filters
 STEM = (16, 128 * 32 * 32, 27, 64)
@@ -562,7 +588,7 @@ def kernel_checks(dev, peak) -> dict:
            "K6_TOL/K6_FLIP_*",
            time_ms(lambda: epoch(fused_train.fused_mlp_train_epoch), reps=10),
            time_ms(lambda: epoch(fused_train.fused_mlp_train_epoch_plain),
-                   reps=10),
+                   reps=K6_PLAIN_REPS, warm=1),
            None, nbytes, flops, f32_peak)
     rows[-1].update(k6_plan(n6, MLP_BATCH, d_in, d1, d2, n_cls))
     host_device(rows, lambda: epoch(fused_train.fused_mlp_train_epoch),
@@ -638,7 +664,7 @@ def kernel_checks(dev, peak) -> dict:
            time_ms(lambda: epoch16(fused_train.fused_mlp_train_epoch),
                    reps=10),
            time_ms(lambda: epoch16(fused_train.fused_mlp_train_epoch_plain),
-                   reps=10),
+                   reps=K6_PLAIN_REPS, warm=1),
            None, n6 * (2 * 4 * n_par + rows6 * (2 * d_in + 4) + 4), flops,
            f32_peak)
     rows[-1].update(nodes_off=nodes, whole_leaves_within_flip=whole,
@@ -1387,7 +1413,7 @@ def k6_sum_orders(dev) -> dict:
                 off[f"{kind} {name}"] = dict(
                     max_abs=float(d.max()),
                     share=float((d > 0).float().mean()), within_k6_tol=ok)
-                if not ok or (known != "all" and name not in known):
+                if not ok or name not in known:
                     fail(f"K6 sum orders at batch {batch}, {c} classes: "
                          f"{kind} {name} {off[f'{kind} {name}']}")
         out[f"batch{batch}_classes{c}"] = off
@@ -3340,6 +3366,270 @@ def cifar_models(dev, out_dir: pathlib.Path | None) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 10: the round-boundary services (checkpoint and resume, logs and
+# status records, the profiled round, the staged exchange)
+# ---------------------------------------------------------------------------
+
+# 10b: K1-K4 by the symbols of their kernels in a Chrome trace
+TRACE_KERNELS = {"K1 stream_gemm": "stream_gemm_",
+                 "K2 stream_wgrad": "wgrad_",
+                 "K3 dense_bwd": "dense_bwd_kernel",
+                 "K4 sgd_accum_many": "stream_kernel"}
+# 10b: metrics.jsonl rows a round at eval_every 1: a train row and a test
+# row a node, the federation's test row, the resources row, the marker
+LOG_ROWS_PER_ROUND = 2 * N_NODES + 3
+
+
+def phase10_dir() -> pathlib.Path:
+    """A fresh scratch directory inside the checkout (git-ignored)."""
+    import shutil
+
+    d = ROOT / ".chip_smoke_phase10"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir()
+    return d
+
+
+def same_state(a, b) -> list[str]:
+    """The parts of two federation states whose bits differ."""
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+
+    off = []
+    for tag, x, y in (("params", a.states.params, b.states.params),
+                      ("trace", a.states.opt_state, b.states.opt_state)):
+        if not all(torch.equal(u, v) for u, v in zip(tree_leaves(x),
+                                                      tree_leaves(y))):
+            off.append(tag)
+    for tag, x, y in (("step", a.states.step, b.states.step),
+                      ("alive", a.alive, b.alive)):
+        if not torch.equal(x, y):
+            off.append(tag)
+    if a.round != b.round:
+        off.append("round")
+    return off
+
+
+def resume_arm(dev, data, federation: str, work: pathlib.Path) -> dict:
+    """10a, one arm: phase 3's ring as ``federation`` with node 3
+    crashing at round 1 and joining at round 3 (4 s heartbeat, 3 s
+    timeout), 4 rounds uninterrupted with ``checkpoint_every=2``; then a
+    fresh ``Scenario`` on a directory holding only round 2's file
+    resumes and runs 2 rounds. Every param, trace, step, alive, round,
+    the leader, the evaluation and round 4's file must equal the
+    uninterrupted run's."""
+    import dataclasses
+    import hashlib
+    import shutil
+
+    import torch
+
+    from p2pfl_tpu_torch.config.schema import FaultEvent, ProtocolConfig
+    from p2pfl_tpu_torch.federation import Scenario
+    from p2pfl_tpu_torch.federation.checkpoint import (
+        checkpoint_path,
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    base = smoke_config()
+    first, again = work / f"{federation}_run", work / f"{federation}_resume"
+    again.mkdir()
+
+    def config(directory):
+        return dataclasses.replace(
+            base, name=f"femnist-cnn-ring-8-{federation.lower()}-resume",
+            federation=federation,
+            training=dataclasses.replace(base.training, rounds=4),
+            protocol=ProtocolConfig(**FAST_CLOCK),
+            faults=[FaultEvent(node=3, round=1, kind="crash"),
+                    FaultEvent(node=3, round=3, kind="join")],
+            checkpoint_dir=str(directory), checkpoint_every=2)
+
+    whole = Scenario(config(first), dataset=data, device=dev)
+    res_whole = whole.run()
+    shutil.copy(checkpoint_path(first, 2), again)
+    resumed = Scenario(config(again), dataset=data, device=dev)
+    start = resumed.fed.round
+    res_resumed = resumed.run(rounds=2)
+    torch.cuda.synchronize(dev)
+    off = same_state(whole.fed, resumed.fed)
+    digest = [hashlib.sha256(checkpoint_path(d, 4).read_bytes()).hexdigest()
+              for d in (first, again)]
+    files_mb = {f"{d.name}/{p.name}": p.stat().st_size / 1e6
+                for d in (first, again) for p in sorted(d.iterdir())}
+    hist = {k: ([h[k] for h in res_whole.history[2:]],
+                [h[k] for h in res_resumed.history])
+            for k in ("alive", "leader", "train_loss")}
+    same_eval = (res_whole.per_node_accuracy == res_resumed.per_node_accuracy
+                 and res_whole.final_accuracy == res_resumed.final_accuracy)
+    # the file's cost: the final state saved and loaded once more (its
+    # generator drew nothing since round 4's save: the same slot)
+    timed = work / f"{federation}_timed"
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    path = save_checkpoint(timed, whole.fed)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_checkpoint(path, whole.fed)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    mb = path.stat().st_size / 1e6
+    out = dict(start_round=start, state_off=off, files_mb=files_mb,
+               same_leader_alive_loss={k: a == b for k, (a, b) in hist.items()},
+               same_eval=same_eval, same_round4_file=digest[0] == digest[1],
+               leaders=hist["leader"][0], file_mb=mb, save_s=save_s,
+               load_s=load_s,
+               round_times_s=[h["round_time_s"] for h in res_whole.history])
+    print(f"  resume {federation}: resumed at round {start}; state off the "
+          f"uninterrupted run's bits: {off or 'none'}; alive, leader, "
+          f"train loss equal: {out['same_leader_alive_loss']} (leaders "
+          f"{hist['leader'][0]}); evaluation equal: {same_eval}; round 4's "
+          f"file the same bytes: {out['same_round4_file']}; files (MB) "
+          f"{ {k: round(v, 1) for k, v in files_mb.items()} }; the final "
+          f"state saved once more: {mb:.1f} MB, save {save_s:.3f} s, load "
+          f"{load_s:.3f} s", flush=True)
+    if start != 2:
+        fail(f"resume {federation}: resumed at round {start}, not 2")
+    if off or not all(out["same_leader_alive_loss"].values()) or not (
+            same_eval and out["same_round4_file"]):
+        fail(f"resume {federation}: the resumed run left the uninterrupted "
+             f"run's bits: {out}")
+    shutil.rmtree(work / f"{federation}_timed")
+    for d in (first, again):
+        shutil.rmtree(d)
+    return out
+
+
+def logs_arm(dev, data, work: pathlib.Path) -> dict:
+    """10b: phase 3's ring with ``log_dir`` and ``profile_dir``, 3
+    rounds: metrics.jsonl's rows a round, a status record an alive node
+    with keys inside ``STATUS_KEYS``, the profiled round's Chrome trace
+    naming K1-K4, its wall time beside an unprofiled round's."""
+    import dataclasses
+
+    from p2pfl_tpu_torch.federation import Scenario
+    from p2pfl_tpu_torch.utils.monitor import STATUS_KEYS, read_statuses
+
+    cfg = dataclasses.replace(smoke_config(), name="femnist-cnn-ring-8-logs",
+                              log_dir=str(work / "logs"),
+                              profile_dir=str(work / "profile"))
+    sc = Scenario(cfg, dataset=data, device=dev)
+    res = sc.run()
+    sc.close()
+    rows = [json.loads(line) for line in
+            (work / "logs" / cfg.name / "metrics.jsonl").read_text()
+            .splitlines()]
+    per_round = [sum(r["round"] == i for r in rows) for i in range(3)]
+    statuses = read_statuses(work / "logs" / cfg.name / "status")
+    extra = sorted({k for st in statuses for k in st} - set(STATUS_KEYS))
+    trace = json.loads(sc.profile_path.read_text())
+    names = [e.get("name", "") for e in trace.get("traceEvents", [])
+             if e.get("cat") == "kernel"]
+    seen = {k: sum(sym in n for n in names)
+            for k, sym in TRACE_KERNELS.items()}
+    times = res.round_times_s
+    out = dict(rows_per_round=per_round, statuses=len(statuses),
+               extra_keys=extra, trace_kernels=seen,
+               trace_mb=sc.profile_path.stat().st_size / 1e6,
+               profiled_round_s=times[1], unprofiled_round_s=times[2],
+               round_times_s=times)
+    print(f"  logs: metrics.jsonl rows a round {per_round} (want "
+          f"{LOG_ROWS_PER_ROUND}); status records {len(statuses)}, keys "
+          f"outside STATUS_KEYS {extra or 'none'}; the profiled round's "
+          f"trace ({out['trace_mb']:.1f} MB) names {seen}; round 2 "
+          f"profiled {times[1]:.4f} s, round 3 unprofiled {times[2]:.4f} s",
+          flush=True)
+    if per_round != [LOG_ROWS_PER_ROUND] * 3:
+        fail(f"logs: metrics.jsonl rows a round {per_round}")
+    if len(statuses) != N_NODES or extra:
+        fail(f"logs: {len(statuses)} status records, extra keys {extra}")
+    if not all(seen.values()):
+        fail(f"logs: the profiled round's trace misses kernels: {seen}")
+    return out
+
+
+def staged_arm(dev, data, ring_launches: dict) -> dict:
+    """10c: phase 3's ring with ``exchange_overlap="staged"``, 3 rounds
+    beside the eager ring: round 0's params the bits of the fit before
+    the mix rounded through the bf16 wire, the loss falling, K1-K4
+    launched as often as in phase 3, s/round of both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves, tree_map
+    from p2pfl_tpu_torch.federation import Scenario
+    from p2pfl_tpu_torch.ops import gemm
+    from p2pfl_tpu_torch.parallel.federated import (
+        _clone_generator,
+        _train_and_select,
+    )
+
+    base = smoke_config()
+    cfg = dataclasses.replace(base, name="femnist-cnn-ring-8-staged",
+                              exchange_overlap="staged")
+    sc = Scenario(cfg, dataset=data, device=dev)
+    # the fit alone, from the same state and a copy of the generator
+    st = dataclasses.replace(sc.fed.states,
+                             rng=_clone_generator(sc.fed.states.rng))
+    x, y, smask, _ = sc._data_args
+    every = torch.ones(N_NODES, dtype=torch.bool, device=dev)
+    fit, _ = _train_and_select(sc.fns, st, every, every, x, y, smask,
+                               cfg.training.epochs_per_round)
+    want = tree_map(lambda p: p.to(torch.bfloat16).to(p.dtype), fit.params)
+    del fit, st
+    gemm.reset_launches()
+    hist = sc.run(rounds=1).history
+    round0 = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(sc.fed.states.params), tree_leaves(want)))
+    hist += sc.run(rounds=2).history
+    torch.cuda.synchronize(dev)
+    launches = dict(gemm.launches)
+    eager = Scenario(base, dataset=data, device=dev).run().history
+    loss = [float(np.mean(h["train_loss"])) for h in hist]
+    staged_s = float(np.median([h["round_time_s"] for h in hist[1:]]))
+    eager_s = float(np.median([h["round_time_s"] for h in eager[1:]]))
+    same = {k: launches[k] == ring_launches[k] for k in DENSE_PATH}
+    out = dict(round0_is_bf16_fit=round0, loss=loss, launches=launches,
+               launches_as_phase3=same, staged_s=staged_s, eager_s=eager_s,
+               stale_weights=sc.fed.stale[1].tolist())
+    print(f"  staged exchange: round 0 the bf16-rounded fit bit for bit: "
+          f"{round0}; mean train loss {[round(v, 4) for v in loss]}; K1-K4 "
+          f"launches as phase 3's: {same} ({launches}); s/round (median of "
+          f"rounds 2-3) staged {staged_s:.4f}, eager {eager_s:.4f}",
+          flush=True)
+    if not round0:
+        fail("staged exchange: round 0 is not the fit rounded through bf16")
+    if not loss[-1] < loss[0]:
+        fail(f"staged exchange: train loss did not fall: {loss}")
+    if not all(same.values()):
+        fail(f"staged exchange: launches {launches}, phase 3 "
+             f"{ring_launches}")
+    return out
+
+
+def round_services(dev, ring_launches: dict) -> dict:
+    """Phase 10 on phase 3's data; the scratch directory goes at the
+    end."""
+    import shutil
+
+    from p2pfl_tpu_torch.datasets.data import FederatedDataset
+
+    data = FederatedDataset.make(smoke_config().data, N_NODES)
+    work = phase10_dir()
+    try:
+        out = {f"resume_{f.lower()}": resume_arm(dev, data, f, work)
+               for f in ("DFL", "SDFL")}
+        out["logs"] = logs_arm(dev, data, work)
+        out["staged"] = staged_arm(dev, data, ring_launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
 
 def main(argv: list[str] | None = None) -> int:
     import argparse
@@ -3443,6 +3733,12 @@ def main(argv: list[str] | None = None) -> int:
           "resnet18/34/50 and the MobileNets on 4 nodes, "
           f"{CIFAR_OTHERS_ROUNDS} rounds; ResNet9 in f32", flush=True)
     phase9 = cifar_models(dev, args.out)
+    torch.cuda.empty_cache()
+
+    print("[10] round-boundary services on phase 3's ring: resume bit for "
+          "bit (DFL and SDFL, node 3 crashing and joining), logs, status "
+          "records and a profiled round, the staged exchange", flush=True)
+    phase10 = round_services(dev, launches)
 
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
@@ -3506,6 +3802,8 @@ def main(argv: list[str] | None = None) -> int:
             json.dumps({"card": smi, **phase8}, indent=1))
         (args.out / "chip_smoke_phase9.json").write_text(
             json.dumps({"card": smi, **phase9}, indent=1))
+        (args.out / "chip_smoke_phase10.json").write_text(
+            json.dumps({"card": smi, **phase10}, indent=1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

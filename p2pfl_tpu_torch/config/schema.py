@@ -12,9 +12,8 @@ the same way. ``ScenarioConfig`` has the same fields, so
 The combinations the JAX package refuses with the cross-device regime
 raise the same ``ValueError`` here, before anything else is checked.
 The sections this port does not run yet (secure aggregation, lora, the
-sparse transport, the staged exchange, checkpoints, metric logging, the
-socket plane, and a ``param_dtype`` or ``compute_dtype`` other than
-float32 and bfloat16) are
+sparse transport, the socket plane, and a ``param_dtype`` or
+``compute_dtype`` other than float32 and bfloat16) are
 rejected in ``__post_init__`` with a ``NotImplementedError`` that names
 the ``ROADMAP.md`` item that ports them (``network`` and ``lora`` stay
 plain dicts): a scenario the port would silently run differently never
@@ -488,13 +487,6 @@ class ScenarioConfig:
             raise _unported("lora", "A8")
         if self.transport == "sparse":
             raise _unported("transport='sparse'", "A12")
-        if self.exchange_overlap == "staged":
-            raise _unported("exchange_overlap='staged'", "A13")
-        if self.checkpoint_dir or self.checkpoint_every:
-            raise _unported("checkpointing", "A17")
-        if (self.log_dir or self.tensorboard or self.wandb
-                or self.profile_dir):
-            raise _unported("metric logging and profiling", "A18")
         net = self.network
         if (self.aggregation_plane != "inline" or self.encrypt
                 or any(net.get(k) for k in ("delay_ms", "jitter_ms",

@@ -14,7 +14,11 @@ bfloat16 of its own.
 
 ``adam_state_from_optax`` does the same for an optax
 ``ScaleByAdamState`` given as numpy ``(count, mu, nu)``, so that both
-packages can start from one optimizer state.
+packages can start from one optimizer state. ``federated_state_from_jax``
+carries a whole JAX ``FederatedState`` (flax's ``to_state_dict`` of it,
+leaves as numpy) into the port's, the checkpoint's layout: the port's
+shuffle generator is seeded from the JAX keys, and the port then writes
+the JAX package's checkpoint bytes for it.
 """
 
 from __future__ import annotations
@@ -81,3 +85,14 @@ def params_to_numpy(params: Params) -> dict:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return tree_map(leaf, params)
+
+
+def federated_state_from_jax(state_dict: dict, template,
+                             optimizer: str | None = None):
+    """flax's ``to_state_dict`` of a JAX ``FederatedState`` (numpy
+    leaves) -> the port's ``FederatedState`` in the structure, dtypes and
+    devices of ``template`` (``federation.checkpoint.from_state_dict``;
+    ``optimizer`` as there)."""
+    from p2pfl_tpu_torch.federation.checkpoint import from_state_dict
+
+    return from_state_dict(template, state_dict, optimizer)

@@ -21,8 +21,18 @@ the joiner's row; SDFL rotates its leader among the alive nodes and
 CFL fails over to the lowest alive index. Both scenarios are
 ``Observable`` and fire the JAX package's round events; the membership
 fires the node events. ``ScenarioConfig`` rejects everything else
-before a run starts. There is no status publishing and no metrics
-logger yet.
+before a run starts.
+
+Round-boundary services, as in the JAX package: with ``log_dir`` a
+``MetricsLogger`` (``<log_dir>/<name>/metrics.jsonl``, per-node CSVs,
+optional TensorBoard and wandb) and per-node status records
+(``<log_dir>/<name>/status/``); with ``profile_dir`` one steady-state
+round (the run's second) traced by ``torch.profiler`` into a Chrome
+trace there; with ``checkpoint_dir`` a ``Scenario`` resumes from the
+newest file that loads (replaying the membership clock and the leader
+through the restored rounds) and saves every ``checkpoint_every``
+rounds (``federation/checkpoint.py``). ``exchange_overlap="staged"``
+seeds the staged exchange's buffer before the resume.
 
     scenario = Scenario(ScenarioConfig(...))   # device "cuda" by default
     result = scenario.run()
@@ -32,6 +42,8 @@ logger yet.
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 import time
 from typing import Any
 
@@ -49,6 +61,11 @@ from p2pfl_tpu_torch.core.aggregators import get_aggregator
 from p2pfl_tpu_torch.datasets.data import CrossDeviceData, FederatedDataset
 from p2pfl_tpu_torch.core.pytree import tree_map
 from p2pfl_tpu_torch.device import resolve_device
+from p2pfl_tpu_torch.federation.checkpoint import (
+    all_checkpoints,
+    load_checkpoint,
+    save_checkpoint,
+)
 from p2pfl_tpu_torch.federation.events import Events, Observable
 from p2pfl_tpu_torch.federation.membership import Membership
 from p2pfl_tpu_torch.federation.sampling import sample_cohorts
@@ -63,9 +80,13 @@ from p2pfl_tpu_torch.parallel.federated import (
     init_federation,
     make_round_plan,
     staleness_scale,
+    with_staged_buffer,
 )
 from p2pfl_tpu_torch.privacy.dp import DPSpec, PrivacyAccountant
 from p2pfl_tpu_torch.topology.topology import generate_topology
+from p2pfl_tpu_torch.utils.metrics import MetricsLogger
+from p2pfl_tpu_torch.utils.monitor import publish_status
+from p2pfl_tpu_torch.utils.telemetry import resource_snapshot
 
 
 @dataclasses.dataclass
@@ -121,6 +142,42 @@ def _faults_by_round(config: ScenarioConfig) -> dict[int, list]:
     return by_round
 
 
+def _logger(config: ScenarioConfig) -> MetricsLogger:
+    return MetricsLogger(config.log_dir, config.name,
+                         tensorboard=config.tensorboard, wandb=config.wandb)
+
+
+class _RoundProfiler:
+    """``torch.profiler`` over one round (CUDA activity on the card, CPU
+    activity on the CPU), exported as a Chrome trace into ``directory``;
+    :meth:`close` stops a trace that a failed round left running."""
+
+    def __init__(self, directory: str, name: str, device: torch.device):
+        self.dir = pathlib.Path(directory)
+        self.name = name
+        self._activity = (torch.profiler.ProfilerActivity.CUDA
+                          if device.type == "cuda"
+                          else torch.profiler.ProfilerActivity.CPU)
+        self._prof = None
+
+    def start(self) -> None:
+        self._prof = torch.profiler.profile(activities=[self._activity])
+        self._prof.start()
+
+    def stop(self, round_num: int) -> pathlib.Path:
+        prof, self._prof = self._prof, None
+        prof.stop()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        path = self.dir / f"{self.name}_round{round_num:05d}.pt.trace.json"
+        prof.export_chrome_trace(str(path))
+        return path
+
+    def close(self) -> None:
+        if self._prof is not None:
+            self._prof.stop()
+            self._prof = None
+
+
 class Scenario(Observable):
     """Build and drive a federation from a ScenarioConfig."""
 
@@ -146,6 +203,9 @@ class Scenario(Observable):
                                          **config.aggregator_kwargs)
         self.roles = [nc.role for nc in config.nodes]
         self.membership = Membership(n, config.protocol)
+        self.logger = _logger(config)
+        if self.logger.dir is not None:
+            self._write_topology()
         self.leader = next(
             (i for i, nc in enumerate(config.nodes)
              if nc.role in ("aggregator", "server")), 0)
@@ -220,12 +280,67 @@ class Scenario(Observable):
             attack=self.attack,
             malicious=self.malicious,
             update_stats=self.reputation is not None,
+            exchange_overlap=config.exchange_overlap,
             dp=self.dp_spec,
             dp_mask=self.dp_mask,
         )
         self._eval_fn = build_eval_fn(self.fns)
         self.fed = init_federation(self.fns, torch.from_numpy(x[0, :1]), n,
                                    seed=config.seed, device=dev)
+        if config.exchange_overlap == "staged":
+            # the buffer at zero weight: staged round 0 is pure local
+            # training; seeded before the resume so the template has it
+            self.fed = with_staged_buffer(self.fed)
+        self._maybe_resume()
+        self._steps_per_round = (max(x.shape[1] // config.data.batch_size, 1)
+                                 * config.training.epochs_per_round)
+        # a resumed run continues the FL-aware global step
+        self.global_step = self.fed.round * self._steps_per_round
+        self.round_times_s: list[float] = []
+        self.profile_path: pathlib.Path | None = None  # the last trace
+
+    # ------------------------------------------------------------------
+    def _write_topology(self) -> None:
+        """``topology.png`` and ``topology_3d.json`` beside the metrics,
+        best effort: an optional picture never stops a run."""
+        try:
+            from p2pfl_tpu_torch.utils.draw import draw_topology
+
+            draw_topology(self.topology, self.logger.dir / "topology.png",
+                          roles=self.roles)
+        except Exception:
+            pass
+        try:
+            from p2pfl_tpu_torch.utils.fsio import atomic_write_text
+
+            atomic_write_text(
+                self.logger.dir / "topology_3d.json",
+                json.dumps(self.topology.to_3d(seed=self.config.seed)))
+        except Exception:
+            pass
+
+    def _maybe_resume(self) -> None:
+        """Restore the newest checkpoint that loads (falling back past a
+        truncated or corrupt one), then replay the host's trajectory
+        through the restored rounds: the same faults, clock and leader
+        draws as the run that saved, so eviction, the leader and every
+        later mix weight match it."""
+        if not self.config.checkpoint_dir:
+            return
+        restored = None
+        for path in reversed(all_checkpoints(self.config.checkpoint_dir)):
+            try:
+                restored = load_checkpoint(
+                    path, self.fed, self.config.training.optimizer)
+                break
+            except ValueError:
+                continue
+        if restored is None:
+            return
+        self.fed = restored
+        for r in range(self.fed.round):
+            alive = self._advance_membership(r, replay=True)
+            self._rotate_leader(alive, replay=True)
 
     # ------------------------------------------------------------------
     def _sync_join_row(self, node: int, round_num: int) -> None:
@@ -250,23 +365,29 @@ class Scenario(Observable):
                                                  params=params))
         self.notify(Events.NODE_JOINED, {"node": node, "round": round_num})
 
-    def _advance_membership(self, round_num: int) -> np.ndarray:
+    def _advance_membership(self, round_num: int,
+                            replay: bool = False) -> np.ndarray:
         """The round's faults (a join's row sync included), then one
-        heartbeat period of the clock; returns the alive mask."""
+        heartbeat period of the clock; returns the alive mask. A replayed
+        round (resume) copies no row: the restored state holds the
+        post-join params already."""
         for fault in self._faults_by_round.get(round_num, []):
             self.membership.apply_fault(fault)
-            if fault.kind == "join":
+            if fault.kind == "join" and not replay:
                 self._sync_join_row(fault.node, round_num)
         t = self.membership.clock + self.membership.protocol.heartbeat_period_s
         return self.membership.advance_to(t)
 
-    def _rotate_leader(self, alive: np.ndarray) -> None:
+    def _rotate_leader(self, alive: np.ndarray, replay: bool = False) -> None:
+        """SDFL draws its leader among the alive nodes (a replayed round
+        draws too, to keep the stream in step, but fires no event); CFL
+        fails over from a dead server."""
         if self.config.federation == "SDFL":
             candidates = [i for i in np.flatnonzero(alive)
                           if self.roles[i] in ("aggregator", "trainer")]
             if candidates:
                 new = int(self._rng.choice(candidates))
-                if new != self.leader:
+                if new != self.leader and not replay:
                     self.notify(Events.LEADERSHIP_TRANSFERRED,
                                 {"from": self.leader, "to": new})
                 self.leader = new
@@ -319,6 +440,58 @@ class Scenario(Observable):
                 torch.from_numpy(plan.adopt).long().to(dev),
                 torch.from_numpy(trains).to(dev))
 
+    def _publish_statuses(self, r: int, alive: np.ndarray,
+                          train_loss: np.ndarray, ev: dict | None) -> None:
+        """Each alive node's status record (dead nodes go silent, like a
+        crashed process), in the JAX package's keys. ``recompiles`` is 0:
+        eager PyTorch compiles no round program."""
+        if self.logger.dir is None:
+            return
+        times = sorted(self.round_times_s)
+        p95 = (round(times[min(len(times) - 1, int(0.95 * len(times)))], 4)
+               if times else None)
+        acct = self.accountant
+        for i in range(self.config.n_nodes):
+            if not alive[i]:
+                continue
+            publish_status(self.logger.dir / "status", i, {
+                "role": self.roles[i],
+                "round": r + 1,
+                "round_p95_s": p95,
+                "loss": float(train_loss[i]),
+                "accuracy": (float(ev["per_node_accuracy"][i]) if ev
+                             else None),
+                "peers": int(alive.sum()) - 1,
+                "leader": self.leader,
+                "trust": (round(float(self.reputation.trust[i]), 4)
+                          if self.reputation is not None else None),
+                "dp_epsilon": (round(acct.epsilon, 4) if acct is not None
+                               else None),
+                "dp_epsilon_budget": (self.config.privacy.epsilon_budget
+                                      if acct is not None else None),
+                "recompiles": 0,
+            })
+
+    def _log_round(self, r: int, dt: float, train_loss: np.ndarray) -> None:
+        """The round's per-node training records (the JAX run loop's)."""
+        for i in range(self.config.n_nodes):
+            rec = {"Train/loss": float(train_loss[i]),
+                   "Train/round_time_s": dt}
+            if self.reputation is not None:
+                rec["Trust/score"] = float(self.reputation.trust[i])
+            self.logger.log_metrics(rec, step=self.global_step, round=r,
+                                    node=i)
+
+    def _log_eval(self, r: int, ev: dict) -> None:
+        for i, (a, l) in enumerate(zip(ev["per_node_accuracy"],
+                                       ev["per_node_loss"])):
+            self.logger.log_metrics({"Test/accuracy": a, "Test/loss": l},
+                                    step=self.global_step, round=r, node=i)
+        self.logger.log_metrics(
+            {"Test/mean_accuracy": ev["mean_accuracy"],
+             "Test/min_accuracy": ev["min_accuracy"]},
+            step=self.global_step, round=r)
+
     def evaluate(self) -> dict[str, Any]:
         metrics = self._eval_fn(self.fed, self._x_test, self._y_test)
         acc = metrics["accuracy"].double().cpu().numpy()
@@ -336,50 +509,80 @@ class Scenario(Observable):
         cfg = self.config
         rounds = rounds if rounds is not None else cfg.training.rounds
         round_times: list[float] = []
+        self.round_times_s = round_times  # _publish_statuses reads p95
         history: list[dict] = []
         rounds_to_target = None
         ev = None
         ev_round = -1
         start_round = self.fed.round
-        for r in range(start_round, start_round + rounds):
-            _sync(self.device)
-            t0 = time.monotonic()
-            self.notify(Events.ROUND_STARTED, {"round": r})
-            alive = self._advance_membership(r)
-            self._rotate_leader(alive)
-            self.fed = dataclasses.replace(
-                self.fed, alive=torch.from_numpy(alive).to(self.device))
-            trains_vote = self._voted_trains(alive, r)
-            self.fed, metrics = self._round_fn(
-                self.fed, *self._data_args, *self._plan_args(trains_vote))
-            _sync(self.device)
-            self.notify(Events.AGGREGATION_FINISHED, {"round": r})
-            dt = time.monotonic() - t0
-            round_times.append(dt)
-            rec = {"round": r, "round_time_s": dt,
-                   "train_loss": metrics["train_loss"].double().cpu().tolist(),
-                   "alive": alive.tolist(), "leader": self.leader}
-            if self.accountant is not None:
-                self.accountant.steps = r + 1
-            if self.reputation is not None:
-                # round r ran on the trust of round r-1; fold in this
-                # round's scores for the next. Nodes that did not
-                # contribute keep their trust.
-                contrib = np.logical_and(
-                    self._base_trains if trains_vote is None
-                    else trains_vote, alive)
-                self.reputation.observe(
-                    metrics["trust_obs"].double().cpu().numpy(), contrib)
-                rec["trust"] = [float(t) for t in self.reputation.trust]
-            if cfg.training.eval_every and (r + 1) % cfg.training.eval_every == 0:
-                ev = self.evaluate()
-                ev_round = r
-                rec["eval"] = ev
-                if (target_accuracy is not None and rounds_to_target is None
-                        and ev["mean_accuracy"] >= target_accuracy):
-                    rounds_to_target = r + 1
-            history.append(rec)
-            self.notify(Events.ROUND_FINISHED, {"round": r, "time_s": dt})
+        # profile one steady-state round: the second of the run where
+        # there is one (the first carries the kernels' first calls)
+        profiler = profile_round = None
+        if cfg.profile_dir:
+            profiler = _RoundProfiler(cfg.profile_dir, cfg.name, self.device)
+            profile_round = start_round + (1 if rounds > 1 else 0)
+        try:
+            for r in range(start_round, start_round + rounds):
+                _sync(self.device)
+                t0 = time.monotonic()
+                if r == profile_round:
+                    profiler.start()
+                self.notify(Events.ROUND_STARTED, {"round": r})
+                alive = self._advance_membership(r)
+                self._rotate_leader(alive)
+                self.fed = dataclasses.replace(
+                    self.fed, alive=torch.from_numpy(alive).to(self.device))
+                trains_vote = self._voted_trains(alive, r)
+                self.fed, metrics = self._round_fn(
+                    self.fed, *self._data_args, *self._plan_args(trains_vote))
+                _sync(self.device)
+                if r == profile_round:
+                    self.profile_path = profiler.stop(r)
+                self.notify(Events.AGGREGATION_FINISHED, {"round": r})
+                dt = time.monotonic() - t0
+                round_times.append(dt)
+                self.global_step += self._steps_per_round
+                train_loss = metrics["train_loss"].double().cpu().numpy()
+                rec = {"round": r, "round_time_s": dt,
+                       "train_loss": train_loss.tolist(),
+                       "alive": alive.tolist(), "leader": self.leader}
+                if self.accountant is not None:
+                    self.accountant.steps = r + 1
+                if self.reputation is not None:
+                    # round r ran on the trust of round r-1; fold in this
+                    # round's scores for the next. Nodes that did not
+                    # contribute keep their trust.
+                    contrib = np.logical_and(
+                        self._base_trains if trains_vote is None
+                        else trains_vote, alive)
+                    self.reputation.observe(
+                        metrics["trust_obs"].double().cpu().numpy(), contrib)
+                    rec["trust"] = [float(t) for t in self.reputation.trust]
+                self._log_round(r, dt, train_loss)
+                self._publish_statuses(r, alive, train_loss, ev)
+                if (cfg.training.eval_every
+                        and (r + 1) % cfg.training.eval_every == 0):
+                    ev = self.evaluate()
+                    ev_round = r
+                    rec["eval"] = ev
+                    self._log_eval(r, ev)
+                    if (target_accuracy is not None
+                            and rounds_to_target is None
+                            and ev["mean_accuracy"] >= target_accuracy):
+                        rounds_to_target = r + 1
+                self.logger.log_metrics(resource_snapshot(),
+                                        step=self.global_step, round=r)
+                self.logger.round_marker(r, self.global_step)
+                if (cfg.checkpoint_dir and cfg.checkpoint_every
+                        and (r + 1) % cfg.checkpoint_every == 0):
+                    path = save_checkpoint(cfg.checkpoint_dir, self.fed,
+                                           cfg.training.optimizer)
+                    self.notify(Events.CHECKPOINT_SAVED, {"path": str(path)})
+                history.append(rec)
+                self.notify(Events.ROUND_FINISHED, {"round": r, "time_s": dt})
+        finally:
+            if profiler is not None:
+                profiler.close()
         last_round = start_round + rounds - 1
         if ev is None or ev_round != last_round:
             ev = self.evaluate()
@@ -396,6 +599,9 @@ class Scenario(Observable):
             rounds_to_target=rounds_to_target,
             min_accuracy=ev["min_accuracy"],
         )
+
+    def close(self) -> None:
+        self.logger.close()
 
 
 class CrossDeviceScenario(Observable):
@@ -437,6 +643,7 @@ class CrossDeviceScenario(Observable):
         self.fns = _step_fns(self.model, config)
         self.membership = Membership(cd.n_clients, config.protocol)
         self._faults_by_round = _faults_by_round(config)
+        self.logger = _logger(config)
         self._sample_weights = (
             self.data.client_sizes.astype(np.float64)
             if cd.sampling == "weighted" else None
@@ -561,6 +768,21 @@ class CrossDeviceScenario(Observable):
             self.fed, *args, torch.from_numpy(c_alive).to(self.device))
         return metrics
 
+    def _publish_crossdev_status(self, r: int, mean_loss: float) -> None:
+        """One status record for the whole cross-device scenario (no
+        per-client process speaks for itself), with the throughput
+        gauges."""
+        if self.logger.dir is None:
+            return
+        publish_status(self.logger.dir / "status", 0, {
+            "role": "crossdev",
+            "round": r + 1,
+            "loss": mean_loss,
+            "peers": self.cd.n_slots - 1,
+            "recompiles": 0,
+            **self.crossdev_last,
+        })
+
     def evaluate(self) -> dict[str, Any]:
         """The global model on the shared test set. Every slot holds the
         same aggregate after a round, so the slots agree; the mean is
@@ -619,10 +841,19 @@ class CrossDeviceScenario(Observable):
                    "Train/loss": mean_loss,
                    "CrossDev/clients_sampled": int(len(sampled)),
                    "CrossDev/clients_alive": int(live.sum())}
+            self._publish_crossdev_status(r, mean_loss)
+            self.logger.log_metrics(
+                {"Train/loss": mean_loss, "Train/round_time_s": dt,
+                 "CrossDev/clients_sampled": int(len(sampled)),
+                 "CrossDev/clients_alive": int(live.sum())},
+                step=r, round=r)
             if cfg.training.eval_every and (r + 1) % cfg.training.eval_every == 0:
                 ev = self.evaluate()
                 ev_round = r
                 rec["eval"] = ev
+                self.logger.log_metrics(
+                    {"Test/mean_accuracy": ev["mean_accuracy"]},
+                    step=r, round=r)
                 if (target_accuracy is not None and rounds_to_target is None
                         and ev["mean_accuracy"] >= target_accuracy):
                     rounds_to_target = r + 1
@@ -644,3 +875,6 @@ class CrossDeviceScenario(Observable):
             rounds_to_target=rounds_to_target,
             min_accuracy=ev["min_accuracy"],
         )
+
+    def close(self) -> None:
+        self.logger.close()

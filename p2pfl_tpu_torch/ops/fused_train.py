@@ -8,9 +8,10 @@ for each of ``steps`` batches, the forward pass, softmax cross-entropy
 each node's mean over the steps.
 
 - ``fused_mlp_train_epoch_plain``: the epoch in plain PyTorch, batched
-  over the node axis with ``torch.bmm`` in f32; its bias gradients and
-  softmax denominator are summed in the orders the kernel states
-  (``batch_sum``, ``class_sum``).
+  over the node axis in f32; its forward products (``chain_matmul``),
+  bias gradients and softmax denominator are summed in the orders the
+  kernel states (``batch_sum``, ``class_sum``), its backward products
+  with ``torch.bmm``.
 - ``fused_mlp_train_epoch``: the wrapper. CPU tensors go to the plain
   version; CUDA tensors go to the hand-written kernel
   (``csrc/fused_train.cu``: one 8-block thread-block cluster per node,
@@ -40,7 +41,7 @@ from p2pfl_tpu_torch.ops import _build
 from p2pfl_tpu_torch.ops.gemm import _on_cpu, launches
 
 __all__ = ["fused_mlp_train_epoch", "fused_mlp_train_epoch_plain",
-           "batch_sum", "class_sum",
+           "batch_sum", "chain_matmul", "class_sum",
            "mlp_params_to_tuple", "tuple_to_mlp_params"]
 
 
@@ -89,15 +90,37 @@ def class_sum(t: torch.Tensor) -> torch.Tensor:
                                                 + lane[..., 3:4])
 
 
+def chain_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [n, r, k] @ b [n, k, c]`` in f32 as one ascending chain a
+    value, the kernel's order for its forward products
+    (``csrc/fused_train.cu``: one fmaf chain from zero over k). Emulated
+    in f64: each product of two f32 values is exact there, is added to
+    the f32 sum in f64 and the sum rounded to f32 at each term (a double
+    rounding that differs from ``fmaf`` only where the f64 sum falls on
+    an f32 midpoint). Elementwise ops only, so the bits are the same on
+    every device; ``torch.bmm`` sums in an order of its own (at 8 rows
+    cuBLAS's is not this chain)."""
+    a64, b64 = a.double(), b.double()
+    acc = torch.zeros(a.shape[0], a.shape[1], b.shape[2],
+                      dtype=torch.float32, device=a.device)
+    for k in range(a.shape[2]):
+        acc = torch.addcmul(acc.double(), a64[:, :, k:k + 1],
+                            b64[:, k:k + 1, :]).float()
+    return acc
+
+
 def fused_mlp_train_epoch_plain(params, momentum_state, bx, by, lr: float,
                                 momentum: float = 0.9,
                                 batch_size: int = 32):
     """The epoch in plain PyTorch (f32 products and sums, bf16 inputs
     widened on entry); returns ``(params', momentum', loss [n])``, each
-    leaf rounded once to its input dtype. The bias gradients and the
-    softmax denominator are summed in the kernel's stated orders
-    (:func:`batch_sum`, :func:`class_sum`), not in ``torch.sum``'s,
-    which change with the shape and the device."""
+    leaf rounded once to its input dtype. The forward products, the
+    bias gradients and the softmax denominator are summed in the
+    kernel's stated orders (:func:`chain_matmul`, :func:`batch_sum`,
+    :func:`class_sum`), not in ``torch.bmm``'s and ``torch.sum``'s,
+    which change with the shape and the device. The backward products
+    stay ``torch.bmm``: at every shape read on the card, their sums
+    agree with the kernel's."""
     n, rows, _ = bx.shape
     steps, b = _epoch_shape(rows, int(batch_size))
     lr, beta = float(lr), float(momentum)
@@ -111,9 +134,9 @@ def fused_mlp_train_epoch_plain(params, momentum_state, bx, by, lr: float,
         x = x_all[:, s * b:(s + 1) * b]
         onehot = (classes == y_all[:, s * b:(s + 1) * b, None]).float()
         w0, b0, w1, b1, w2, b2 = p
-        h0 = torch.relu(torch.bmm(x, w0) + b0)
-        h1 = torch.relu(torch.bmm(h0, w1) + b1)
-        z = torch.bmm(h1, w2) + b2
+        h0 = torch.relu(chain_matmul(x, w0) + b0)
+        h1 = torch.relu(chain_matmul(h0, w1) + b1)
+        z = chain_matmul(h1, w2) + b2
         z = z - z.amax(-1, keepdim=True)
         ez = torch.exp(z)
         se = class_sum(ez)

@@ -2,7 +2,8 @@
 
 The counterpart of ``p2pfl_tpu/parallel/federated.py`` for the dense
 round (FedAvg, the robust aggregators, attack injection, DP
-privatization and trust observations; the host's staleness scale) and the cross-device round (``build_round_fn_cross_device``,
+privatization and trust observations; the host's staleness scale; the
+staged, one-round-stale exchange) and the cross-device round (``build_round_fn_cross_device``,
 ``build_cross_device_stream_fns``, below). The dense round: every node
 trains its local epochs (one ``train_epochs`` call over the stacked
 ``[n, ...]`` state); with FedAvg each node's aggregate is then row
@@ -45,11 +46,20 @@ from p2pfl_tpu_torch.topology.topology import Topology
 
 @dataclasses.dataclass
 class FederatedState:
-    """Whole-federation state: every tensor has a leading ``[n]`` axis."""
+    """Whole-federation state: every tensor has a leading ``[n]`` axis.
+
+    ``stale`` is the double buffer of ``exchange_overlap="staged"``: the
+    previous round's post-fit params stack and its contribution weights
+    ``[n]`` f32 (what this round ships to the neighbours); ``None``
+    wherever the mode is off. ``rng_slot`` is the checkpoint's ``[n, 2]``
+    uint32 rng words that ``states.rng`` was last seeded from
+    (``federation/checkpoint.py``), or ``None``."""
 
     states: TrainState
     alive: torch.Tensor  # [n] bool
     round: int = 0
+    stale: tuple | None = None  # (params stack, weights [n]) | None
+    rng_slot: np.ndarray | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +155,16 @@ def reseed_params(fed: FederatedState, fns: StepFns,
     return dataclasses.replace(fed, states=states)
 
 
+def with_staged_buffer(fed: FederatedState) -> FederatedState:
+    """Seed the staged exchange's double buffer: a copy of the current
+    params at zero contribution weight, so the first staged round mixes
+    nothing from the neighbours and is pure local training."""
+    return dataclasses.replace(fed, stale=(
+        tree_map(torch.clone, fed.states.params),
+        torch.zeros(fed.alive.shape[0], dtype=torch.float32,
+                    device=fed.alive.device)))
+
+
 def build_round_fn(
     fns: StepFns,
     aggregator: Aggregator | None = None,
@@ -155,6 +175,7 @@ def build_round_fn(
     attack: AttackSpec | None = None,
     malicious: np.ndarray | None = None,
     update_stats: bool = False,
+    exchange_overlap: str = "off",
     dp: DPSpec | None = None,
     dp_mask: np.ndarray | None = None,
 ) -> Callable:
@@ -186,6 +207,16 @@ def build_round_fn(
     ``privatize_stacked`` against the round-start params, keyed by
     ``fed.round``, on the FedAvg and the robust path alike, so the clip
     also bounds what a malicious row injects.
+
+    ``exchange_overlap="staged"`` mixes one round stale: the
+    off-diagonal terms read the previous round's post-fit params
+    (``fed.stale``, seeded by :func:`with_staged_buffer`) at their then
+    weights, the diagonal this round's fit; the new buffer is this
+    round's post-DP fit and weights. ``wn_off @ stale`` is taken in the
+    exchange dtype with f32 sums, plus ``diag(wn) * fresh`` in f32 with
+    the fresh params rounded to the exchange dtype. FedAvg only, with no
+    attack and no trust scoring (both are defined on what a node ships
+    this round), as in the JAX package.
     """
     aggregator = aggregator or FedAvg()
     fedavg_fast = type(aggregator) is FedAvg
@@ -193,13 +224,34 @@ def build_round_fn(
                      and bool(np.any(malicious)) and attack.poisons_updates)
     dp_active = (dp is not None and dp_mask is not None
                  and bool(np.any(dp_mask)))
+    if exchange_overlap not in ("off", "staged"):
+        raise ValueError(f"unknown exchange_overlap {exchange_overlap!r}; "
+                         "have ('off', 'staged')")
+    staged = exchange_overlap == "staged"
+    if staged and not fedavg_fast:
+        raise ValueError(
+            "exchange_overlap='staged' requires the FedAvg fast path — "
+            "robust aggregators score THIS round's updates")
+    if staged and (attack_active or update_stats):
+        raise ValueError(
+            "exchange_overlap='staged' composes with neither attack "
+            "injection nor trust scoring: both are defined on the fresh "
+            "update a node ships this round")
+
+    def wire(t: torch.Tensor) -> torch.Tensor:
+        """``t`` rounded to the exchange dtype, as f32."""
+        return t.float() if exchange_dtype is None else t.to(
+            exchange_dtype).float()
 
     def mixed(wn: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         flat = p.reshape(p.shape[0], -1)
-        if exchange_dtype is not None:
-            wn = wn.to(exchange_dtype)
-            flat = flat.to(exchange_dtype)
-        out = torch.matmul(wn.float(), flat.float())  # [n,n]@[n,d], f32
+        out = torch.matmul(wire(wn), wire(flat))  # [n,n]@[n,d], f32
+        return out.reshape(p.shape).to(p.dtype)
+
+    def mixed_staged(wn_off: torch.Tensor, wn_diag: torch.Tensor,
+                     p: torch.Tensor, ps: torch.Tensor) -> torch.Tensor:
+        out = torch.matmul(wire(wn_off), wire(ps.reshape(ps.shape[0], -1)))
+        out = out + wn_diag[:, None] * wire(p.reshape(p.shape[0], -1))
         return out.reshape(p.shape).to(p.dtype)
 
     def robust(params: Params, w: torch.Tensor,
@@ -232,20 +284,36 @@ def build_round_fn(
             states = dataclasses.replace(states, params=privatize_stacked(
                 states.params, ref_params, dp_mask, fed.round, dp))
         contrib = torch.logical_and(trains, alive)
-        w = mix * (n_samples.float() * contrib.float())[None, :]
+        w_fresh = n_samples.float() * contrib.float()
+        new_stale = fed.stale
+        if staged:
+            # off-diagonal terms weigh the previous round's fit at its
+            # then weights (zero after with_staged_buffer, or for a node
+            # dead last round); only the diagonal reads this round's fit
+            stale_params, stale_w = fed.stale
+            eye = torch.eye(alive.shape[0], dtype=torch.float32,
+                            device=alive.device)
+            w = mix * ((1.0 - eye) * stale_w[None, :]
+                       + eye * w_fresh[None, :])
+            new_stale = (states.params, w_fresh)
+        else:
+            w = mix * w_fresh[None, :]
         got_any = w.sum(1) > 0
         if fedavg_fast:
             wn = w / w.sum(1, keepdim=True).clamp(min=1e-9)
-            if identity_adopt:
-                keep = torch.logical_and(alive, got_any)
-                params = tree_map(
-                    lambda p: _where_node(keep, mixed(wn, p), p),
-                    states.params)
-            else:
-                keep = torch.logical_and(alive, got_any[adopt])
-                params = tree_map(
-                    lambda p: _where_node(keep, mixed(wn, p)[adopt], p),
-                    states.params)
+            if staged:
+                wn_off, wn_diag = wn * (1.0 - eye), torch.diagonal(wn)
+            keep = torch.logical_and(
+                alive, got_any if identity_adopt else got_any[adopt])
+
+            def leaf(p, ps=None):
+                a = (mixed(wn, p) if ps is None
+                     else mixed_staged(wn_off, wn_diag, p, ps))
+                return _where_node(keep, a if identity_adopt else a[adopt],
+                                   p)
+
+            params = (tree_map(leaf, states.params, stale_params) if staged
+                      else tree_map(leaf, states.params))
         else:
             agg = robust(states.params, w, n_samples)
             if identity_adopt:
@@ -265,6 +333,7 @@ def build_round_fn(
             states=dataclasses.replace(states, params=params),
             alive=alive,
             round=fed.round + 1,
+            stale=new_stale,
         )
         return fed, metrics
 

@@ -107,6 +107,7 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     scenario = Scenario(cfg, device=device)
     result = scenario.run(target_accuracy=args.target_accuracy)
+    scenario.close()
     out = {
         "scenario": cfg.name,
         "federation": cfg.federation,

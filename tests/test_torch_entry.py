@@ -7,8 +7,9 @@
 - importing every module of the port (the adversary package and the
   fused epoch included), and what ``chip_smoke.py``
   imports, in a fresh interpreter loads none of ``jax``, ``flax``,
-  ``optax`` or ``p2pfl_tpu`` (top-level names compared exactly: the
-  port's own name starts with ``p2pfl_tpu``).
+  ``optax``, ``msgpack`` or ``p2pfl_tpu`` (top-level names compared
+  exactly: the port's own name starts with ``p2pfl_tpu``; the port's
+  checkpoints go through its own msgpack codec).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from p2pfl_tpu_torch import run as torch_run
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = ["--nodes", "2", "--rounds", "1", "--epochs", "1",
         "--samples-per-node", "64", "--batch-size", "16"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "p2pfl_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "p2pfl_tpu"}
 
 
 def _last_json(out: str) -> dict:
@@ -57,10 +58,14 @@ def test_port_never_imports_jax_or_the_jax_package():
             ROOT / "p2pfl_tpu_torch").with_suffix("").parts)
         for p in (ROOT / "p2pfl_tpu_torch").rglob("*.py")
         if p.name != "__init__.py")
-    # the adversary package and the fused epoch are among them
+    # the adversary package, the fused epoch and the checkpoint and
+    # logging modules are among them
     assert {"p2pfl_tpu_torch.adversary.attacks",
             "p2pfl_tpu_torch.adversary.reputation",
-            "p2pfl_tpu_torch.ops.fused_train"} <= set(modules)
+            "p2pfl_tpu_torch.ops.fused_train",
+            "p2pfl_tpu_torch.federation.checkpoint",
+            "p2pfl_tpu_torch.utils.msgpack_codec",
+            "p2pfl_tpu_torch.utils.metrics"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -150,11 +150,9 @@ def test_port_trains_with_its_own_generator(tmp_path):
 
 def test_unported_sections_are_rejected_with_their_roadmap_item(tmp_path):
     cases = [
-        ({"exchange_overlap": "staged"}, "A13"),
         ({"privacy": {"secagg": True}}, "A22"),
         ({"transport": "sparse"}, "A12"),
         ({"lora": {"rank": 4}}, "A8"),
-        ({"checkpoint_dir": str(tmp_path)}, "A17"),
     ]
     for override, item in cases:
         raw = dataclasses.asdict(jschema.ScenarioConfig(n_nodes=2))

@@ -744,19 +744,19 @@ def test_fused_mlp_epoch_instantiations(dev, n, d_in, d1, d2, c, rows, batch,
 
 # K6's sum orders at other shapes than the probe's (batch 32, 10
 # classes): one step from a zero trace at 64 nodes, every param and
-# trace against the plain version's bits. The plain version sums its
-# bias gradients and softmax denominator in the orders the kernel states
-# (``fused_train.batch_sum``, ``class_sum``), so at batch 16 and 64 (the
-# L2-resident kernel) with 7 classes and at 62 classes they agree. At
-# batch 8, torch.bmm's forward products over 8 rows are not one
-# ascending chain, and every leaf differs (ROADMAP Queue C): there the
-# leaves must stay within the one-state tolerance. The loss is held to
-# K6_LOSS_TOL (its sum is not the plain version's at any shape).
+# trace against the plain version's bits. The plain version takes its
+# forward products as ascending chains (``fused_train.chain_matmul``)
+# and sums its bias gradients and softmax denominator in the orders the
+# kernel states (``fused_train.batch_sum``, ``class_sum``), so at batch
+# 8, 16 and 64 (the L2-resident kernel) with 7 classes and at 62 classes
+# they agree: no leaf may differ (a leaf listed here would be held to
+# the one-state tolerance instead). The loss is held to K6_LOSS_TOL
+# (its sum is not the plain version's at any shape).
 _P = ("params w0", "params b0", "params w1", "params b1", "params w2",
       "params b2")
 _M = tuple("trace" + k[6:] for k in _P)
 K6_ORDER_FAULTS = {
-    (8, 7): _P + _M,
+    (8, 7): (),
     (16, 7): (),
     (32, 10): (),
     (64, 7): (),
@@ -1135,3 +1135,52 @@ def test_sgd_accum_many_on_the_ocsvm_leaves(dev, pdt):
         _equal_lists(g, w)
     for p, kp in zip(ps, got[0]):
         assert torch.equal(kp[[2, 5]], p[[2, 5]])
+
+
+# Checkpoint and resume on the card: a 4-node FEMNIST-CNN ring (hidden
+# 64, bf16 wire) through K1-K4, 4 rounds saving every 2, against a fresh
+# Scenario resumed from round 2's file for 2 rounds: params, trace,
+# step, alive, round, the evaluation and round 4's file the same bits.
+def test_scenario_resume_is_bit_exact(dev, tmp_path):
+    import dataclasses
+    import shutil
+
+    from p2pfl_tpu_torch.config.schema import (
+        DataConfig,
+        ModelConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+    from p2pfl_tpu_torch.federation import Scenario
+    from p2pfl_tpu_torch.federation.checkpoint import checkpoint_path
+
+    cfg = ScenarioConfig(
+        name="resume", federation="DFL", topology="ring", n_nodes=4,
+        data=DataConfig(dataset="femnist", samples_per_node=120,
+                        batch_size=32, synthetic_train=2000,
+                        synthetic_test=128),
+        model=ModelConfig(model="femnist-cnn", kwargs={"hidden": 64}),
+        training=TrainingConfig(rounds=4, epochs_per_round=1,
+                                learning_rate=0.05),
+        transport="dense", wire_dtype="bf16",
+        checkpoint_dir=str(tmp_path / "a"), checkpoint_every=2)
+    whole = Scenario(cfg, device=dev)
+    res = whole.run()
+    (tmp_path / "b").mkdir()
+    shutil.copy(checkpoint_path(tmp_path / "a", 2), tmp_path / "b")
+    resumed = Scenario(dataclasses.replace(
+        cfg, checkpoint_dir=str(tmp_path / "b")), device=dev)
+    assert resumed.fed.round == 2
+    res2 = resumed.run(rounds=2)
+    for a, b in zip(tree_leaves(whole.fed.states.params)
+                    + tree_leaves(whole.fed.states.opt_state)
+                    + [whole.fed.states.step, whole.fed.alive],
+                    tree_leaves(resumed.fed.states.params)
+                    + tree_leaves(resumed.fed.states.opt_state)
+                    + [resumed.fed.states.step, resumed.fed.alive]):
+        assert torch.equal(a, b)
+    assert whole.fed.round == resumed.fed.round == 4
+    assert res.per_node_accuracy == res2.per_node_accuracy
+    assert (checkpoint_path(tmp_path / "a", 4).read_bytes()
+            == checkpoint_path(tmp_path / "b", 4).read_bytes())
