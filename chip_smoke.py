@@ -191,10 +191,38 @@ one, or when run outside a checkout of this repository). Phases:
       fit before the mix rounded through the bf16 wire, the loss
       falling, K1-K4 launched as often as in phase 3, s/round staged
       and eager (medians of rounds 2-3).
-11. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
+11. ViT-Tiny and adapter-only federation (``vit_and_lora``); every arm
+   zeroes the launch counts before it runs and reads them after:
+   a. ``bench.py``'s ``_vit32_inprocess`` (``BASELINE.json`` configs[4]):
+      ViT-Tiny at full width and depth with ``remat`` and
+      ``scan_layers``, 32 nodes fully connected, DFL, Krum(f=1, m=3)
+      (one shared aggregate), iid shards of the easy CIFAR10 surrogate,
+      512 samples a node, batch 115, adam at 1e-3, seed 4, 20 rounds:
+      s/round (median after the warm-up), training peak memory, the
+      train loss per round (it must fall) and the mean test accuracy at
+      rounds 10 and 20 (above ``VIT_ACC_GATE`` at 20); no kernel
+      launches (adam runs in stock ops);
+   b. a's configuration with SGD momentum 0.9 at ``VIT_SGD_LR``, 3
+      rounds: K4 once a step and no other kernel; one step from the
+      initial state twice bit for bit, K4's result the bits of
+      ``sgd_accum_many_plain``'s, the loss and every gradient with and
+      without ``remat`` bit for bit (each one's peak memory); one round
+      in the unscanned layout (199 leaves), K4 5 times a step; one
+      profiled training round by the model's ``record_function`` scopes
+      (linear, attention, LayerNorm, GELU), K4 and the rest;
+   c. ``bench.py``'s ``_phase_lora`` shape: 16 nodes, 256 samples a
+      node, batch 64, the full-weight arm and the rank-8 q/v adapter arm
+      (``lora.rank`` 8) from one base, 5 rounds each at ``LORA_LR``, K4
+      once a step in both (23 leaves, and the 4 adapter leaves): the
+      merged round-0 model equal to the full arm's round 0 bit for bit,
+      the loss falling, s/round and bytes a round of both and their
+      ratio.
+   Phase 2 holds K4 over the scanned ViT's 23 leaves at 32 nodes and
+   over the adapter tree's 4 at 16 too.
+12. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
    dtype variants) and, last, ``{"ok": true, "device": {...}}``. With
    ``--out DIR`` the per-instance kernel numbers, the profiles and
-   phases 7's to 10's numbers are also written there as JSON.
+   phases 7's to 11's numbers are also written there as JSON.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -252,9 +280,13 @@ K6_PLAIN_REPS = 3
 # the ResNet9 stem's K1 and K2 problem at phase 9's step: 16 nodes x 128
 # CIFAR10 images of 32 x 32 rows, contraction 27, 64 filters
 STEM = (16, 128 * 32 * 32, 27, 64)
-# the leaf lists phase 2 holds K4 to, as phase 9 steps them: (model,
-# nodes); 26 leaves (one launch) and 161 (four)
-K4_MODEL_LISTS = (("resnet9", 16), ("resnet50", 4))
+# the leaf lists phase 2 holds K4 to, as phases 9 and 11 step them:
+# (model, nodes, model kwargs, lora rank); ResNet9's 26 leaves (one
+# launch) and ResNet50's 161 (four), the scanned ViT-Tiny's 23 at 32
+# nodes (one) and its rank-8 q/v adapters' 4 at 16 nodes (one)
+VIT_KW = {"remat": True, "scan_layers": True}
+K4_MODEL_LISTS = (("resnet9", 16, {}, 0), ("resnet50", 4, {}, 0),
+                  ("vit-tiny", 32, VIT_KW, 0), ("vit-tiny", 16, VIT_KW, 8))
 # K4 takes at most this many leaves a launch (``csrc/kernels.h``)
 K4_LEAVES_A_LAUNCH = 48
 FEMNIST_CNN_LEAVES = {
@@ -830,8 +862,9 @@ def step_checks(rows, record, same_bits, rand, lr, w, f32_peak) -> None:
 
 def k4_model_lists(rows, record, same_bits, rand, f32_peak) -> None:
     """K4 over the leaf lists of ``K4_MODEL_LISTS`` (the models' own
-    trees, flattened as the learner flattens them, stacked over the
-    nodes phase 9 runs): one call over every leaf, f32 params, gradients
+    trees, or the adapter tree of a lora rank, flattened as the learner
+    flattens them, stacked over the nodes phases 9 and 11 run): one call
+    over every leaf, f32 params, gradients
     and trace, lr 0.1 with every other node gated off. It must give the
     list plain version's bits, leave the gated nodes' params bit for bit,
     launch ``ceil(leaves / 48)`` times and give the same bits twice; a
@@ -842,11 +875,18 @@ def k4_model_lists(rows, record, same_bits, rand, f32_peak) -> None:
     from p2pfl_tpu_torch.models.base import get_model
     from p2pfl_tpu_torch.ops import gemm
 
-    for model, n in K4_MODEL_LISTS:
-        tree = get_model(model).init(torch.Generator().manual_seed(0),
-                                     torch.zeros(1, 32, 32, 3))
-        shapes = [tuple(t.shape) for t in tree_leaves(tree["params"])]
-        del tree
+    from p2pfl_tpu_torch.learning.lora import wrap_model
+
+    for model, n, kw, rank in K4_MODEL_LISTS:
+        net = get_model(model, **kw)
+        sample = torch.zeros(1, 32, 32, 3)
+        tree = (wrap_model(net, model, rank, sample_x=sample)
+                if rank else net).init(torch.Generator().manual_seed(0),
+                                       sample)
+        shapes = [tuple(t.shape) for t in tree_leaves(tree)]
+        del tree, net
+        if rank:
+            model = f"{model}_lora{rank}"
         ps, gs, ms = ([rand(n, *s, dtype=torch.float32) for s in shapes]
                       for _ in range(3))
         lr = torch.tensor([0.1, 0.0] * (n // 2), device=ps[0].device)
@@ -1761,10 +1801,12 @@ def profile_round(run, out: pathlib.Path | None,
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device kernels only: a CPU op's row repeats its kernels' time, and
-    # CUPTI's own buffer records are no work of the program
+    # device kernels only: a CPU op's row repeats its kernels' time,
+    # CUPTI's own buffer records are no work of the program, and the
+    # ViT's record_function scopes appear as device ranges over their
+    # kernels
     cupti = {"Activity Buffer Request", "Command Buffer Full",
-             "Buffer Flush"}
+             "Buffer Flush", *VIT_SCOPES}
     ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
@@ -3631,6 +3673,347 @@ def round_services(dev, ring_launches: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: ViT-Tiny and adapter-only federation (LoRA)
+# ---------------------------------------------------------------------------
+
+# a. bench.py's _vit32_inprocess (BASELINE.json configs[4]): 32 nodes
+# fully connected, Krum(f=1, m=3) (one shared aggregate), iid shards of
+# the easy CIFAR10 surrogate, 512 samples a node, batch 115, adam at
+# 1e-3, seed 4, ViT-Tiny with remat and scan_layers; 20 rounds,
+# evaluated at rounds 10 and 20, the mean accuracy above VIT_ACC_GATE
+# (chance is 0.1) by round 20
+VIT_NODES, VIT_SAMPLES, VIT_BATCH, VIT_SEED = 32, 512, 115, 4
+VIT_ROUNDS, VIT_EVAL_EVERY, VIT_ACC_GATE = 20, 10, 0.2
+# b. a's configuration with SGD momentum 0.9 at VIT_SGD_LR, chosen on the
+# CPU by scripts/torch_vit_lr_probe.py (full width and depth, 2 nodes x
+# 128 samples, batch 32, 3 rounds): the mean train loss 2.567 -> 2.274
+# -> 2.102 at 0.01; at 0.03 it rises in round 2, at 0.1 it diverges
+VIT_SGD_LR, VIT_SGD_ROUNDS = 0.01, 3
+# c. bench.py's _phase_lora shape: 16 nodes, 256 samples, batch 64, a
+# full-weight arm and a rank-8 q/v adapter arm from one base, 5 rounds
+# each, SGD momentum 0.9 (so that K4 steps the adapter leaves) at one
+# LORA_LR for both, b's rate (the probe's rank-8 arm falls at 0.01,
+# 0.03 and 0.1: 2.398 -> 2.366 -> 2.336 at 0.01)
+LORA_NODES, LORA_SAMPLES, LORA_BATCH, LORA_RANK = 16, 256, 64, 8
+LORA_ROUNDS, LORA_LR = 5, 0.01
+# the record_function scopes of models/vit.py a profiled round is split by
+VIT_SCOPES = ("vit.linear", "vit.attention", "vit.layer_norm", "vit.gelu")
+
+
+def vit_config(name: str, *, n: int = VIT_NODES,
+               samples: int = VIT_SAMPLES, batch: int = VIT_BATCH,
+               rounds: int = VIT_ROUNDS, optimizer: str = "adam",
+               lr: float = 1e-3, model_kw: dict | None = None,
+               lora_rank: int = 0, eval_every: int = 0):
+    """``bench.py``'s ``_build`` as ``_vit32_inprocess`` calls it (see
+    above), with the surrogate sized so that every node gets its
+    samples, bf16 wire, 1 epoch a round; ``model_kw`` defaults to
+    ``VIT_KW``."""
+    from p2pfl_tpu_torch.config.schema import (
+        DataConfig,
+        LoraConfig,
+        ModelConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+
+    return ScenarioConfig(
+        name=name, federation="DFL", topology="fully", n_nodes=n,
+        aggregator="krum", aggregator_kwargs={"f": 1, "m": 3},
+        data=DataConfig(dataset="cifar10", partition="iid",
+                        samples_per_node=samples, batch_size=batch,
+                        seed=VIT_SEED, synthetic_train=int(n * samples / 0.9)
+                        + n, surrogate_profile="easy"),
+        model=ModelConfig(model="vit-tiny",
+                          kwargs=dict(VIT_KW if model_kw is None
+                                      else model_kw)),
+        training=TrainingConfig(rounds=rounds, epochs_per_round=1,
+                                learning_rate=lr, optimizer=optimizer,
+                                momentum=0.9, eval_every=eval_every),
+        lora=LoraConfig(rank=lora_rank), transport="dense",
+        wire_dtype="bf16", seed=VIT_SEED)
+
+
+def median_after_warmup(times: list) -> float:
+    rest = sorted(times[1:]) or list(times)
+    return rest[len(rest) // 2]
+
+
+def same_tensors(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(
+        u.dtype == v.dtype and torch.equal(u, v) for u, v in zip(a, b))
+
+
+def vit_step_checks(sc) -> dict:
+    """b's one-step gates from the SGD arm's initial state on its first
+    batch: the step through K4 twice, bit for bit, and K4's result the
+    bits of the step with ``sgd_accum_many_plain`` (params and traces);
+    then the loss and every gradient leaf of the model with remat and
+    without (the same weights, renamed) bit for bit, with each one's
+    peak memory."""
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves, tree_unflatten
+    from p2pfl_tpu_torch.learning.objectives import cross_entropy_loss
+    from p2pfl_tpu_torch.models.base import get_model
+
+    st = sc.fed.states
+    x, y, mask, _ = sc._data_args
+    b = sc.config.data.batch_size
+    bx, by, bm = x[:, :b], y[:, :b], mask[:, :b]
+    k1, loss1 = sc.fns.train_step(st, bx, by, bm)
+    k2, loss2 = sc.fns.train_step(st, bx, by, bm)
+
+    def state(s):
+        return tree_leaves(s.params) + tree_leaves(s.opt_state)
+
+    again = torch.equal(loss1, loss2) and same_tensors(state(k1), state(k2))
+    del k2
+    with PlainVersions():
+        p, _ = sc.fns.train_step(st, bx, by, bm)
+    plain = same_tensors(state(k1), state(p))
+    del k1, p
+
+    def renamed(tree):
+        if isinstance(tree, dict):
+            return {k.replace("CheckpointTransformerBlock",
+                              "TransformerBlock"): renamed(v)
+                    for k, v in tree.items()}
+        return tree
+
+    def loss_grads(model, params):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.enable_grad():
+            loss = cross_entropy_loss(model(tree_unflatten(params, leaves),
+                                            bx), by, bm)
+            grads = torch.autograd.grad(loss.sum(), leaves)
+        torch.cuda.synchronize()
+        return (loss.detach(), list(grads),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    plain_model = get_model("vit-tiny", **dict(sc.config.model.kwargs,
+                                               remat=False))
+    loss_r, g_r, peak_r = loss_grads(sc.model, st.params)
+    loss_p, g_p, peak_p = loss_grads(plain_model, renamed(st.params))
+    remat = torch.equal(loss_r, loss_p) and same_tensors(g_r, g_p)
+    del g_r, g_p
+    print(f"  one step: two K4 steps bit for bit {again}; K4 the bits of "
+          f"sgd_accum_many_plain {plain}; remat on / off: loss and every "
+          f"gradient bit for bit {remat}, peak {peak_r:.2f} / {peak_p:.2f} "
+          "GiB", flush=True)
+    return dict(repeat_bits=again, plain_bits=plain, remat_bits=remat,
+                remat_peak_gib=peak_r, no_remat_peak_gib=peak_p)
+
+
+def scope_of(e):
+    """The ``VIT_SCOPES`` scope a profiler event lies in, or None."""
+    while e is not None:
+        if e.name in VIT_SCOPES:
+            return e.name
+        e = e.cpu_parent
+    return None
+
+
+def vit_buckets(prof, kernel_ms: float) -> dict:
+    """A profiled round's kernel time by the ViT's ``record_function``
+    scopes: a kernel counts in the scope its launching op lies in, or,
+    launched in the backward, in the scope of the forward op its
+    autograd node came from (the node's sequence number); K4 by its
+    kernel's name; the rest (Krum, the mix, casts of the input) is
+    "other"."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    forward = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.sequence_nr >= 0:
+            s = scope_of(e)
+            if s is not None:
+                forward.setdefault(e.sequence_nr, s)
+    got = {s: 0.0 for s in VIT_SCOPES}
+    got["K4 sgd_accum_many"] = sum(
+        e.self_device_time_total for e in events
+        if e.device_type == DeviceType.CUDA and "stream_kernel" in e.name
+    ) / 1e3
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        s = scope_of(e)
+        if s is None:
+            a = e
+            while a is not None and not a.fwd_thread:
+                a = a.cpu_parent
+            s = None if a is None else forward.get(a.sequence_nr)
+        if s is not None:
+            got[s] += sum(k.duration for k in e.kernels) / 1e3
+    got["other"] = kernel_ms - sum(got.values())
+    for name, ms in got.items():
+        share = 100 * ms / kernel_ms if kernel_ms else 0.0
+        print(f"    {ms:9.3f} ms ({share:5.1f}%)  {name}", flush=True)
+    return got
+
+
+def vit_profile(sc, out_dir) -> dict:
+    """One SGD training round of ``sc`` (no evaluation) under the
+    profiler: ``profile_round``'s wall, busy and kernel time, and the
+    kernel time by ``vit_buckets``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        sc.fed, _ = sc._round_fn(sc.fed, *sc._data_args,
+                                 *sc._plan_args(None))
+
+    res = profile_round(run, out_dir, name="chip_smoke_vit_profile",
+                        what="ViT-Tiny SGD training round (no evaluation)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.events()
+                if e.device_type.name == "CUDA"
+                and e.name not in VIT_SCOPES) / 1e3
+    print(f"  the same round again, kernel time {total:.1f} ms by the "
+          "model's scopes:", flush=True)
+    return dict(wall_ms=res["wall_ms"], busy_ms=res["busy_ms"],
+                kernel_ms=res["kernel_ms"], scopes=vit_buckets(prof, total))
+
+
+def tree_bytes(tree) -> int:
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+
+    return sum(t[0].numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def vit_and_lora(dev, out_dir) -> dict:
+    """Phase 11: a. ``_vit32_inprocess`` with adam (no kernel); b. its
+    SGD arm through K4 (one step's gates, 3 rounds, one unscanned round,
+    a profiled round); c. ``_phase_lora``'s shape, the full-weight arm
+    and the rank-8 adapter arm from one base. The loss, accuracy and
+    launch gates are raised at the end, after every arm has run."""
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+    from p2pfl_tpu_torch.federation.scenario import Scenario
+
+    out: dict = {}
+    failed: list[str] = []
+    t0 = time.perf_counter()
+    sc = Scenario(vit_config("cifar10-vit-tiny-32-adam",
+                             eval_every=VIT_EVAL_EVERY), device=dev)
+    print(f"  a. setup {time.perf_counter() - t0:.1f} s ({VIT_NODES} x "
+          f"{VIT_SAMPLES} samples, {len(tree_leaves(sc.fed.states.params))}"
+          " leaves)", flush=True)
+    arm = run_arm("vit-tiny adam", sc, VIT_ROUNDS)
+    arm["median_round_s"] = median_after_warmup(arm["round_s"])
+    print(f"  s/round: median {arm['median_round_s']:.4f} after the warm-up "
+          f"({arm['round_s'][0]:.3f}); mean accuracy by round "
+          f"{[(r, round(a, 4)) for r, a in arm['evals']]}", flush=True)
+    if any(arm["launches"].values()):
+        failed.append(f"vit adam launched kernels: {arm['launches']}")
+    if not arm["losses"][-1] < arm["losses"][0]:
+        failed.append(f"vit adam: loss did not fall: {arm['losses']}")
+    if not arm["accuracy"] > VIT_ACC_GATE:
+        failed.append(f"vit adam: accuracy {arm['accuracy']:.4f} at round "
+                      f"{VIT_ROUNDS}, not above {VIT_ACC_GATE}")
+    out["adam"] = arm
+    del sc
+    torch.cuda.empty_cache()
+
+    print(f"  b. SGD at lr {VIT_SGD_LR}, {VIT_SGD_ROUNDS} rounds", flush=True)
+    sc = Scenario(vit_config("cifar10-vit-tiny-32-sgd", optimizer="sgd",
+                             lr=VIT_SGD_LR, rounds=VIT_SGD_ROUNDS),
+                  device=dev)
+    checks = vit_step_checks(sc)
+    if not all(checks[k] for k in ("repeat_bits", "plain_bits",
+                                   "remat_bits")):
+        failed.append(f"vit sgd one-step gates: {checks}")
+    torch.cuda.empty_cache()
+    sgd = run_arm("vit-tiny sgd", sc, VIT_SGD_ROUNDS)
+    sgd.update(checks, median_round_s=median_after_warmup(sgd["round_s"]))
+    steps = steps_of(sc, VIT_SGD_ROUNDS)
+    ln = sgd["launches"]
+    if ln["sgd_accum"] != steps or any(
+            v for k, v in ln.items() if k != "sgd_accum"):
+        failed.append(f"vit sgd: {ln} for {steps} steps (K4 once a step, "
+                      "no other kernel)")
+    if not sgd["losses"][-1] < sgd["losses"][0]:
+        failed.append(f"vit sgd: loss did not fall: {sgd['losses']}")
+    sgd["profile"] = vit_profile(sc, out_dir)
+    out["sgd"] = sgd
+    del sc
+    torch.cuda.empty_cache()
+    sc = Scenario(vit_config("cifar10-vit-tiny-32-sgd-unscanned",
+                             optimizer="sgd", lr=VIT_SGD_LR, rounds=1,
+                             model_kw=dict(VIT_KW, scan_layers=False)),
+                  device=dev)
+    leaves = len(tree_leaves(sc.fed.states.params))
+    flat = run_arm("vit-tiny sgd unscanned", sc, 1)
+    per_step = -(-leaves // K4_LEAVES_A_LAUNCH)
+    steps = steps_of(sc, 1)
+    print(f"    {leaves} leaves: K4 {flat['launches']['sgd_accum']} launches "
+          f"in {steps} steps (want {per_step} a step)", flush=True)
+    if flat["launches"]["sgd_accum"] != per_step * steps:
+        failed.append(f"vit sgd unscanned: K4 {flat['launches']} for "
+                      f"{steps} steps of {leaves} leaves")
+    out["sgd_unscanned"] = flat
+    del sc
+    torch.cuda.empty_cache()
+
+    print(f"  c. lora shape: {LORA_NODES} nodes, {LORA_SAMPLES} samples, "
+          f"batch {LORA_BATCH}, SGD at lr {LORA_LR}, {LORA_ROUNDS} rounds "
+          f"an arm", flush=True)
+    arms, round0 = {}, None
+    for tag, rank in (("full", 0), (f"lora{LORA_RANK}", LORA_RANK)):
+        sc = Scenario(vit_config(
+            f"cifar10-vit-tiny-{LORA_NODES}-{tag}", n=LORA_NODES,
+            samples=LORA_SAMPLES, batch=LORA_BATCH, rounds=LORA_ROUNDS,
+            optimizer="sgd", lr=LORA_LR, lora_rank=rank), device=dev)
+        params = sc.fed.states.params
+        if rank:
+            merged = tree_leaves(sc.model.materialize(params))
+            same = len(merged) == len(round0) and all(
+                torch.equal(m, b) for m, b in zip(merged, round0))
+            print(f"    merged round-0 model the base (the full arm's "
+                  f"round 0) bit for bit: {same}", flush=True)
+            if not same:
+                failed.append("lora: merged round-0 model is not the base")
+            del merged, round0
+        else:
+            round0 = [t.clone() for t in tree_leaves(params)]
+        a = run_arm(f"vit-tiny {tag}", sc, LORA_ROUNDS)
+        a.update(leaves=len(tree_leaves(params)),
+                 bytes_a_round=LORA_NODES * tree_bytes(params),
+                 median_round_s=median_after_warmup(a["round_s"]))
+        steps = steps_of(sc, LORA_ROUNDS)
+        if a["launches"]["sgd_accum"] != steps:
+            failed.append(f"vit {tag}: K4 {a['launches']['sgd_accum']} "
+                          f"launches in {steps} steps")
+        if not a["losses"][-1] < a["losses"][0]:
+            failed.append(f"vit {tag}: loss did not fall: {a['losses']}")
+        arms[tag] = a
+        del sc, params
+        torch.cuda.empty_cache()
+    full, ad = arms["full"], arms[f"lora{LORA_RANK}"]
+    ratio = full["bytes_a_round"] / ad["bytes_a_round"]
+    print(f"    s/round (median after the warm-up) full "
+          f"{full['median_round_s']:.4f}, lora {ad['median_round_s']:.4f}; "
+          f"bytes a round (f32 "
+          f"trees, every node's) full {full['bytes_a_round']}, lora "
+          f"{ad['bytes_a_round']}: {ratio:.1f}x fewer", flush=True)
+    out["lora"] = dict(arms, bytes_ratio=ratio)
+    if failed:
+        fail("; ".join(failed))
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -3739,6 +4122,13 @@ def main(argv: list[str] | None = None) -> int:
           "bit (DFL and SDFL, node 3 crashing and joining), logs, status "
           "records and a profiled round, the staged exchange", flush=True)
     phase10 = round_services(dev, launches)
+    torch.cuda.empty_cache()
+
+    print(f"[11] ViT-Tiny and LoRA: bench.py's _vit32_inprocess ({VIT_NODES} "
+          f"nodes, Krum, adam, {VIT_ROUNDS} rounds), its SGD arm through K4, "
+          f"the _phase_lora shape ({LORA_NODES} nodes, full weights and "
+          f"rank-{LORA_RANK} q/v adapters)", flush=True)
+    phase11 = vit_and_lora(dev, args.out)
 
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
@@ -3804,6 +4194,8 @@ def main(argv: list[str] | None = None) -> int:
             json.dumps({"card": smi, **phase9}, indent=1))
         (args.out / "chip_smoke_phase10.json").write_text(
             json.dumps({"card": smi, **phase10}, indent=1))
+        (args.out / "chip_smoke_phase11.json").write_text(
+            json.dumps({"card": smi, **phase11}, indent=1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,23 +3,26 @@
 The counterpart of ``p2pfl_tpu/config/schema.py``. ``DataConfig``,
 ``ModelConfig``, ``TrainingConfig``, ``ProtocolConfig``, ``NodeConfig``,
 ``FaultEvent``, ``ElasticConfig``, ``PrivacyConfig``,
-``CrossDeviceConfig`` and ``AdversaryConfig`` are copies of the JAX
-package's dataclasses (they import nothing but the standard library)
-with all their validation, and ``ScenarioConfig.materialize_elastic``
+``CrossDeviceConfig``, ``AdversaryConfig`` and ``LoraConfig`` are
+copies of the JAX package's dataclasses (they import nothing but the
+standard library) with all their validation, and
+``ScenarioConfig.materialize_elastic``
 is a copy of the JAX package's churn and straggler expansion, seeded
 the same way. ``ScenarioConfig`` has the same fields, so
 ``ScenarioConfig.load`` reads a scenario file that ``p2pfl_tpu`` wrote.
 The combinations the JAX package refuses with the cross-device regime
 raise the same ``ValueError`` here, before anything else is checked.
-The sections this port does not run yet (secure aggregation, lora, the
-sparse transport, the socket plane, and a ``param_dtype`` or
-``compute_dtype`` other than float32 and bfloat16) are
-rejected in ``__post_init__`` with a ``NotImplementedError`` that names
-the ``ROADMAP.md`` item that ports them (``network`` and ``lora`` stay
-plain dicts): a scenario the port would silently run differently never
-starts. The elastic section's socket-plane knobs (``min_received``, the
-heartbeat retry limit and backoff) are carried and ignored, as the JAX
-package's stacked ``Scenario`` ignores them.
+The JAX package's refusals of lora with the sidecar plane and with
+``cross_device`` raise its ``ValueError`` too. The sections this port
+does not run yet (secure aggregation, the sparse transport, the socket
+plane, and a ``param_dtype`` or ``compute_dtype`` other than float32
+and bfloat16) are rejected in ``__post_init__`` with a
+``NotImplementedError`` that names the ``ROADMAP.md`` item that ports
+them (``network`` stays a plain dict): a scenario the port would
+silently run differently never starts. The elastic section's
+socket-plane knobs (``min_received``, the heartbeat retry limit and
+backoff) are carried and ignored, as the JAX package's stacked
+``Scenario`` ignores them.
 """
 
 from __future__ import annotations
@@ -360,6 +363,40 @@ class AdversaryConfig:
         )
 
 
+@dataclasses.dataclass
+class LoraConfig:
+    """Adapter-only federation (``learning/lora.py``): the unit of
+    federation becomes the LoRA adapter tree instead of the full
+    parameter tree.
+
+    ``rank == 0`` (the default) keeps full-weight federation. When
+    active, every node trains only the adapters over a frozen base
+    derived from ``(model config, scenario seed)``. ``targets`` are
+    substring patterns matched against kernel paths; empty means the
+    model's registered defaults (the ViT's ``query``/``value``).
+    ``alpha`` is the LoRA scale's numerator (``None`` = ``rank``, scale
+    1.0)."""
+
+    rank: int = 0  # 0 = off (full-weight federation)
+    targets: list[str] = dataclasses.field(default_factory=list)
+    alpha: float | None = None
+
+    def __post_init__(self):
+        if self.rank < 0:
+            raise ValueError(f"lora rank must be >= 0, got {self.rank}")
+        if self.alpha is not None and self.alpha <= 0:
+            raise ValueError(f"lora alpha must be > 0, got {self.alpha}")
+        if self.targets and not all(
+                isinstance(t, str) and t for t in self.targets):
+            raise ValueError(
+                f"lora targets must be non-empty strings, got "
+                f"{self.targets!r}")
+
+    @property
+    def active(self) -> bool:
+        return self.rank > 0
+
+
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to p2pfl_tpu_torch yet "
@@ -394,7 +431,7 @@ class ScenarioConfig:
     elastic: ElasticConfig = dataclasses.field(default_factory=ElasticConfig)
     cross_device: CrossDeviceConfig = dataclasses.field(
         default_factory=CrossDeviceConfig)
-    lora: dict[str, Any] = dataclasses.field(default_factory=dict)
+    lora: LoraConfig = dataclasses.field(default_factory=LoraConfig)
     privacy: PrivacyConfig = dataclasses.field(default_factory=PrivacyConfig)
     transport: str = "auto"
     wire_dtype: str = "f32"
@@ -463,7 +500,7 @@ class ScenarioConfig:
                 "aggregation_plane='sidecar' is a socket-plane "
                 "feature; cross_device runs the cohort-scan round"
             )
-        if self.lora.get("rank", 0) > 0:
+        if self.lora.active:
             raise ValueError(
                 "lora is not wired into the cross_device "
                 "cohort-scan round yet: it would silently train "
@@ -478,13 +515,20 @@ class ScenarioConfig:
             )
 
     def _reject_unported(self) -> None:
+        if self.lora.active and self.aggregation_plane == "sidecar":
+            # the JAX schema's refusal, raised as there, before the
+            # port's own refusal of the socket plane below
+            raise ValueError(
+                "lora composes with aggregation_plane='inline' "
+                "only for now: the sidecar fuses raw slot bytes "
+                "against full-weight expectations and would "
+                "silently aggregate adapter envelopes as if they "
+                "were full models")
         if self.privacy.secagg:
             # the JAX package's stacked Scenario refuses it too: the
             # pairwise masks ride the socket plane's PARAMS wire
             raise _unported("privacy.secagg (a socket-plane feature)",
                             "A22")
-        if self.lora.get("rank", 0) > 0:
-            raise _unported("lora", "A8")
         if self.transport == "sparse":
             raise _unported("transport='sparse'", "A12")
         net = self.network
@@ -570,6 +614,7 @@ class ScenarioConfig:
             ("elastic", ElasticConfig),
             ("cross_device", CrossDeviceConfig),
             ("privacy", PrivacyConfig),
+            ("lora", LoraConfig),
         ]:
             if field in d and isinstance(d[field], dict):
                 d[field] = cls(**d[field])

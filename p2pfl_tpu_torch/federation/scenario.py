@@ -8,8 +8,10 @@ port runs:
   CFL/SDFL and fully connected DFL), attack injection and label flips
   on the malicious rows, reputation-weighted mixing, DP-FedAvg on every
   training row, the async staleness scale, the train-set vote cap,
-  periodic evaluation, and ``transport`` ``auto``/``dense`` (both mean
-  the one dense mix here);
+  periodic evaluation, adapter-only federation (``lora``: the model is
+  wrapped by ``learning.lora.maybe_wrap_lora`` over a frozen base, and
+  every row trains and ships adapters), and ``transport``
+  ``auto``/``dense`` (both mean the one dense mix here);
 - ``CrossDeviceScenario``: the sampled K-of-N cross-device regime, a
   cohort scan through ``n_slots`` slots, materialized or streamed.
 
@@ -70,6 +72,7 @@ from p2pfl_tpu_torch.federation.events import Events, Observable
 from p2pfl_tpu_torch.federation.membership import Membership
 from p2pfl_tpu_torch.federation.sampling import sample_cohorts
 from p2pfl_tpu_torch.learning.learner import make_step_fns
+from p2pfl_tpu_torch.learning.lora import maybe_wrap_lora
 from p2pfl_tpu_torch.models.base import build_model
 from p2pfl_tpu_torch.parallel.federated import (
     build_cross_device_stream_fns,
@@ -106,8 +109,11 @@ def _resolve(device: torch.device | str) -> torch.device:
         # the f32 FedAvg mix, dense layers and convs run in full f32, as
         # in the JAX package (cuDNN would take TF32 by default); cuDNN
         # takes only deterministic conv algorithms, so a run repeats bit
-        # for bit (K2's slice plan fixes its sum order for the same end)
+        # for bit (K2's slice plan fixes its sum order for the same end);
+        # bf16 products (the ViT's) keep f32 sums, as XLA's do
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
     return dev
@@ -183,7 +189,11 @@ class Scenario(Observable):
 
     def __init__(self, config: ScenarioConfig,
                  dataset: FederatedDataset | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 lora_base: Any = None):
+        """``lora_base`` (one node's params tree) replaces the frozen
+        base a lora scenario derives from its seed: two runs, or the
+        two packages, then fine-tune one base."""
         super().__init__()
         if config.cross_device.active:
             raise ValueError(
@@ -196,6 +206,13 @@ class Scenario(Observable):
         n = config.n_nodes
         self.dataset = dataset or FederatedDataset.make(config.data, n)
         self.model = build_model(config.model)
+        if config.lora.active:
+            # adapter-only federation: the federation trains and ships
+            # the adapter tree over one frozen base on the device
+            self.model = maybe_wrap_lora(
+                self.model, config,
+                torch.from_numpy(self.dataset.nodes[0].x[:1]),
+                base=lora_base, device=self.device)
         self.fns = _step_fns(self.model, config)
         self.topology = generate_topology(config.topology, n,
                                           **config.topology_kwargs)

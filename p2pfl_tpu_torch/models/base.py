@@ -29,8 +29,14 @@ from torch import nn
 
 _REGISTRY: dict[str, Callable[..., nn.Module]] = {}
 
-#: names the JAX package registers that this port does not have yet
-_UNPORTED = ("vit-tiny", "vit")
+# per-model LoRA adapter-target metadata (``learning/lora.py``): the
+# default target patterns and each pattern's (out_axes, base_ndim)
+# kernel view, how many trailing axes are outputs and how many axes the
+# unscanned kernel has (extra leading axes broadcast, e.g. the scanned
+# ViT's depth axis). Registered beside the factory, as in the JAX
+# package: the split is a property of the architecture.
+_LORA_TARGETS: dict[str, tuple[tuple[str, ...],
+                               dict[str, tuple[int, int]]]] = {}
 
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "f32": torch.float32, "float32": torch.float32}
@@ -53,12 +59,37 @@ def register_model(*names: str):
 def get_model(name: str, **kwargs) -> nn.Module:
     key = name.lower()
     if key not in _REGISTRY:
-        if key in _UNPORTED:
-            raise NotImplementedError(
-                f"model {name!r} is not ported to p2pfl_tpu_torch yet "
-                "(ROADMAP.md queue A, item A21)")
         raise ValueError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[key](**kwargs)
+
+
+def register_lora_targets(*names: str, default: tuple[str, ...],
+                          specs: dict[str, tuple[int, int]] | None = None
+                          ) -> None:
+    """Register a model's default LoRA targets and kernel axis specs."""
+    entry = (tuple(default), dict(specs or {}))
+    for name in names:
+        _LORA_TARGETS[name.lower()] = entry
+
+
+def default_lora_targets(name: str) -> tuple[str, ...]:
+    """A model's registered default adapter targets; loud when it
+    registers none (adapting nothing would report a fine-tune that
+    never ran), so the scenario must then set ``lora.targets``."""
+    entry = _LORA_TARGETS.get(name.lower())
+    if entry is None or not entry[0]:
+        raise ValueError(
+            f"model {name!r} registers no default lora targets "
+            f"(have {sorted(_LORA_TARGETS)}); set lora.targets "
+            "explicitly")
+    return entry[0]
+
+
+def lora_axis_specs(name: str) -> dict[str, tuple[int, int]]:
+    """Per-pattern (out_axes, base_ndim) kernel views; a pattern absent
+    here takes the plain 2-D ``(..., d_in, d_out)`` view."""
+    entry = _LORA_TARGETS.get(name.lower())
+    return dict(entry[1]) if entry else {}
 
 
 def build_model(model_cfg) -> nn.Module:

@@ -456,10 +456,11 @@ def test_stride_two_same_padding_is_xla_asymmetric(block, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def test_vit_still_refuses_naming_a21():
+def test_vit_builds_by_both_names():
+    from p2pfl_tpu_torch.models.vit import ViT
+
     for name in ("vit-tiny", "vit"):
-        with pytest.raises(NotImplementedError, match="A21"):
-            get_model(name)
+        assert isinstance(get_model(name), ViT)
 
 
 def test_build_model_passes_the_dtypes():

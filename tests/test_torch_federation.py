@@ -152,7 +152,6 @@ def test_unported_sections_are_rejected_with_their_roadmap_item(tmp_path):
     cases = [
         ({"privacy": {"secagg": True}}, "A22"),
         ({"transport": "sparse"}, "A12"),
-        ({"lora": {"rank": 4}}, "A8"),
     ]
     for override, item in cases:
         raw = dataclasses.asdict(jschema.ScenarioConfig(n_nodes=2))
