@@ -219,10 +219,32 @@ one, or when run outside a checkout of this repository). Phases:
       ratio.
    Phase 2 holds K4 over the scanned ViT's 23 leaves at 32 nodes and
    over the adapter tree's 4 at 16 too.
-12. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
+12. The socket plane (``socket_plane``; ``p2pfl_tpu_torch.p2p``): every
+   arm zeroes the launch counts before it runs and reads them after;
+   every node must finish every round with its learner's tensors on the
+   card:
+   a. ``bench.py``'s ``_socket24`` through ``run_simulation``: 24
+      mnist-mlp nodes fully connected, 60 samples a node, 3 rounds,
+      0.5 s heartbeats, 60 s aggregation and 10 s vote timeouts, gossip
+      fan-out 12, ``train_set_size`` 8 and then 24: K4 once a training
+      step of every fit, no K1-K3; s/round, bytes in and out, mean
+      accuracy;
+   b. phase 3's ring (``BASELINE.json`` configs[1]) over sockets, f32
+      and bf16 wire, 3 rounds: K1-K4 launched as often a step as one
+      kernel step launches them (K2-K4 as phase 3's), times the steps
+      of all fits, plus the final evaluations' K1; the mean fit loss
+      falling from round 1 to 3 and node 0's accuracy rising from its
+      first fit's starting weights; node 0's first fit replayed from
+      its recorded state through the kernels (the fit's bits) and
+      through the plain versions, within ``check_step_vs_plain``'s
+      tolerance;
+   c. ``python -m p2pfl_tpu_torch.p2p.launch`` with 4 child processes
+      on the card (mnist-mlp, 2 rounds): every child's result names the
+      card; the parent's JSON is printed.
+13. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
    dtype variants) and, last, ``{"ok": true, "device": {...}}``. With
    ``--out DIR`` the per-instance kernel numbers, the profiles and
-   phases 7's to 11's numbers are also written there as JSON.
+   phases 7's to 12's numbers are also written there as JSON.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -4014,6 +4036,338 @@ def vit_and_lora(dev, out_dir) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the socket plane
+# ---------------------------------------------------------------------------
+SOCKET_NODES, SOCKET_SAMPLES = 24, 60  # bench.py's _socket24
+SOCKET_CAPS = (8, 24)  # train_set_size: the capped and uncapped arms
+SOCKET_ROUNDS = 3
+SOCKET_PROCS = 4  # 12c's child processes
+K13 = ("stream_gemm", "stream_wgrad", "dense_bwd")
+
+
+def socket_protocol(train_set_size: int, **kw):
+    """``_socket24``'s protocol: 0.5 s heartbeats, 60 s aggregation and
+    10 s vote timeouts, gossip fan-out 12 (``kw`` overrides)."""
+    from p2pfl_tpu_torch.config.schema import ProtocolConfig
+
+    return ProtocolConfig(**{
+        "heartbeat_period_s": 0.5, "aggregation_timeout_s": 60.0,
+        "vote_timeout_s": 10.0, "train_set_size": train_set_size,
+        "gossip_fanout": 12, **kw})
+
+
+#: 12b's protocol: on a ring a session's coverage stalls on partial
+#: aggregates that overlap without superseding (both packages' rule), so
+#: a round closes at the aggregation timeout; and a stale target gets the
+#: same 26 MB partial again every retry window until the gossip's quiet
+#: exit, which the ring takes after 2 s
+RING_PROTOCOL = dict(aggregation_timeout_s=10.0, gossip_exit_on_equal_rounds=2)
+
+
+def socket24_config(train_set_size: int, n: int = SOCKET_NODES,
+                    rounds: int = SOCKET_ROUNDS):
+    """``bench.py``'s ``_socket24``: mnist-mlp, fully connected, 60
+    samples a node, lr 0.05."""
+    from p2pfl_tpu_torch.config.schema import (
+        DataConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+
+    return ScenarioConfig(
+        name=f"sock{n}", n_nodes=n, topology="fully",
+        data=DataConfig(dataset="mnist", samples_per_node=SOCKET_SAMPLES),
+        training=TrainingConfig(rounds=rounds, epochs_per_round=1,
+                                learning_rate=0.05),
+        protocol=socket_protocol(train_set_size))
+
+
+def learner_on_card(ln) -> bool:
+    from p2pfl_tpu_torch.core.pytree import tree_leaves
+
+    st = ln.state
+    # the shard reaches the device at a node's first fit
+    tensors = (tree_leaves(st.params) + tree_leaves(st.opt_state)
+               + [st.step, *(ln._xy or ())])
+    return (all(t.is_cuda for t in tensors)
+            and st.rng.device.type == "cuda")
+
+
+class FirstFits:
+    """Record node ``who``'s first fit: its state before (params, trace,
+    the shuffle generator's state) and its params after."""
+
+    def __init__(self, nodes: list, who: int = 0):
+        from p2pfl_tpu_torch.learning.learner import TorchLearner
+
+        self.cls, self.nodes, self.who = TorchLearner, nodes, who
+        self.before = self.after = None
+
+    def __enter__(self):
+        import torch
+
+        from p2pfl_tpu_torch.core.pytree import tree_map
+
+        fit, rec = self.cls.fit, self
+
+        def recording_fit(ln):
+            first = (rec.before is None and rec.nodes
+                     and ln is rec.nodes[rec.who].learner)
+            if first:
+                st = ln.state
+                rec.before = (tree_map(torch.clone, st.params),
+                              tree_map(torch.clone, st.opt_state),
+                              st.rng.get_state(), st.step.clone())
+            fit(ln)
+            if first:
+                rec.after = tree_map(torch.clone, ln.state.params)
+
+        self.fit = fit
+        self.cls.fit = recording_fit
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fit = self.fit
+
+
+def replay_first_fit(tag: str, ln, rec: FirstFits) -> dict:
+    """Node 0's first fit replayed from its recorded state through the
+    kernels (its launch counts; the fit's bits) and through the plain
+    versions, held as ``check_step_vs_plain`` holds one step (bf16
+    compute: the loss within 1e-2 relative, each leaf's update within
+    relative L2 5e-2). ``failed`` lists the unmet gates."""
+    import dataclasses
+
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves, tree_map
+    from p2pfl_tpu_torch.ops import gemm
+
+    params, trace, rng, step = rec.before
+    x, y, mask = ln._train_args()
+
+    def state():
+        g = torch.Generator(device=ln.device)
+        g.set_state(rng)
+        return dataclasses.replace(
+            ln.state, params=tree_map(torch.clone, params),
+            opt_state=tree_map(torch.clone, trace), rng=g,
+            step=step.clone())
+
+    gemm.reset_launches()
+    k_state, k_m = ln.fns.train_epochs(state(), x, y, mask, epochs=1)
+    torch.cuda.synchronize()
+    fit_launches = dict(gemm.launches)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(k_state.params), tree_leaves(rec.after)))
+    with PlainVersions():
+        p_state, p_m = ln.fns.train_epochs(state(), x, y, mask, epochs=1)
+    loss_err = float((k_m["loss"] - p_m["loss"]).abs().max()
+                     / p_m["loss"].abs().max())
+    worst = max(float(((pk - p0).float() - (pp - p0).float()).norm()
+                      / (pp - p0).float().norm())
+                for p0, pk, pp in zip(tree_leaves(params),
+                                      tree_leaves(k_state.params),
+                                      tree_leaves(p_state.params)))
+    print(f"  {tag}: node 0's first fit replayed: the socket fit's bits "
+          f"{same}; kernels vs plain: loss rel err {loss_err:.3g} (tol "
+          f"1e-2), update rel L2 err {worst:.3g} (tol 5e-2); launches of "
+          f"the fit { {k: v for k, v in fit_launches.items() if v} }",
+          flush=True)
+    failed = []
+    if not same:
+        failed.append(f"{tag}: the replayed first fit is not the fit's bits")
+    if not (loss_err <= 1e-2 and worst <= 5e-2):
+        failed.append(f"{tag}: node 0's first fit and the plain fit disagree")
+    return dict(same_bits=same, loss_rel_err=loss_err, rel_l2_err=worst,
+                fit_launches=fit_launches, failed=failed)
+
+
+def start_accuracy(lns, params) -> float:
+    """The mean over the learners of their validation accuracy at
+    ``params`` (node 0's first fit's start: the weights every node
+    received from the starter)."""
+    import torch
+
+    accs = []
+    for ln in lns:
+        xv = torch.from_numpy(ln.data.x_val).to(ln.device)
+        yv = torch.from_numpy(ln.data.y_val).to(ln.device)
+        mask = torch.ones(len(xv), dtype=torch.bool, device=ln.device)
+        accs.append(float(ln.fns.evaluate(params, xv, yv, mask)
+                          ["accuracy"][0]))
+    return sum(accs) / len(accs)
+
+
+def socket_arm(tag: str, cfg, dev, record: bool = False):
+    """``run_simulation(cfg)`` on the card with the launch counts zeroed
+    before and read after; the nodes' rounds, steps and fits, and where
+    their learners' tensors live."""
+    import torch
+
+    from p2pfl_tpu_torch.ops import gemm
+    from p2pfl_tpu_torch.p2p.launch import run_simulation
+
+    nodes: list = []
+    rec = FirstFits(nodes)
+    torch.cuda.synchronize()
+    gemm.reset_launches()
+    t0 = time.perf_counter()
+    if record:
+        with rec:
+            res = run_simulation(cfg, timeout=300, device=dev,
+                                 nodes_out=nodes)
+    else:
+        res = run_simulation(cfg, timeout=300, device=dev, nodes_out=nodes)
+    torch.cuda.synchronize()
+    launches = dict(gemm.launches)
+    lns = [nd.learner for nd in nodes]
+    out = dict(res, launches=launches, call_s=time.perf_counter() - t0,
+               steps=sum(ln.global_step for ln in lns),
+               fits=sum(len(ln.train_losses) for ln in lns),
+               node_rounds=[nd.round for nd in nodes],
+               on_card=all(learner_on_card(ln) for ln in lns),
+               first_losses=[ln.train_losses[0] for ln in lns
+                             if ln.train_losses],
+               last_losses=[ln.train_losses[-1] for ln in lns
+                            if ln.train_losses],
+               round_wall_s=[nd.round_wall_s for nd in nodes])
+    print(f"  {tag}: {res['round_s']} s/round ({res['wall_s']} s for "
+          f"{cfg.training.rounds} rounds), bytes in {res['bytes_in']} out "
+          f"{res['bytes_out']} (params {res['params_bytes_out']}), mean "
+          f"accuracy {res['mean_accuracy']}; rounds {set(out['node_rounds'])}"
+          f", {out['fits']} fits, {out['steps']} steps, learners on the card "
+          f"{out['on_card']}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return out, nodes, rec
+
+
+def socket_gates(tag: str, arm: dict, rounds: int, per_step: dict,
+                 extra: dict | None = None) -> list[str]:
+    """Every node finished every round, every learner on the card, and
+    each kernel launched ``per_step`` times a training step (plus
+    ``extra``, the evaluations' launches)."""
+    failed = []
+    if set(arm["node_rounds"]) != {rounds}:
+        failed.append(f"{tag}: nodes finished rounds {arm['node_rounds']}")
+    if not arm["on_card"]:
+        failed.append(f"{tag}: a learner's tensor is off the card")
+    if arm["fits"] <= 0:
+        failed.append(f"{tag}: no fit ran")
+    for k, v in per_step.items():
+        want = v * arm["steps"] + (extra or {}).get(k, 0)
+        if arm["launches"][k] != want:
+            failed.append(f"{tag}: {k} launched {arm['launches'][k]} "
+                          f"times, {want} expected ({v} a step x "
+                          f"{arm['steps']} steps + the evaluations)")
+    return failed
+
+
+def socket_plane(dev, ring_launches: dict, ring_steps: int) -> dict:
+    """Phase 12: a. ``_socket24`` in process, capped and uncapped; b. the
+    FEMNIST-CNN ring over sockets, f32 and bf16 wire, node 0's first fit
+    against the plain versions; c. the multi-process launcher on the
+    card. Gates are raised at the end."""
+    import tempfile
+
+    import torch
+
+    from p2pfl_tpu_torch.ops import gemm
+
+    out: dict = {}
+    failed: list[str] = []
+    # the phase 3 ring's launches a training step (its K1 also counts
+    # its evaluations, so K1's a step comes from node 0's replayed fit)
+    ring_step = {k: ring_launches[k] / ring_steps for k in DENSE_PATH}
+    mlp_step = {"sgd_accum": 1, **{k: 0 for k in K13}}
+    for ts in SOCKET_CAPS:
+        tag = f"12a socket24 train_set_size {ts}"
+        arm, nodes, _ = socket_arm(tag, socket24_config(ts), dev)
+        failed += socket_gates(tag, arm, SOCKET_ROUNDS, mlp_step)
+        if ring_step["sgd_accum"] != 1:
+            failed.append(f"phase 3's K4 a step is {ring_step['sgd_accum']}")
+        out[f"socket24_ts{ts}"] = arm
+        del nodes
+    for wire in ("f32", "bf16"):
+        tag = f"12b ring over sockets, {wire} wire"
+        cfg = ring_config(f"socket-ring-{wire}", rounds=SOCKET_ROUNDS)
+        cfg.wire_dtype = wire
+        cfg.protocol = socket_protocol(0, **RING_PROTOCOL)
+        arm, nodes, rec = socket_arm(tag, cfg, dev, record=True)
+        if rec.before is None:
+            failed.append(f"{tag}: node 0's first fit was not recorded")
+            continue
+        ln0 = nodes[0].learner
+        replay = replay_first_fit(tag, ln0, rec)
+        per_fit = replay.pop("fit_launches")
+        failed += replay.pop("failed")
+        fit_steps = max(len(ln0.data.x) // ln0.batch_size, 1)
+        step = {k: per_fit[k] / fit_steps for k in DENSE_PATH}
+        # the evaluations' K1: every node's final evaluation, once more
+        gemm.reset_launches()
+        for nd in nodes:
+            nd.learner.evaluate()
+        torch.cuda.synchronize()
+        evals = {k: gemm.launches[k] for k in DENSE_PATH}
+        failed += socket_gates(tag, arm, SOCKET_ROUNDS, step, evals)
+        for k in ("stream_wgrad", "dense_bwd", "sgd_accum"):
+            if step[k] != ring_step[k]:
+                failed.append(f"{tag}: {k} {step[k]} a step, phase 3's "
+                              f"{ring_step[k]}")
+        if any(step[k] <= 0 for k in DENSE_PATH):
+            failed.append(f"{tag}: a kernel is off the fit: {step}")
+        first = sum(arm["first_losses"]) / len(arm["first_losses"])
+        last = sum(arm["last_losses"]) / len(arm["last_losses"])
+        acc0 = start_accuracy([nd.learner for nd in nodes], rec.before[0])
+        replay["start_accuracy"] = acc0
+        covered = [len(nd.session.covered) for nd in nodes]
+        print(f"    mean fit loss {first:.4f} (round 1) -> {last:.4f} "
+              f"(round {SOCKET_ROUNDS}); mean validation accuracy "
+              f"{acc0:.4f} (the starter's weights) -> "
+              f"{arm['mean_accuracy']:.4f}; the last round's coverage a "
+              f"node {covered}; a step: {step} (phase 3: {ring_step})",
+              flush=True)
+        if not last < first:
+            failed.append(f"{tag}: loss did not fall ({first} -> {last})")
+        if not arm["mean_accuracy"] > acc0:
+            failed.append(f"{tag}: accuracy did not rise ({acc0} -> "
+                          f"{arm['mean_accuracy']})")
+        out[f"ring_{wire}"] = dict(arm, replay=replay, per_step=step,
+                                   eval_launches=evals, coverage=covered)
+        del nodes, rec, ln0
+        torch.cuda.empty_cache()
+    # c. the launcher: fresh interpreters, each on the card
+    name = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as d:
+        path = pathlib.Path(d) / "socket4.json"
+        socket24_config(0, n=SOCKET_PROCS, rounds=2).save(path)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "p2pfl_tpu_torch.p2p.launch", str(path)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"  12c launcher, {SOCKET_PROCS} processes, mnist-mlp, 2 rounds: "
+          f"exit {proc.returncode} in {secs:.1f} s; {last}", flush=True)
+    if proc.returncode != 0:
+        failed.append(f"12c: launcher exited {proc.returncode}: "
+                      f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    else:
+        results = json.loads(last)["nodes"]
+        if sorted(r["node"] for r in results) != list(range(SOCKET_PROCS)):
+            failed.append(f"12c: results for nodes "
+                          f"{[r['node'] for r in results]}")
+        for r in results:
+            if (r["round"] != 2 or not r["device"].startswith("cuda")
+                    or r["device_name"] != name):
+                failed.append(f"12c: node {r['node']} reports {r}")
+        out["launcher"] = dict(seconds=secs, nodes=results)
+    if failed:
+        fail("; ".join(failed))
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -4055,6 +4409,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
     launches, sc = end_to_end(dev)
+    ring_steps = steps_of(sc, len(sc.round_times_s))
     profile_round(lambda: sc.run(rounds=1), args.out)
     del sc
     torch.cuda.empty_cache()
@@ -4129,6 +4484,13 @@ def main(argv: list[str] | None = None) -> int:
           f"the _phase_lora shape ({LORA_NODES} nodes, full weights and "
           f"rank-{LORA_RANK} q/v adapters)", flush=True)
     phase11 = vit_and_lora(dev, args.out)
+    torch.cuda.empty_cache()
+
+    print(f"[12] the socket plane: bench.py's _socket24 in process "
+          f"({SOCKET_NODES} mnist-mlp nodes, train_set_size "
+          f"{SOCKET_CAPS}), phase 3's ring over sockets (f32 and bf16 "
+          f"wire), the launcher with {SOCKET_PROCS} processes", flush=True)
+    phase12 = socket_plane(dev, launches, ring_steps)
 
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
@@ -4196,6 +4558,8 @@ def main(argv: list[str] | None = None) -> int:
             json.dumps({"card": smi, **phase10}, indent=1))
         (args.out / "chip_smoke_phase11.json").write_text(
             json.dumps({"card": smi, **phase11}, indent=1))
+        (args.out / "chip_smoke_phase12.json").write_text(
+            json.dumps({"card": smi, **phase12}, indent=1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

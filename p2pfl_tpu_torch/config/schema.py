@@ -528,7 +528,7 @@ class ScenarioConfig:
             # the JAX package's stacked Scenario refuses it too: the
             # pairwise masks ride the socket plane's PARAMS wire
             raise _unported("privacy.secagg (a socket-plane feature)",
-                            "A22")
+                            "A22c")
         if self.transport == "sparse":
             raise _unported("transport='sparse'", "A12")
         net = self.network
@@ -536,8 +536,8 @@ class ScenarioConfig:
                 or any(net.get(k) for k in ("delay_ms", "jitter_ms",
                                             "loss_pct", "rate_mbps",
                                             "partitions"))):
-            raise _unported("the socket plane (network, sidecar, TLS)",
-                            "A22")
+            raise _unported(
+                "the socket plane's link shaping, sidecar and TLS", "A22c")
         # the kernels take f32 and bf16 (float16 is the rest of A19)
         for knob in ("param_dtype", "compute_dtype"):
             value = getattr(self.model, knob)

@@ -18,3 +18,15 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def card_numerics(dev: torch.device) -> None:
+    """On the card, the JAX package's numerics: f32 products and convs in
+    full f32 (no TF32), bf16 products with f32 sums, and only cuDNN's
+    deterministic conv algorithms, so a run repeats bit for bit."""
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True

@@ -62,7 +62,7 @@ from p2pfl_tpu_torch.config.schema import ScenarioConfig
 from p2pfl_tpu_torch.core.aggregators import get_aggregator
 from p2pfl_tpu_torch.datasets.data import CrossDeviceData, FederatedDataset
 from p2pfl_tpu_torch.core.pytree import tree_map
-from p2pfl_tpu_torch.device import resolve_device
+from p2pfl_tpu_torch.device import card_numerics, resolve_device
 from p2pfl_tpu_torch.federation.checkpoint import (
     all_checkpoints,
     load_checkpoint,
@@ -104,18 +104,11 @@ class ScenarioResult:
 
 
 def _resolve(device: torch.device | str) -> torch.device:
+    # the f32 FedAvg mix, dense layers and convs run in full f32, as in
+    # the JAX package; K2's slice plan fixes its sum order for the same
+    # bit-for-bit repeatability as cuDNN's deterministic algorithms
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        # the f32 FedAvg mix, dense layers and convs run in full f32, as
-        # in the JAX package (cuDNN would take TF32 by default); cuDNN
-        # takes only deterministic conv algorithms, so a run repeats bit
-        # for bit (K2's slice plan fixes its sum order for the same end);
-        # bf16 products (the ViT's) keep f32 sums, as XLA's do
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
-            False)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cudnn.deterministic = True
+    card_numerics(dev)
     return dev
 
 

@@ -1,4 +1,5 @@
-"""Local training over the node axis: ``TrainState`` and ``make_step_fns``.
+"""Local training over the node axis: ``TrainState`` and ``make_step_fns``;
+and one node's learner for the socket plane, ``TorchLearner``.
 
 The counterpart of ``p2pfl_tpu/learning/learner.py::make_step_fns``.
 Every tensor carries a leading ``[n]`` node axis, so one call trains
@@ -35,13 +36,23 @@ the vmapped ``tx.update`` does) and the updates are ``where``-zeroed.
 Objectives: ``autoencoder`` takes its loss against the input, ``ocsvm``
 adds ``ocsvm_penalty`` over the node's params; both report accuracy
 0.0.
+
+``SharedTrainer`` and ``TorchLearner`` are the JAX package's
+``SharedTrainer`` and ``JaxLearner`` for the socket plane
+(``p2p/node.py``); the JAX package's ``NodeLearner`` contract is
+``TorchLearner``'s public methods. A ``TorchLearner`` is the stacked
+step at n = 1 on its device, so a node's fit takes the stacked
+federation's kernels. Its fit, evaluation and warm-up hold one lock per
+device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable
 
+import numpy as np
 import torch
 
 from p2pfl_tpu_torch.core.pytree import (
@@ -49,6 +60,12 @@ from p2pfl_tpu_torch.core.pytree import (
     tree_leaves,
     tree_map,
     tree_unflatten,
+)
+from p2pfl_tpu_torch.core.serialize import (
+    check_parameters,
+    decode_parameters,
+    encode_parameters,
+    to_host,
 )
 from p2pfl_tpu_torch.learning.objectives import (
     NO_ACCURACY_OBJECTIVES,
@@ -325,3 +342,247 @@ def make_step_fns(
                    train_step=train_step, train_epochs=train_epochs,
                    evaluate=evaluate, apply_update=apply_update)
 
+
+
+# ---- one node: the socket plane's learner ---------------------------------
+
+#: one lock per device around a learner's fit, evaluate and warm-up: the
+#: socket plane runs every node's fit from the event loop's executor,
+#: and the kernels' launch counts and the extension's first load are
+#: process-wide state. The lock changes no result; it serializes the
+#: host side of the fits that one card would run one after another.
+_DEVICE_LOCKS: dict[tuple[str, int | None], threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
+
+
+def device_lock(device: torch.device | str) -> threading.Lock:
+    """``device``'s lock, keyed by the device it resolves to: ``cuda``
+    and ``cuda:0`` name one card and share one lock."""
+    dev = torch.device(device)
+    index = dev.index
+    if dev.type == "cuda" and index is None:
+        index = torch.cuda.current_device()
+    with _LOCKS_LOCK:
+        return _DEVICE_LOCKS.setdefault((dev.type, index), threading.Lock())
+
+
+def _onto_device(new, like: torch.Tensor) -> torch.Tensor:
+    """The host leaf ``new`` (of ``like``'s dtype and shape without the
+    node axis) as ``like``'s ``[1, ...]`` tensor on ``like``'s device:
+    one host copy, into pinned memory on the card's side, then one
+    host-to-device copy."""
+    buf = torch.empty(like.shape[1:], dtype=like.dtype,
+                      pin_memory=like.is_cuda)
+    src = np.asarray(new)
+    if like.dtype == torch.bfloat16:  # the leaf's words
+        buf, src = buf.view(torch.int16), src.view(np.int16)
+    np.copyto(buf.numpy(), src.reshape(buf.shape))
+    if like.dtype == torch.bfloat16:
+        buf = buf.view(torch.bfloat16)
+    if like.is_cuda:
+        buf = buf.to(like.device, non_blocking=True)
+    return buf.unsqueeze(0)
+
+
+class SharedTrainer:
+    """One model and one set of step functions for many same-config
+    learners (the JAX package's ``SharedTrainer``: there, one compile)."""
+
+    def __init__(self, model, objective="classification", optimizer="sgd",
+                 learning_rate=0.1, momentum=0.9, weight_decay=0.0,
+                 momentum_dtype=None, batch_size=32):
+        self.model = model
+        self.fns = make_step_fns(
+            model, objective=objective, optimizer=optimizer,
+            learning_rate=learning_rate, momentum=momentum,
+            weight_decay=weight_decay, momentum_dtype=momentum_dtype,
+            batch_size=batch_size)
+
+
+class TorchLearner:
+    """One node's learner: the stacked step at n = 1 on ``device``, so a
+    node's fit takes the stacked federation's route (K1-K3 in the FEMNIST
+    CNN, K4 for every SGD step).
+
+    ``get_parameters`` returns the flax-named tree without the node axis
+    as host numpy (the envelope's input), copied off the device at the
+    end of ``fit`` (in the caller's thread: the socket plane's executor)
+    and kept until the params change. ``set_parameters`` checks the tree
+    against the model's, keeps its host leaves as ``get_parameters``'
+    answer and copies them onto the device once each (the socket plane
+    calls it from its executor, as it does ``fit``); the optimizer
+    state carries over, as in the JAX package. ``fit`` runs epoch by
+    epoch and honours ``interrupt_fit`` at epoch boundaries. The shuffle
+    stream is the learner's own ``torch.Generator`` on ``device``, seeded
+    with ``seed + 1``; the weights are drawn on the CPU from ``seed``.
+    """
+
+    def __init__(self, model=None, data=None, objective="classification",
+                 optimizer="sgd", learning_rate=0.1, momentum=0.9,
+                 weight_decay=0.0, momentum_dtype=None, batch_size=32,
+                 seed=0, trainer: SharedTrainer | None = None,
+                 device: torch.device | str = "cuda"):
+        from p2pfl_tpu_torch.device import card_numerics, resolve_device
+
+        self.device = resolve_device(device)
+        card_numerics(self.device)
+        self.model = model if trainer is None else trainer.model
+        self.data = data
+        self._config = dict(objective=objective, optimizer=optimizer,
+                            learning_rate=learning_rate, momentum=momentum,
+                            weight_decay=weight_decay,
+                            momentum_dtype=momentum_dtype,
+                            batch_size=batch_size)
+        self.batch_size = batch_size
+        self.seed = seed
+        self.epochs = 1
+        self.state: TrainState | None = None
+        self.fns: StepFns | None = None
+        self._shared = trainer
+        self._host = None  # get_parameters' tree, None when stale
+        self._xy = None  # the shard on the device
+        self.global_step = 0
+        self.local_step = 0
+        self.round = 0
+        self._interrupted = False
+        #: the train loss of each fit's last epoch
+        self.train_losses: list[float] = []
+        self._lock = device_lock(self.device)
+
+    # -- wiring ----------------------------------------------------------
+    def set_model(self, model) -> None:
+        self.model = model
+        self.fns = None
+
+    def set_data(self, data) -> None:
+        self.data = data
+        self._xy = None
+
+    def create_trainer(self) -> None:
+        self.fns = (self._shared.fns if self._shared is not None
+                    else make_step_fns(self.model, **self._config))
+
+    def init(self) -> None:
+        if self.fns is None:
+            self.create_trainer()
+        sample = torch.from_numpy(np.ascontiguousarray(self.data.x[:1]))
+        one = self.fns.init(torch.Generator().manual_seed(self.seed), sample)
+        params = tree_map(lambda p: p.to(self.device).unsqueeze(0), one)
+        self.state = TrainState(
+            params=params, opt_state=self.fns.init_opt_state(params),
+            rng=torch.Generator(device=self.device).manual_seed(self.seed + 1),
+            step=torch.zeros(1, dtype=torch.int64, device=self.device))
+        self._host = None
+
+    # -- parameters ------------------------------------------------------
+    def get_parameters(self):
+        if self._host is None:
+            # on the CPU, a copy: the host tree outlives the state
+            cpu = self.device.type == "cpu"
+            self._host = tree_map(
+                lambda p: to_host(p[0]).copy() if cpu else to_host(p[0]),
+                self.state.params)
+        return self._host
+
+    def set_parameters(self, params) -> None:
+        check_parameters(params, self.get_parameters())
+        # the incoming host leaves answer get_parameters from now on
+        self._host = tree_map(lambda old, new: to_host(new),
+                              self.state.params, params)
+        self.state = dataclasses.replace(self.state, params=tree_map(
+            _onto_device, self._host, self.state.params))
+
+    def check_parameters(self, params) -> bool:
+        try:
+            check_parameters(params, self.get_parameters())
+            return True
+        except Exception:
+            return False
+
+    def encode_parameters(self, params=None, contributors=None,
+                          weight=1) -> bytes:
+        if params is None:
+            params = self.get_parameters()
+        return encode_parameters(params, tuple(contributors or ()), weight)
+
+    def decode_parameters(self, data: bytes):
+        return decode_parameters(data)
+
+    # -- training --------------------------------------------------------
+    def set_epochs(self, epochs: int) -> None:
+        self.epochs = epochs
+
+    def _train_args(self):
+        if self._xy is None:
+            d, dev = self.data, self.device
+            x = torch.from_numpy(np.ascontiguousarray(d.x)).to(dev)
+            y = torch.from_numpy(np.ascontiguousarray(d.y)).to(dev)
+            self._xy = (x.unsqueeze(0), y.unsqueeze(0),
+                        torch.ones((1, len(d.x)), dtype=torch.bool,
+                                   device=dev))
+        return self._xy
+
+    def fit(self) -> None:
+        if self.epochs <= 0:
+            return
+        if self._interrupted:  # honour a pending interrupt_fit()
+            self._interrupted = False
+            return
+        with self._lock:
+            x, y, mask = self._train_args()
+            epochs_run = 0
+            for _ in range(self.epochs):
+                if self._interrupted:
+                    self._interrupted = False
+                    break
+                self.state, metrics = self.fns.train_epochs(
+                    self.state, x, y, mask, epochs=1)
+                epochs_run += 1
+            self._host = None
+            self.get_parameters()  # the device-to-host copy, here
+            if epochs_run:
+                self.train_losses.append(float(metrics["loss"][0]))
+        self.local_step = (max(len(self.data.x) // self.batch_size, 1)
+                           * epochs_run)
+
+    def warm_up(self) -> None:
+        """Build (or load) the kernels, and so the device's context,
+        before the round clock starts; the state is not changed (the JAX
+        package compiles fit's programs here)."""
+        if self.fns is None:
+            self.create_trainer()
+        if self.state is None:
+            self.init()
+        if self.device.type == "cuda":
+            from p2pfl_tpu_torch.ops import _build
+
+            with self._lock:
+                _build.kernels()
+
+    def interrupt_fit(self) -> None:
+        """Stop at the next epoch boundary (or skip the next fit)."""
+        self._interrupted = True
+
+    def evaluate(self):
+        d = self.data
+        x, y = (d.x_val, d.y_val) if len(d.x_val) else (d.x, d.y)
+        with self._lock:
+            xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            yt = torch.from_numpy(np.ascontiguousarray(y)).to(self.device)
+            mask = torch.ones(len(x), dtype=torch.bool, device=self.device)
+            metrics = self.fns.evaluate(self.state.params, xt, yt, mask)
+            return {k: float(v[0]) for k, v in metrics.items()}
+
+    def get_num_samples(self) -> tuple[int, int]:
+        return (self.data.n_samples, len(self.data.x_val))
+
+    # -- lifecycle -------------------------------------------------------
+    def finalize_round(self) -> None:
+        self.global_step += self.local_step
+        self.local_step = 0
+        self.round += 1
+
+    def close(self) -> None:
+        self.state = None
+        self._host = None
+        self._xy = None

@@ -1,8 +1,10 @@
-"""The msgpack subset that the JAX package's checkpoints are written in.
+"""The msgpack subset of the JAX package's checkpoints, params envelopes
+and socket frame headers.
 
 ``flax.serialization.msgpack_serialize`` writes a tree of dicts with
-array leaves through ``msgpack-python``; this module reads and writes
-the same bytes with neither package (the card's machine has neither):
+array leaves through ``msgpack-python``, and the socket plane packs its
+frame headers with ``msgpack.packb``; this module reads and writes the
+same bytes with neither package (the card's machine has neither):
 
 - maps, arrays (lists and tuples), strings, bin, ints of every width,
   floats (written as float64), nil and bools, each in the smallest form
@@ -243,35 +245,62 @@ def serialize(tree: Any) -> bytes:
     return out.getvalue()
 
 
+#: the fixed-width numbers after a type byte, by type byte
+_NUMS = {code: struct.Struct(fmt) for code, fmt in (
+    (0xCA, ">f"), (0xCB, ">d"), (0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
+    (0xCF, ">Q"), (0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))}
+_LENS = {code: struct.Struct(fmt) for code, fmt in (
+    (0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I"),  # bin
+    (0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I"),  # ext
+    (0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"),  # str
+    (0xDC, ">H"), (0xDD, ">I"),  # array
+    (0xDE, ">H"), (0xDF, ">I"))}  # map
+_EXT_CODE = struct.Struct(">b")
+
+
 class _Unpacker:
     """A msgpack reader over one buffer; ``views`` returns bin as views
     of the buffer (ext payloads) instead of ``bytes``."""
 
     def __init__(self, data, views: bool = False):
         self._mv = memoryview(data).cast("B")
+        # indexing and slicing bytes is faster than a memoryview's
+        self._buf = data if type(data) is bytes else self._mv
+        self._n = len(self._mv)
         self._pos = 0
         self._views = views
 
-    def _take(self, n: int) -> memoryview:
+    def _take(self, n: int):
         start = self._pos
         self._pos += n
-        if self._pos > len(self._mv):
+        if self._pos > self._n:
             raise ValueError(
                 f"msgpack data ends early: needs {self._pos} bytes, has "
-                f"{len(self._mv)}")
-        return self._mv[start:self._pos]
+                f"{self._n}")
+        return self._buf[start:self._pos]
 
-    def _unpack(self, fmt: str):
-        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+    def _num(self, st: struct.Struct):
+        pos = self._pos
+        self._pos = pos + st.size
+        if self._pos > self._n:
+            raise ValueError(
+                f"msgpack data ends early: needs {self._pos} bytes, has "
+                f"{self._n}")
+        return st.unpack_from(self._buf, pos)[0]
 
     def _bytes(self, n: int):
-        mv = self._take(n)
-        return mv if self._views else mv.tobytes()
+        start = self._pos
+        data = self._take(n)
+        if self._views:
+            return self._mv[start:self._pos]
+        return data if type(data) is bytes else data.tobytes()
 
     def _ext(self, code: int, n: int):
-        payload = self._take(n)
+        start = self._pos
+        self._take(n)
         if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
             raise ValueError(f"unknown msgpack ext type {code}")
+        payload = self._mv[start:self._pos]
         shape, name, data = _Unpacker(payload, views=True).unpack()
         if name == "bfloat16":
             arr = np.frombuffer(data, np.uint16).view(BF16Array)
@@ -281,45 +310,44 @@ class _Unpacker:
         return arr[()] if code == _EXT_NPSCALAR else arr
 
     def unpack(self):
-        b = self._unpack(">B")
+        pos = self._pos
+        if pos >= self._n:
+            raise ValueError("msgpack data ends early")
+        b = self._buf[pos]
+        self._pos = pos + 1
         if b <= 0x7F:
             return b
         if b >= 0xE0:
             return b - 0x100
-        if 0x80 <= b <= 0x8F:
+        if b <= 0x8F:
             return self._map(b & 0x0F)
-        if 0x90 <= b <= 0x9F:
+        if b <= 0x9F:
             return [self.unpack() for _ in range(b & 0x0F)]
-        if 0xA0 <= b <= 0xBF:
-            return self._take(b & 0x1F).tobytes().decode("utf-8")
+        if b <= 0xBF:
+            return str(self._take(b & 0x1F), "utf-8")
         if b == 0xC0:
             return None
         if b in (0xC2, 0xC3):
             return b == 0xC3
-        if b in (0xC4, 0xC5, 0xC6):
-            return self._bytes(self._unpack((">B", ">H", ">I")[b - 0xC4]))
-        if b in (0xC7, 0xC8, 0xC9):
-            n = self._unpack((">B", ">H", ">I")[b - 0xC7])
-            return self._ext(self._unpack(">b"), n)
-        if b == 0xCA:
-            return self._unpack(">f")
-        if b == 0xCB:
-            return self._unpack(">d")
-        if 0xCC <= b <= 0xD3:
-            return self._unpack(
-                (">B", ">H", ">I", ">Q", ">b", ">h", ">i", ">q")[b - 0xCC])
+        st = _NUMS.get(b)
+        if st is not None:
+            return self._num(st)
         if 0xD4 <= b <= 0xD8:
-            code = self._unpack(">b")
+            code = self._num(_EXT_CODE)
             return self._ext(code, 1 << (b - 0xD4))
-        if b in (0xD9, 0xDA, 0xDB):
-            n = self._unpack((">B", ">H", ">I")[b - 0xD9])
-            return self._take(n).tobytes().decode("utf-8")
-        if b in (0xDC, 0xDD):
-            n = self._unpack(">H" if b == 0xDC else ">I")
+        st = _LENS.get(b)
+        if st is None:
+            raise ValueError(f"invalid msgpack type byte 0x{b:02x}")
+        n = self._num(st)
+        if b <= 0xC6:
+            return self._bytes(n)
+        if b <= 0xC9:
+            return self._ext(self._num(_EXT_CODE), n)
+        if b <= 0xDB:
+            return str(self._take(n), "utf-8")
+        if b <= 0xDD:
             return [self.unpack() for _ in range(n)]
-        if b in (0xDE, 0xDF):
-            return self._map(self._unpack(">H" if b == 0xDE else ">I"))
-        raise ValueError(f"invalid msgpack type byte 0x{b:02x}")
+        return self._map(n)
 
     def _map(self, n: int) -> dict:
         out = {}
@@ -330,9 +358,9 @@ class _Unpacker:
 
     def unpack_all(self):
         obj = self.unpack()
-        if self._pos != len(self._mv):
+        if self._pos != self._n:
             raise ValueError(
-                f"{len(self._mv) - self._pos} bytes of extra data after "
+                f"{self._n - self._pos} bytes of extra data after "
                 "the msgpack object")
         return obj
 
