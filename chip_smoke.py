@@ -241,10 +241,42 @@ one, or when run outside a checkout of this repository). Phases:
    c. ``python -m p2pfl_tpu_torch.p2p.launch`` with 4 child processes
       on the card (mnist-mlp, 2 rounds): every child's result names the
       card; the parent's JSON is printed.
-13. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
+13. The socket plane's transport and privacy layers
+   (``transport_layers``; ``p2p/aggd.py``, ``p2p/netem.py``,
+   ``p2p/tls.py``, ``privacy/secagg.py``): every arm zeroes the launch
+   counts before it runs and reads them after, and every node must
+   finish every round with its learner's tensors on the card:
+   a. ``bench.py``'s ``aggd24u``: 12a's uncapped ``_socket24`` on the
+      aggregation sidecar (12a's uncapped run is its inline arm): no
+      payload byte decoded on the loop (12a's > 0), no fallback, at
+      least rounds x nodes fuses, bytes in the arena, K4 once a step and
+      no K1-K3; the worker listed by no ``nvidia-smi`` compute query and
+      holding no ``/dev/nvidia*`` file while it runs; the arena's name
+      gone from ``/dev/shm`` after the attach and after close; node 0's
+      first fuse ``fuse_numpy``'s bits on the same envelopes; s/round,
+      bytes and accuracy beside 12a's;
+   b. ``bench.py``'s ``private8`` (8 mnist-mlp nodes fully connected, 3
+      rounds), plain and under secure aggregation (seeded pair
+      secrets): every round closes, node 0's first unmasked aggregate is
+      the plain weighted sum of the same quantized updates bit for bit,
+      K4 once a step; s/round of both and the masking's overhead;
+   c. 12b's FEMNIST-CNN ring over sockets (f32 wire, 3 rounds) on links
+      of 50 ± 10 ms and 5% loss (seed 9) with a 4 s partition window
+      {0-3} | {4-7} opening 0.5 s after the last node enters round 2
+      (its plan clock is pinned then): every node finishes
+      every round, the shapers drop to loss and on the cut, none on the
+      cut after the heal, both edges inside round 2, K1-K4 as often a
+      step as in 12b, the mean fit loss falling;
+   d. 4 mnist-mlp nodes in one loop under mutual TLS (``encrypt``), 2
+      rounds, then with secure aggregation on ECDH pair secrets: every
+      round closes, nodes 0 and 2 agree within rtol 1e-4, atol 1e-5, K4
+      once a step; without ``cryptography`` the arm prints ``tls: not
+      run: no module named cryptography on this machine`` before the
+      card's line.
+14. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
    dtype variants) and, last, ``{"ok": true, "device": {...}}``. With
    ``--out DIR`` the per-instance kernel numbers, the profiles and
-   phases 7's to 12's numbers are also written there as JSON.
+   phases 7's to 13's numbers are also written there as JSON.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -4200,16 +4232,20 @@ def start_accuracy(lns, params) -> float:
     return sum(accs) / len(accs)
 
 
-def socket_arm(tag: str, cfg, dev, record: bool = False):
+def socket_arm(tag: str, cfg, dev, record: bool = False,
+               sidecar_out: list | None = None,
+               nodes_ref: list | None = None):
     """``run_simulation(cfg)`` on the card with the launch counts zeroed
     before and read after; the nodes' rounds, steps and fits, and where
-    their learners' tensors live."""
+    their learners' tensors live. ``sidecar_out`` gets the run's
+    ``SidecarClient``; ``nodes_ref``, a list, gets the nodes as the run
+    makes them (a recorder may hold it)."""
     import torch
 
     from p2pfl_tpu_torch.ops import gemm
     from p2pfl_tpu_torch.p2p.launch import run_simulation
 
-    nodes: list = []
+    nodes: list = nodes_ref if nodes_ref is not None else []
     rec = FirstFits(nodes)
     torch.cuda.synchronize()
     gemm.reset_launches()
@@ -4217,9 +4253,10 @@ def socket_arm(tag: str, cfg, dev, record: bool = False):
     if record:
         with rec:
             res = run_simulation(cfg, timeout=300, device=dev,
-                                 nodes_out=nodes)
+                                 nodes_out=nodes, sidecar_out=sidecar_out)
     else:
-        res = run_simulation(cfg, timeout=300, device=dev, nodes_out=nodes)
+        res = run_simulation(cfg, timeout=300, device=dev, nodes_out=nodes,
+                             sidecar_out=sidecar_out)
     torch.cuda.synchronize()
     launches = dict(gemm.launches)
     lns = [nd.learner for nd in nodes]
@@ -4368,6 +4405,484 @@ def socket_plane(dev, ring_launches: dict, ring_steps: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the socket plane's transport and privacy layers
+# ---------------------------------------------------------------------------
+PRIVATE_NODES = 8  # bench.py's private8
+SHAPED = dict(delay_ms=50.0, jitter_ms=10.0, loss_pct=5.0, seed=9)
+CUT = [[0, 1, 2, 3], [4, 5, 6, 7]]  # 13c's partition window
+CUT_S = 4.0  # the window's length
+CUT_LEAD_S = 0.5  # from the last node entering round 2 to the cut
+TLS_NODES, TLS_ROUNDS = 4, 2
+
+
+def compute_pids() -> list[int]:
+    """The pids ``nvidia-smi`` lists with a compute context (none when
+    the query fails)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True)
+    except OSError:
+        return []
+    return [int(x) for x in out.stdout.split() if x.isdigit()]
+
+
+def device_fds(pid: int) -> list[str]:
+    """The ``/dev/nvidia*`` files process ``pid`` holds open (a CUDA
+    context opens ``/dev/nvidiactl`` and the card's device file)."""
+    fds = pathlib.Path(f"/proc/{pid}/fd")
+    out = []
+    for fd in fds.iterdir() if fds.is_dir() else ():
+        try:
+            target = str(fd.readlink())
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return sorted(set(out))
+
+
+class WorkerWatch:
+    """While a run is in flight, poll the sidecar worker (once it
+    exists): whether ``nvidia-smi`` lists its pid with a compute context,
+    which ``/dev/nvidia*`` files it holds, and whether its arena's name
+    is still in ``/dev/shm`` (unlinked once the worker attached)."""
+
+    def __init__(self, clients: list, period_s: float = 1.0):
+        import threading
+
+        self.clients, self.period_s = clients, period_s
+        self.polls = 0
+        self.pid = None
+        self.smi_pids: set[int] = set()
+        self.fds: set[str] = set()
+        self.name_seen_late = False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        import os
+
+        while not self._stop.wait(self.period_s):
+            cl = self.clients[0] if self.clients else None
+            proc = getattr(cl, "_proc", None)
+            if proc is None or not proc.is_alive():
+                continue
+            self.pid = proc.pid
+            self.smi_pids.update(compute_pids())
+            self.fds.update(device_fds(proc.pid))
+            if (cl.fused_rounds > 0 and cl.name
+                    and os.path.exists(f"/dev/shm/{cl.name}")):
+                self.name_seen_late = True
+            self.polls += 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+class FuseRecorder:
+    """Record node ``who``'s first sidecar fuse: its entries' envelopes
+    (copied off the arena before the fuse releases them), their weights,
+    and the session's published result."""
+
+    def __init__(self, nodes: list, who: int = 0):
+        self.nodes, self.who = nodes, who
+        self.blobs = self.weights = self.result = None
+        self.fused_by_worker = None
+
+    def __enter__(self):
+        from p2pfl_tpu_torch.p2p import session as sm
+
+        orig, rec = sm.SidecarSession._fuse_and_close, self
+        self.cls, self.orig = sm.SidecarSession, orig
+
+        async def recording(ses, entries, weights, covered):
+            mine = (rec.blobs is None and rec.nodes
+                    and ses is rec.nodes[rec.who].session)
+            if mine:
+                rec.blobs = [bytes(ses.client.view(e.slot, e.length))
+                             if isinstance(e, sm.SlotEntry) else bytes(e)
+                             for e, _ in entries]
+                rec.weights = weights.copy()
+                before = ses.client.fallbacks
+            await orig(ses, entries, weights, covered)
+            if mine:
+                rec.result = ses.result[0]
+                rec.fused_by_worker = ses.client.fallbacks == before
+
+        self.cls._fuse_and_close = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._fuse_and_close = self.orig
+
+
+def sidecar_arm(dev, inline: dict, mlp_step: dict) -> tuple[dict, list]:
+    """13a: ``bench.py``'s ``aggd24u`` (phase 12a's uncapped
+    ``_socket24`` on the sidecar plane); ``inline`` is 12a's uncapped
+    arm, run once there."""
+    import os
+
+    import numpy as np
+
+    from p2pfl_tpu_torch.core.serialize import (
+        decode_parameters,
+        tree_leaves_sorted,
+    )
+    from p2pfl_tpu_torch.p2p.session import fuse_numpy
+
+    tag = "13a sidecar (aggd24u)"
+    cfg = socket24_config(train_set_size=SOCKET_NODES)
+    cfg.aggregation_plane = "sidecar"
+    clients: list = []
+    rec = FuseRecorder([])
+    with WorkerWatch(clients) as watch, rec:
+        arm, nodes, _ = socket_arm(tag, cfg, dev, sidecar_out=clients,
+                                   nodes_ref=rec.nodes)
+    failed = socket_gates(tag, arm, SOCKET_ROUNDS, mlp_step)
+    cl = clients[0]
+    smi_pid_listed = (watch.pid in watch.smi_pids
+                      if watch.pid is not None else None)
+    main_listed = os.getpid() in watch.smi_pids
+    residue = bool(cl.name) and os.path.exists(f"/dev/shm/{cl.name}")
+    same = None
+    if rec.blobs is not None and rec.result is not None:
+        trees = [decode_parameters(b).release().params for b in rec.blobs]
+        want = (trees[0] if len(trees) == 1
+                else fuse_numpy(trees, rec.weights)[0])
+        same = all(np.array_equal(np.asarray(a), np.asarray(b))
+                   and np.asarray(a).dtype == np.asarray(b).dtype
+                   for a, b in zip(tree_leaves_sorted(want),
+                                   tree_leaves_sorted(rec.result)))
+    n = SOCKET_NODES
+    print(f"    sidecar: loop payload bytes {arm['loop_payload_touch_bytes']}"
+          f" (12a inline {inline['loop_payload_touch_bytes']}); fused "
+          f"{arm['aggd_fused_rounds']} (>= {SOCKET_ROUNDS * n}), "
+          f"fallbacks {arm['aggd_fallbacks']}, ingested "
+          f"{arm['aggd_bytes_ingested']} B; worker pid {watch.pid}: "
+          f"listed by nvidia-smi {smi_pid_listed} (this process listed "
+          f"{main_listed}; {watch.polls} polls), /dev/nvidia* open "
+          f"{sorted(watch.fds)}; arena {cl.name} in /dev/shm after close "
+          f"{residue}, after the attach {watch.name_seen_late}; node 0's "
+          f"first fuse ({len(rec.blobs or [])} entries) = fuse_numpy's "
+          f"bits {same}", flush=True)
+    print(f"    sidecar {arm['round_s']} s/round, bytes in "
+          f"{arm['bytes_in']} out {arm['bytes_out']}, accuracy "
+          f"{arm['mean_accuracy']}; 12a inline {inline['round_s']} s/round,"
+          f" in {inline['bytes_in']} out {inline['bytes_out']}, accuracy "
+          f"{inline['mean_accuracy']}", flush=True)
+    if arm["loop_payload_touch_bytes"] != 0:
+        failed.append(f"{tag}: the loop decoded "
+                      f"{arm['loop_payload_touch_bytes']} payload bytes")
+    if not inline["loop_payload_touch_bytes"] > 0:
+        failed.append(f"{tag}: 12a's inline arm decoded no payload bytes")
+    if arm["aggd_fallbacks"] != 0:
+        failed.append(f"{tag}: {arm['aggd_fallbacks']} fuses fell back "
+                      f"({cl.errors[:3]})")
+    if arm["aggd_fused_rounds"] < SOCKET_ROUNDS * n:
+        failed.append(f"{tag}: {arm['aggd_fused_rounds']} fuses, "
+                      f"{SOCKET_ROUNDS * n} expected at least")
+    if not arm["aggd_bytes_ingested"] > 0:
+        failed.append(f"{tag}: no bytes landed in the arena")
+    if watch.pid is None or watch.polls == 0:
+        failed.append(f"{tag}: the worker was never seen alive")
+    if smi_pid_listed or watch.fds:
+        failed.append(f"{tag}: the worker holds a CUDA context "
+                      f"({smi_pid_listed}, {sorted(watch.fds)})")
+    if residue or watch.name_seen_late:
+        failed.append(f"{tag}: the arena's name stayed in /dev/shm")
+    if not same or not rec.fused_by_worker:
+        failed.append(f"{tag}: the worker's fuse is not fuse_numpy's bits "
+                      f"({same}, by the worker {rec.fused_by_worker})")
+    arm.update(worker_pid=watch.pid, smi_listed=smi_pid_listed,
+               smi_lists_this_process=main_listed, worker_fds=sorted(
+                   watch.fds), arena=cl.name, arena_residue=residue,
+               fuse_bits=same, polls=watch.polls)
+    del nodes
+    return arm, failed
+
+
+def private_config(secagg: bool):
+    """``bench.py``'s ``private8``: 8 mnist-mlp nodes fully connected,
+    60 samples, ``train_set_size`` 8, 3 rounds."""
+    from p2pfl_tpu_torch.config.schema import (
+        DataConfig,
+        PrivacyConfig,
+        ProtocolConfig,
+        ScenarioConfig,
+        TrainingConfig,
+    )
+
+    return ScenarioConfig(
+        name="private8", n_nodes=PRIVATE_NODES, topology="fully",
+        data=DataConfig(dataset="mnist", samples_per_node=SOCKET_SAMPLES),
+        training=TrainingConfig(rounds=SOCKET_ROUNDS, epochs_per_round=1,
+                                learning_rate=0.05),
+        protocol=ProtocolConfig(heartbeat_period_s=0.5,
+                                aggregation_timeout_s=60.0,
+                                vote_timeout_s=10.0,
+                                train_set_size=PRIVATE_NODES),
+        privacy=PrivacyConfig(secagg=secagg))
+
+
+class MaskRecorder:
+    """Every node's raw update and weight as ``mask_update`` takes them,
+    and node ``who``'s first unmasked session result with its covered
+    set."""
+
+    def __init__(self, nodes: list, who: int = 0):
+        self.nodes, self.who = nodes, who
+        self.updates: dict = {}  # (round, idx) -> (params, weight)
+        self.result = None
+
+    def __enter__(self):
+        from p2pfl_tpu_torch.core.serialize import own_params
+        from p2pfl_tpu_torch.p2p.session import AggregationSession
+        from p2pfl_tpu_torch.privacy.secagg import PairwiseMasker
+
+        rec = self
+        self.mask, self.finish = (PairwiseMasker.mask_update,
+                                  AggregationSession._finish)
+
+        def mask_update(m, params, weight):
+            rec.updates[(m.round_num, m.idx)] = (own_params(params),
+                                                 int(weight))
+            return rec.mask(m, params, weight)
+
+        def finish(ses):
+            rec.finish(ses)
+            if (rec.result is None and rec.nodes
+                    and ses is rec.nodes[rec.who].session
+                    and ses.masker is not None):
+                rec.result = (ses.masker.round_num, sorted(ses.covered),
+                              ses.result[0], ses.reference)
+
+        PairwiseMasker.mask_update = mask_update
+        AggregationSession._finish = finish
+        self.cls = (PairwiseMasker, AggregationSession)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls[0].mask_update = self.mask
+        self.cls[1]._finish = self.finish
+
+
+def secagg_arms(dev, mlp_step: dict) -> tuple[dict, list]:
+    """13b: ``private8`` plain and under secure aggregation (seeded pair
+    secrets); one round's unmasked aggregate against the plain weighted
+    sum of the same quantized updates, at tolerance 0."""
+    import numpy as np
+
+    from p2pfl_tpu_torch.core.serialize import tree_leaves_sorted
+    from p2pfl_tpu_torch.privacy.secagg import (
+        DEFAULT_BITS,
+        dequantize_sum,
+        masked_sum,
+        quantize_update,
+    )
+
+    out, failed = {}, []
+    for secagg in (False, True):
+        tag = f"13b private8 {'secagg' if secagg else 'plain'}"
+        rec = MaskRecorder([])
+        with rec:
+            arm, nodes, _ = socket_arm(tag, private_config(secagg), dev,
+                                       nodes_ref=rec.nodes)
+        failed += socket_gates(tag, arm, SOCKET_ROUNDS, mlp_step)
+        if secagg:
+            exact = None
+            if rec.result is not None:
+                rnd, covered, got, ref = rec.result
+                entries = [(quantize_update(*rec.updates[(rnd, i)],
+                                            DEFAULT_BITS),
+                            rec.updates[(rnd, i)][1]) for i in covered]
+                total, _ = masked_sum(entries)
+                want = dequantize_sum(total, sum(w for _, w in entries),
+                                      ref, DEFAULT_BITS)
+                exact = all(np.array_equal(a, b) for a, b in zip(
+                    tree_leaves_sorted(got), tree_leaves_sorted(want)))
+                arm["checked_round"] = dict(round=rnd, covered=covered)
+            arm["unmask_exact"] = exact
+            masked_nodes = sum(nd.masker is not None for nd in nodes)
+            print(f"    node 0's first unmasked aggregate (round "
+                  f"{arm.get('checked_round')}) = the plain weighted sum "
+                  f"of the same quantized updates, bits {exact}; maskers "
+                  f"{masked_nodes}", flush=True)
+            if not exact:
+                failed.append(f"{tag}: the unmasked aggregate is not the "
+                              f"plain sum of the quantized updates")
+            if masked_nodes != PRIVATE_NODES:
+                failed.append(f"{tag}: {masked_nodes} nodes masked")
+        out["secagg" if secagg else "plain"] = arm
+        del nodes
+    plain, masked = out["plain"]["round_s"], out["secagg"]["round_s"]
+    out["overhead_pct"] = 100.0 * (masked - plain) / plain
+    print(f"    secagg {masked} s/round against plain {plain}: overhead "
+          f"{out['overhead_pct']:.2f}%", flush=True)
+    return out, failed
+
+
+def shaped_ring(dev, step: dict, evals: dict) -> tuple[dict, list]:
+    """13c: 12b's FEMNIST-CNN ring over sockets (f32 wire) on shaped
+    links, with one partition window {0-3} | {4-7} inside round 2.
+
+    The window is the config's ``PartitionSpec``, but its plan clock
+    starts when the last node enters round 2: lost votes (a 10 s
+    timeout), lost starts and the initial diffusion spread the nodes'
+    round boundaries by seconds, so no start fixed before the run lies
+    inside every node's round 2. Until then the window lies an hour
+    ahead."""
+    import asyncio
+
+    import torch
+
+    from p2pfl_tpu_torch.config.schema import NetworkConfig, PartitionSpec
+    from p2pfl_tpu_torch.p2p.node import P2PNode
+
+    tag = "13c shaped ring, f32 wire"
+    far = 3600.0  # the window's start on a clock that is never re-pinned
+    cfg = ring_config("shaped-ring", rounds=SOCKET_ROUNDS)
+    cfg.wire_dtype = "f32"
+    cfg.protocol = socket_protocol(0, **RING_PROTOCOL)
+    cfg.network = NetworkConfig(**SHAPED, partitions=[PartitionSpec(
+        start_s=far, duration_s=CUT_S, groups=CUT)])
+    nodes: list = []
+    edges: list = []
+    entered: set = set()
+    opened: list = []  # monotonic time the window opens
+    on_edge, train_round = P2PNode._on_netem_transition, P2PNode._train_round
+
+    def recording(nd, kind, groups):
+        # the round in progress: ``nd.round`` counts up before the
+        # round's closing barrier, ``round_wall_s`` once the round ends
+        edges.append((nd.idx, kind, len(nd.round_wall_s),
+                      nd.shaper.part_dropped))
+        on_edge(nd, kind, groups)
+
+    async def timed_round(nd):
+        if nd.round == 1:
+            entered.add(nd.idx)
+            if len(entered) == len(nodes) and not opened:
+                # every shaper's plan time reaches ``far`` CUT_LEAD_S
+                # from now, in one step of the one loop
+                now = asyncio.get_running_loop().time()
+                for m in nodes:
+                    m.shaper._epoch = now + CUT_LEAD_S - far
+                opened.append(time.monotonic() + CUT_LEAD_S)
+        await train_round(nd)
+
+    P2PNode._on_netem_transition = recording
+    P2PNode._train_round = timed_round
+    try:
+        arm, nodes, _ = socket_arm(tag, cfg, dev, nodes_ref=nodes)
+    finally:
+        P2PNode._on_netem_transition = on_edge
+        P2PNode._train_round = train_round
+    failed = socket_gates(tag, arm, SOCKET_ROUNDS, step, evals)
+    loss = sum(nd.shaper.dropped for nd in nodes)
+    cut = sum(nd.shaper.part_dropped for nd in nodes)
+    at_heal = {i: d for i, k, _, d in edges if k == "heal"}
+    after = sum(nd.shaper.part_dropped - at_heal.get(nd.idx, 0)
+                for nd in nodes)
+    rounds_at = sorted({(k, r) for _, k, r, _ in edges})
+    t0 = min(nd.learn_t0 for nd in nodes if nd.learn_t0 is not None)
+    start = opened[0] - t0 if opened else None
+    window = (start, start + CUT_S) if opened else None
+    first = sum(arm["first_losses"]) / len(arm["first_losses"])
+    last = sum(arm["last_losses"]) / len(arm["last_losses"])
+    shown = f"{start:.2f}-{start + CUT_S:.2f} s" if opened else "never"
+    print(f"    shaped: window {shown} after the first node began "
+          f"learning; edges (kind, round in progress from 0) {rounds_at}; loss drops "
+          f"{loss}, cut drops {cut}, cut drops after the heal {after}; mean "
+          f"fit loss {first:.4f} -> {last:.4f}; bytes in {arm['bytes_in']} "
+          f"out {arm['bytes_out']}", flush=True)
+    if not opened:
+        failed.append(f"{tag}: only nodes {sorted(entered)} entered round 2")
+    if not loss > 0:
+        failed.append(f"{tag}: the shapers dropped nothing to loss")
+    if not cut > 0:
+        failed.append(f"{tag}: nothing was dropped on the cut")
+    if after != 0 or len(at_heal) != len(nodes):
+        failed.append(f"{tag}: {after} cut drops after the heal, "
+                      f"{len(at_heal)} nodes healed")
+    if {r for _, r in rounds_at} != {1}:
+        failed.append(f"{tag}: the window was not inside round 2: "
+                      f"{rounds_at}")
+    if not last < first:
+        failed.append(f"{tag}: loss did not fall ({first} -> {last})")
+    arm.update(window=window, loss_drops=loss, cut_drops=cut,
+               cut_drops_after_heal=after, edges=rounds_at)
+    del nodes
+    torch.cuda.empty_cache()
+    return arm, failed
+
+
+def tls_arms(dev, mlp_step: dict) -> tuple[dict, list]:
+    """13d: 4 mnist-mlp nodes in one loop under mutual TLS, 2 rounds,
+    then again with secure aggregation on ECDH pair secrets; or, without
+    ``cryptography`` here, the one line that says so."""
+    import numpy as np
+
+    from p2pfl_tpu_torch.config.schema import PrivacyConfig
+    from p2pfl_tpu_torch.core.serialize import tree_leaves_sorted
+
+    try:
+        import cryptography  # noqa: F401
+    except ImportError:
+        return {"run": False}, []
+    out, failed = {"run": True}, []
+    for secagg in (False, True):
+        tag = f"13d TLS{' + secagg (ECDH)' if secagg else ''}"
+        cfg = socket24_config(0, n=TLS_NODES, rounds=TLS_ROUNDS)
+        cfg.encrypt = True
+        cfg.privacy = PrivacyConfig(secagg=secagg)
+        arm, nodes, _ = socket_arm(tag, cfg, dev)
+        failed += socket_gates(tag, arm, TLS_ROUNDS, mlp_step)
+        w0, w2 = (tree_leaves_sorted(nodes[i].learner.get_parameters())
+                  for i in (0, 2))
+        agree = all(np.allclose(a, b, rtol=1e-4, atol=1e-5)
+                    for a, b in zip(w0, w2))
+        signed = all(nd._signer is not None for nd in nodes)
+        ecdh = all(nd.masker is not None and len(nd.masker.pair_secrets)
+                   == TLS_NODES - 1 for nd in nodes) if secagg else None
+        print(f"    nodes 0 and 2 agree (rtol 1e-4, atol 1e-5) {agree}; "
+              f"signing {signed}; ECDH pair secrets {ecdh}", flush=True)
+        if not agree or not signed or ecdh is False:
+            failed.append(f"{tag}: agree {agree}, signed {signed}, ECDH "
+                          f"{ecdh}")
+        out["secagg" if secagg else "tls"] = dict(arm, agree=agree,
+                                                  ecdh=ecdh)
+        del nodes
+    return out, failed
+
+
+def transport_layers(dev, phase12: dict) -> dict:
+    """Phase 13: a. the sidecar against 12a's uncapped inline arm; b.
+    secure aggregation; c. shaped links and a partition on 12b's ring;
+    d. TLS. Gates are raised at the end."""
+    mlp_step = {"sgd_accum": 1, **{k: 0 for k in K13}}
+    ring = phase12["ring_f32"]
+    out, failed = {}, []
+    out["sidecar"], f = sidecar_arm(dev, phase12["socket24_ts24"], mlp_step)
+    failed += f
+    out["private"], f = secagg_arms(dev, mlp_step)
+    failed += f
+    out["shaped"], f = shaped_ring(dev, ring["per_step"],
+                                   ring["eval_launches"])
+    failed += f
+    out["tls"], f = tls_arms(dev, mlp_step)
+    failed += f
+    if failed:
+        fail("; ".join(failed))
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -4491,6 +5006,15 @@ def main(argv: list[str] | None = None) -> int:
           f"{SOCKET_CAPS}), phase 3's ring over sockets (f32 and bf16 "
           f"wire), the launcher with {SOCKET_PROCS} processes", flush=True)
     phase12 = socket_plane(dev, launches, ring_steps)
+    torch.cuda.empty_cache()
+
+    print(f"[13] the socket plane's transport and privacy layers: the "
+          f"sidecar on bench.py's aggd24u ({SOCKET_NODES} nodes), secure "
+          f"aggregation on private8 ({PRIVATE_NODES} nodes, plain and "
+          f"masked), phase 12b's ring on shaped links with a partition "
+          f"window, mutual TLS ({TLS_NODES} nodes, then with ECDH secure "
+          f"aggregation)", flush=True)
+    phase13 = transport_layers(dev, phase12)
 
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
@@ -4560,6 +5084,11 @@ def main(argv: list[str] | None = None) -> int:
             json.dumps({"card": smi, **phase11}, indent=1))
         (args.out / "chip_smoke_phase12.json").write_text(
             json.dumps({"card": smi, **phase12}, indent=1))
+        (args.out / "chip_smoke_phase13.json").write_text(
+            json.dumps({"card": smi, **phase13}, indent=1, default=str))
+    if not phase13["tls"]["run"]:
+        print("tls: not run: no module named cryptography on this machine",
+              flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,28 +1,26 @@
 """Scenario configuration, read from the same JSON as the JAX package.
 
 The counterpart of ``p2pfl_tpu/config/schema.py``. ``DataConfig``,
-``ModelConfig``, ``TrainingConfig``, ``ProtocolConfig``, ``NodeConfig``,
-``FaultEvent``, ``ElasticConfig``, ``PrivacyConfig``,
-``CrossDeviceConfig``, ``AdversaryConfig`` and ``LoraConfig`` are
-copies of the JAX package's dataclasses (they import nothing but the
-standard library) with all their validation, and
-``ScenarioConfig.materialize_elastic``
-is a copy of the JAX package's churn and straggler expansion, seeded
-the same way. ``ScenarioConfig`` has the same fields, so
-``ScenarioConfig.load`` reads a scenario file that ``p2pfl_tpu`` wrote.
-The combinations the JAX package refuses with the cross-device regime
-raise the same ``ValueError`` here, before anything else is checked.
-The JAX package's refusals of lora with the sidecar plane and with
-``cross_device`` raise its ``ValueError`` too. The sections this port
-does not run yet (secure aggregation, the sparse transport, the socket
-plane, and a ``param_dtype`` or ``compute_dtype`` other than float32
-and bfloat16) are rejected in ``__post_init__`` with a
+``ModelConfig``, ``TrainingConfig``, ``ProtocolConfig``,
+``PartitionSpec``, ``NetworkConfig``, ``NodeConfig``, ``FaultEvent``,
+``ElasticConfig``, ``PrivacyConfig``, ``CrossDeviceConfig``,
+``AdversaryConfig`` and ``LoraConfig`` are copies of the JAX package's
+dataclasses (they import nothing but the standard library) with all
+their validation, and ``ScenarioConfig.materialize_elastic`` is a copy
+of the JAX package's churn and straggler expansion, seeded the same
+way. ``ScenarioConfig`` has the same fields, so ``ScenarioConfig.load``
+reads a scenario file that ``p2pfl_tpu`` wrote. The combinations the
+JAX package refuses (the cross-device regime's, the aggregation
+sidecar's, lora's and secure aggregation's) raise the same
+``ValueError`` here, in the same order, before anything else is
+checked. The sections this port does not run yet (the sparse
+transport, and a ``param_dtype`` or ``compute_dtype`` other than
+float32 and bfloat16) are rejected in ``__post_init__`` with a
 ``NotImplementedError`` that names the ``ROADMAP.md`` item that ports
-them (``network`` stays a plain dict): a scenario the port would
-silently run differently never starts. The elastic section's
-socket-plane knobs (``min_received``, the heartbeat retry limit and
-backoff) are carried and ignored, as the JAX package's stacked
-``Scenario`` ignores them.
+them: a scenario the port would silently run differently never starts.
+The elastic section's socket-plane knobs (``min_received``, the
+heartbeat retry limit and backoff) are carried and ignored, as the JAX
+package's stacked ``Scenario`` ignores them.
 """
 
 from __future__ import annotations
@@ -91,6 +89,60 @@ class ProtocolConfig:
     gossip_period_s: float = 0.05
     gossip_fanout: int = 0
     send_queue_depth: int = 64
+
+
+@dataclasses.dataclass
+class PartitionSpec:
+    """One scheduled partition window on the shaped links: while it is
+    open, every message between two different ``groups`` is dropped (a
+    clean bisection, on top of the link's delay, loss and rate). Nodes
+    in no group are unaffected. Times are seconds from the shaper's
+    start (the federation's); ``jitter_s`` moves both edges by a draw
+    seeded from ``(NetworkConfig.seed, "partition", window index)``,
+    the same on every node, so the cut stays symmetric."""
+
+    start_s: float = 0.0
+    duration_s: float = 0.0
+    groups: list[list[int]] = dataclasses.field(default_factory=list)
+    jitter_s: float = 0.0
+
+    def __post_init__(self):
+        if self.duration_s < 0 or self.start_s < 0 or self.jitter_s < 0:
+            raise ValueError("partition times must be non-negative")
+        if len(self.groups) < 2:
+            raise ValueError(
+                "a partition needs >= 2 groups to sever anything"
+            )
+        seen: set[int] = set()
+        for g in self.groups:
+            for n in g:
+                if n in seen:
+                    raise ValueError(
+                        f"node {n} appears in two partition groups"
+                    )
+                seen.add(n)
+
+
+@dataclasses.dataclass
+class NetworkConfig:
+    """Seeded per-link emulation on the socket plane (``p2p/netem.py``):
+    delay, jitter, loss and rate, and the partition windows. All zero
+    and no window: no shaping."""
+
+    delay_ms: float = 0.0
+    jitter_ms: float = 0.0
+    loss_pct: float = 0.0
+    rate_mbps: float = 0.0  # link bandwidth; 0 = unlimited
+    seed: int = 0
+    partitions: list[PartitionSpec] = dataclasses.field(
+        default_factory=list)
+
+    def __post_init__(self):
+        # from_dict hands the windows over as plain dicts
+        self.partitions = [
+            p if isinstance(p, PartitionSpec) else PartitionSpec(**p)
+            for p in self.partitions
+        ]
 
 
 @dataclasses.dataclass
@@ -426,8 +478,7 @@ class ScenarioConfig:
     aggregator_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
     adversary: AdversaryConfig = dataclasses.field(
         default_factory=AdversaryConfig)
-    # a section this port does not run: a plain dict, checked below
-    network: dict[str, Any] = dataclasses.field(default_factory=dict)
+    network: NetworkConfig = dataclasses.field(default_factory=NetworkConfig)
     elastic: ElasticConfig = dataclasses.field(default_factory=ElasticConfig)
     cross_device: CrossDeviceConfig = dataclasses.field(
         default_factory=CrossDeviceConfig)
@@ -462,7 +513,7 @@ class ScenarioConfig:
                 f"unknown exchange_overlap {self.exchange_overlap!r}")
         if self.n_nodes < 1:
             raise ValueError("n_nodes must be >= 1")
-        self._refuse_cross_device_compositions()
+        self._refuse_compositions()
         self._reject_unported()
         if not self.nodes:
             self.nodes = self._default_nodes()
@@ -472,41 +523,118 @@ class ScenarioConfig:
             )
         self.materialize_elastic()
 
-    def _refuse_cross_device_compositions(self) -> None:
-        """The JAX schema's refusals of what the cohort-scan round has
-        no hook for, with the same type (``ValueError``), raised before
-        the port's own ``NotImplementedError`` checks so that a
-        combination the JAX package refuses is refused the same way."""
-        if not self.cross_device.active:
-            return
-        if self.adversary.active or self.adversary.reputation:
+    def _refuse_compositions(self) -> None:
+        """The JAX schema's refusals, in its order and with its type
+        (``ValueError``) and messages, raised before the port's own
+        ``NotImplementedError`` checks so that a combination the JAX
+        package refuses is refused the same way."""
+        if self.cross_device.active:
+            if self.adversary.active or self.adversary.reputation:
+                raise ValueError(
+                    "cross_device composes with no adversary/reputation "
+                    "config yet: sampled clients are stateless rows, so "
+                    "there is no per-node trust or poisoning hook"
+                )
+            if self.exchange_overlap != "off":
+                raise ValueError(
+                    "cross_device requires exchange_overlap='off': a "
+                    "sampled cohort has no previous-round buffer to ship"
+                )
+            if self.transport == "sparse":
+                raise ValueError(
+                    "cross_device uses the cohort-scan round, not the "
+                    "ppermute transport; leave transport 'auto'/'dense'"
+                )
+        if self.aggregation_plane not in ("inline", "sidecar"):
             raise ValueError(
-                "cross_device composes with no adversary/reputation "
-                "config yet: sampled clients are stateless rows, so "
-                "there is no per-node trust or poisoning hook"
-            )
-        if self.exchange_overlap != "off":
-            raise ValueError(
-                "cross_device requires exchange_overlap='off': a "
-                "sampled cohort has no previous-round buffer to ship"
-            )
-        if self.transport == "sparse":
-            raise ValueError(
-                "cross_device uses the cohort-scan round, not the "
-                "ppermute transport; leave transport 'auto'/'dense'"
+                f"unknown aggregation_plane {self.aggregation_plane!r}; "
+                "have ('inline', 'sidecar')"
             )
         if self.aggregation_plane == "sidecar":
-            raise ValueError(
-                "aggregation_plane='sidecar' is a socket-plane "
-                "feature; cross_device runs the cohort-scan round"
-            )
+            # the sidecar fuses from the frame header's metadata and the
+            # slots' raw bytes: every combination that needs payloads
+            # decoded on the node is refused
+            if self.aggregator != "fedavg":
+                raise ValueError(
+                    "aggregation_plane='sidecar' implements weighted "
+                    "FedAvg only; use aggregator='fedavg'"
+                )
+            if self.federation != "DFL":
+                raise ValueError(
+                    "aggregation_plane='sidecar' supports DFL only: "
+                    "CFL/SDFL leader hand-off re-enters partials the "
+                    "slot plane has no bookkeeping for"
+                )
+            if self.topology != "fully":
+                raise ValueError(
+                    "aggregation_plane='sidecar' requires "
+                    "topology='fully': partial-aggregation gossip on "
+                    "sparse meshes needs decoded trees on the node"
+                )
+            if self.encrypt:
+                raise ValueError(
+                    "aggregation_plane='sidecar' composes with "
+                    "encrypt=False only: TLS frames are decrypted in "
+                    "the event loop, defeating the zero-touch ingest"
+                )
+            if self.adversary.active or self.adversary.reputation:
+                raise ValueError(
+                    "aggregation_plane='sidecar' has no adversary/"
+                    "reputation hooks: observe_entries needs decoded "
+                    "trees on the node"
+                )
+            if self.cross_device.active:
+                raise ValueError(
+                    "aggregation_plane='sidecar' is a socket-plane "
+                    "feature; cross_device runs the cohort-scan round"
+                )
         if self.lora.active:
-            raise ValueError(
-                "lora is not wired into the cross_device "
-                "cohort-scan round yet: it would silently train "
-                "full weights while the scenario says adapters"
-            )
-        if self.privacy.active:
+            if self.aggregation_plane == "sidecar":
+                raise ValueError(
+                    "lora composes with aggregation_plane='inline' "
+                    "only for now: the sidecar fuses raw slot bytes "
+                    "against full-weight expectations and would "
+                    "silently aggregate adapter envelopes as if they "
+                    "were full models"
+                )
+            if self.cross_device.active:
+                raise ValueError(
+                    "lora is not wired into the cross_device "
+                    "cohort-scan round yet: it would silently train "
+                    "full weights while the scenario says adapters"
+                )
+        if self.privacy.secagg:
+            # masked updates are uniform noise until the quorum sum
+            # closes: every plane that reads individual updates is
+            # refused
+            if self.adversary.reputation:
+                raise ValueError(
+                    "privacy.secagg composes with reputation=False "
+                    "only: cosine-similarity scoring needs raw "
+                    "per-client updates, which masking makes "
+                    "indistinguishable from uniform noise"
+                )
+            if self.aggregation_plane == "sidecar":
+                raise ValueError(
+                    "privacy.secagg requires aggregation_plane="
+                    "'inline': the sidecar's raw-slot FedAvg kernel "
+                    "fuses float payloads and cannot run the modular "
+                    "uint64 sum masks cancel in"
+                )
+            if self.wire_dtype != "f32":
+                raise ValueError(
+                    "privacy.secagg requires wire_dtype='f32': masked "
+                    "payloads are exact uint64 ring elements — lossy "
+                    "wire quantization would break mask cancellation"
+                )
+            if self.elastic.async_aggregation:
+                raise ValueError(
+                    "privacy.secagg requires elastic.async_aggregation"
+                    "=False: stale entries re-enter rounds their masks "
+                    "were not derived for, so the pairwise terms would "
+                    "not cancel"
+                )
+        if self.privacy.active and self.cross_device.active:
             raise ValueError(
                 "privacy is not wired into the cross_device cohort-"
                 "scan round yet: sampled clients are stateless rows "
@@ -515,29 +643,8 @@ class ScenarioConfig:
             )
 
     def _reject_unported(self) -> None:
-        if self.lora.active and self.aggregation_plane == "sidecar":
-            # the JAX schema's refusal, raised as there, before the
-            # port's own refusal of the socket plane below
-            raise ValueError(
-                "lora composes with aggregation_plane='inline' "
-                "only for now: the sidecar fuses raw slot bytes "
-                "against full-weight expectations and would "
-                "silently aggregate adapter envelopes as if they "
-                "were full models")
-        if self.privacy.secagg:
-            # the JAX package's stacked Scenario refuses it too: the
-            # pairwise masks ride the socket plane's PARAMS wire
-            raise _unported("privacy.secagg (a socket-plane feature)",
-                            "A22c")
         if self.transport == "sparse":
             raise _unported("transport='sparse'", "A12")
-        net = self.network
-        if (self.aggregation_plane != "inline" or self.encrypt
-                or any(net.get(k) for k in ("delay_ms", "jitter_ms",
-                                            "loss_pct", "rate_mbps",
-                                            "partitions"))):
-            raise _unported(
-                "the socket plane's link shaping, sidecar and TLS", "A22c")
         # the kernels take f32 and bf16 (float16 is the rest of A19)
         for knob in ("param_dtype", "compute_dtype"):
             value = getattr(self.model, knob)
@@ -610,6 +717,7 @@ class ScenarioConfig:
             ("model", ModelConfig),
             ("training", TrainingConfig),
             ("protocol", ProtocolConfig),
+            ("network", NetworkConfig),
             ("adversary", AdversaryConfig),
             ("elastic", ElasticConfig),
             ("cross_device", CrossDeviceConfig),

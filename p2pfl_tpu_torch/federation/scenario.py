@@ -194,6 +194,14 @@ class Scenario(Observable):
                 "live row per node; use CrossDeviceScenario for the "
                 "sampled K-of-N regime"
             )
+        if config.privacy.secagg:
+            # the stacked round has no per-pair wire to mask
+            raise ValueError(
+                "privacy.secagg is a socket-plane feature (pairwise "
+                "masks ride the PARAMS wire); the SPMD Scenario shares "
+                "one device array and has nothing to mask — run the "
+                "socket plane (p2p.launch) instead"
+            )
         self.device = _resolve(device)
         self.config = config
         n = config.n_nodes

@@ -10,7 +10,12 @@ The counterpart of ``p2pfl_tpu/p2p``, on the same wire:
   gossip, heartbeats, the round state machine) whose learner trains on
   the card (``learning.learner.TorchLearner``);
 - ``launch``: ``run_simulation`` (every node in one event loop) and the
-  multi-process launcher, ``python -m p2pfl_tpu_torch.p2p.launch``.
+  multi-process launcher, ``python -m p2pfl_tpu_torch.p2p.launch``;
+- the transport layers, each off unless a scenario asks for it:
+  ``tls`` (mutual TLS and origin signatures; needs ``cryptography``,
+  imported only then), ``netem`` (seeded link shaping and partition
+  windows) and ``aggd`` (the aggregation sidecar: a worker process that
+  decodes and fuses the payloads in a shared-memory arena).
 """
 
 from p2pfl_tpu_torch.p2p.protocol import (

@@ -15,9 +15,18 @@ wall time, seconds a round, mean final accuracy and wire bytes.
 Nodes train on the card unless ``--platform cpu`` (children inherit
 the platform) or ``device="cpu"`` asks for the CPU; every node of a
 process shares its device. A child whose node fails exits non-zero and
-``launch`` raises. ``--tls-dir`` is A22c; ``--max-restarts`` and
-``--resume`` are A22d, as are faults, attacks, reputation, DP, async
-aggregation and node checkpoints in the scenario.
+``launch`` raises.
+
+The scenario's transport and privacy layers reach every node: its
+``network`` shaping and partition windows, ``privacy.secagg`` (pair
+secrets by ECDH over the scenario's certificates where there are any,
+else from the seed), ``aggregation_plane="sidecar"`` (one
+``aggd.SidecarClient`` a process) and ``encrypt``: ``launch`` mints a
+scenario CA and the nodes' certificates in ``tls/`` beside the config
+and hands the children ``--tls-dir``; ``run_simulation`` mints them in
+a temporary directory. ``--max-restarts`` and ``--resume`` are A22d, as
+are faults, attacks, reputation, DP, async aggregation and node
+checkpoints in the scenario.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import pathlib
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -41,6 +51,7 @@ from p2pfl_tpu_torch.device import resolve_device
 from p2pfl_tpu_torch.learning.learner import SharedTrainer, TorchLearner
 from p2pfl_tpu_torch.learning.lora import maybe_wrap_lora
 from p2pfl_tpu_torch.models.base import build_model
+from p2pfl_tpu_torch.p2p.aggd import SidecarClient
 from p2pfl_tpu_torch.p2p.node import P2PNode
 from p2pfl_tpu_torch.topology.topology import generate_topology
 from p2pfl_tpu_torch.utils.monitor import publish_status
@@ -48,8 +59,7 @@ from p2pfl_tpu_torch.utils.monitor import publish_status
 
 def _refuse_unported(cfg: ScenarioConfig) -> None:
     """What the scenario asks of the socket plane that this port does not
-    run yet (the schema already refuses shaping, the sidecar, TLS and
-    secure aggregation, naming A22c)."""
+    run yet."""
     adv, el = cfg.adversary, cfg.elastic
     for given, what in (
         (bool(cfg.faults), "scripted faults and churn on the socket plane"),
@@ -64,9 +74,67 @@ def _refuse_unported(cfg: ScenarioConfig) -> None:
 
 
 def _declares_full_mesh(cfg: ScenarioConfig) -> bool:
-    """A fully connected topology (link shaping is refused): every pair
-    of nodes holds a direct link."""
-    return cfg.topology == "fully"
+    """True when every pair of nodes holds a healthy direct link: a
+    fully connected topology with no shaping and no partition window
+    (the damped relays are the repair path of a degraded link)."""
+    net = cfg.network
+    return cfg.topology == "fully" and not (
+        net.loss_pct or net.delay_ms or net.jitter_ms or net.rate_mbps
+        or net.partitions)
+
+
+def _tls_pair_secrets(tls_dir: str | None, idx: int,
+                      n: int) -> dict[int, bytes] | None:
+    """Secure aggregation's pair secrets by ECDH over the scenario's
+    certificates, or None (the seeded secrets) without a TLS directory.
+    A TLS directory without ``cryptography`` raises: TLS itself could
+    not run."""
+    if not tls_dir:
+        return None
+    from cryptography import x509
+    from cryptography.hazmat.primitives import serialization
+
+    from p2pfl_tpu_torch.privacy.secagg import pair_secrets_from_tls
+
+    d = pathlib.Path(tls_dir)
+    key_path = d / f"node{idx}.key"
+    if not key_path.exists():
+        return None
+    private_key = serialization.load_pem_private_key(
+        key_path.read_bytes(), password=None)
+    peer_certs = {}
+    for j in range(n):
+        cert_path = d / f"node{j}.crt"
+        if j != idx and cert_path.exists():
+            peer_certs[j] = x509.load_pem_x509_certificate(
+                cert_path.read_bytes())
+    return pair_secrets_from_tls(idx, private_key, peer_certs)
+
+
+def _node_layers(cfg: ScenarioConfig, idx: int,
+                 tls_dir: str | None = None) -> dict:
+    """Node ``idx``'s ``tls`` and ``masker`` from the config (and the
+    TLS directory) alone, so every process derives the same secrets."""
+    out: dict = {}
+    if tls_dir:
+        from p2pfl_tpu_torch.p2p.tls import load_node_credentials
+
+        out["tls"] = load_node_credentials(tls_dir, idx)
+    if cfg.privacy.secagg:
+        from p2pfl_tpu_torch.privacy.secagg import PairwiseMasker
+
+        out["masker"] = PairwiseMasker(
+            idx, root_seed=cfg.seed, bits=cfg.privacy.secagg_bits,
+            pair_secrets=_tls_pair_secrets(tls_dir, idx, cfg.n_nodes))
+    return out
+
+
+def _mint_credentials(cfg: ScenarioConfig, directory) -> str:
+    """The scenario CA and one certificate a node, in ``directory``."""
+    from p2pfl_tpu_torch.p2p.tls import make_scenario_credentials
+
+    make_scenario_credentials(directory, cfg.n_nodes, name=cfg.name)
+    return str(directory)
 
 
 def _shared_trainer(cfg: ScenarioConfig, data: FederatedDataset,
@@ -92,7 +160,20 @@ def _node(cfg: ScenarioConfig, i: int, data: FederatedDataset,
         protocol=cfg.protocol, federation=cfg.federation, seed=cfg.seed,
         full_mesh=_declares_full_mesh(cfg), wire_dtype=cfg.wire_dtype,
         elastic=cfg.elastic, fit_slowdown=cfg.nodes[i].fit_slowdown,
-        local_epochs=cfg.nodes[i].epochs, **kw)
+        local_epochs=cfg.nodes[i].epochs, netem=cfg.network, **kw)
+
+
+def _aggd_status(client: SidecarClient | None) -> dict:
+    """The sidecar's gauges for a status record: the descriptor queue's
+    depth against the slot releases (what a stalled sidecar shows), and
+    the bytes landed in the arena."""
+    if client is None:
+        return {}
+    return {
+        "aggd_desc_q_depth": client.queue_depth(),
+        "aggd_slot_releases": client.slot_releases,
+        "aggd_bytes_ingested": client.bytes_ingested,
+    }
 
 
 def _status(node: P2PNode) -> dict:
@@ -102,7 +183,7 @@ def _status(node: P2PNode) -> dict:
             "bytes_in": node.bytes_in, "bytes_out": node.bytes_out,
             "peer_bytes_in": dict(node.peer_bytes_in),
             "peer_bytes_out": dict(node.peer_bytes_out),
-            "recompiles": 0}
+            "recompiles": 0, **_aggd_status(node.sidecar)}
 
 
 def _status_dir(cfg: ScenarioConfig) -> pathlib.Path | None:
@@ -137,11 +218,13 @@ def _device_name(device: torch.device) -> str:
 async def _run_node(cfg: ScenarioConfig, idx: int, ports: list[int],
                     data: FederatedDataset, shared: SharedTrainer,
                     device: torch.device, hosts: list[str] | None = None,
-                    bind: str = "127.0.0.1") -> dict:
+                    bind: str = "127.0.0.1", tls_dir: str | None = None,
+                    sidecar: SidecarClient | None = None) -> dict:
     """One node's whole life in a child process."""
     n = cfg.n_nodes
     hosts = hosts or ["127.0.0.1"] * n
-    node = _node(cfg, idx, data, shared, device, host=bind, port=ports[idx])
+    node = _node(cfg, idx, data, shared, device, host=bind, port=ports[idx],
+                 sidecar=sidecar, **_node_layers(cfg, idx, tls_dir))
     learner = node.learner
     await node.start()
     topo = generate_topology(cfg.topology, n, **cfg.topology_kwargs)
@@ -199,9 +282,28 @@ async def _run_node(cfg: ScenarioConfig, idx: int, ports: list[int],
     return result
 
 
+def _sidecar_for(cfg: ScenarioConfig, n_local: int) -> SidecarClient | None:
+    """One sidecar for the process's ``n_local`` nodes: each session
+    holds up to ``n_nodes`` slots a round plus its result slot, and 8
+    more for reads in flight (a full arena falls back to blob entries,
+    never to other arithmetic)."""
+    if cfg.aggregation_plane != "sidecar":
+        return None
+    return SidecarClient(n_slots=n_local * (cfg.n_nodes + 2) + 8)
+
+
+def _sidecar_result(client: SidecarClient | None) -> dict:
+    if client is None:
+        return {}
+    return {"aggd_bytes_ingested": client.bytes_ingested,
+            "aggd_fused_rounds": client.fused_rounds,
+            "aggd_fallbacks": client.fallbacks}
+
+
 def node_main(config_path: str, idx: int | list[int], ports: list[int],
               hosts: list[str] | None = None, bind: str = "127.0.0.1",
-              device: torch.device | str = "cuda") -> None:
+              device: torch.device | str = "cuda",
+              tls_dir: str | None = None) -> None:
     """A child process: the nodes ``idx`` (one or a list) on one event
     loop, one ``P2PFL_RESULT`` line each."""
     idxs = [idx] if isinstance(idx, int) else list(idx)
@@ -210,24 +312,35 @@ def node_main(config_path: str, idx: int | list[int], ports: list[int],
     dev = resolve_device(device)
     data = FederatedDataset.make(cfg.data, cfg.n_nodes)  # the same shards
     shared = _shared_trainer(cfg, data, dev)
+    sidecar = _sidecar_for(cfg, len(idxs))
 
     async def _run_all() -> list[dict]:
         return list(await asyncio.gather(*(
             _run_node(cfg, i, ports, data, shared, dev, hosts=hosts,
-                      bind=bind) for i in idxs)))
+                      bind=bind, tls_dir=tls_dir, sidecar=sidecar)
+            for i in idxs)))
 
-    for result in asyncio.run(_run_all()):
+    try:
+        results = asyncio.run(_run_all())
+    finally:
+        if sidecar is not None:
+            sidecar.close()
+    for result in results:
+        result.update(_sidecar_result(sidecar))
         print("P2PFL_RESULT " + json.dumps(result), flush=True)
 
 
 async def _simulate(cfg: ScenarioConfig, timeout: float,
-                    device: torch.device, nodes: list) -> dict:
+                    device: torch.device, nodes: list,
+                    tls_dir: str | None,
+                    sidecar: SidecarClient | None) -> dict:
     _refuse_unported(cfg)
     n = cfg.n_nodes
     data = FederatedDataset.make(cfg.data, n)
     topo = generate_topology(cfg.topology, n, **cfg.topology_kwargs)
     shared = _shared_trainer(cfg, data, device)
-    nodes.extend(_node(cfg, i, data, shared, device) for i in range(n))
+    nodes.extend(_node(cfg, i, data, shared, device, sidecar=sidecar,
+                       **_node_layers(cfg, i, tls_dir)) for i in range(n))
     for node in nodes:
         await node.start()
     for i in range(n):
@@ -283,18 +396,32 @@ async def _simulate(cfg: ScenarioConfig, timeout: float,
         "params_bytes_out": sum(nd.params_bytes_out for nd in nodes),
         "loop_payload_touch_bytes": sum(
             nd.loop_payload_touch_bytes for nd in nodes),
+        **_sidecar_result(sidecar),
     }
 
 
 def run_simulation(cfg: ScenarioConfig, timeout: float = 600,
                    device: torch.device | str = "cuda",
-                   nodes_out: list | None = None) -> dict:
+                   nodes_out: list | None = None,
+                   sidecar_out: list | None = None) -> dict:
     """Every node of a socket federation in one process and event loop
-    (loopback TCP), sharing one model and step functions. ``nodes_out``,
-    a list, gets the ``P2PNode``s (their learners hold the final
-    state)."""
+    (loopback TCP), sharing one model and step functions, and one
+    sidecar when the scenario asks for it (closed at the end; its
+    counters are in the result). ``nodes_out``, a list, gets the
+    ``P2PNode``s (their learners hold the final state), ``sidecar_out``
+    the ``SidecarClient``."""
     nodes = nodes_out if nodes_out is not None else []
-    return asyncio.run(_simulate(cfg, timeout, resolve_device(device), nodes))
+    sidecar = _sidecar_for(cfg, cfg.n_nodes)
+    if sidecar is not None and sidecar_out is not None:
+        sidecar_out.append(sidecar)
+    try:
+        with tempfile.TemporaryDirectory(prefix="p2pfl_tls_") as d:
+            tls_dir = _mint_credentials(cfg, d) if cfg.encrypt else None
+            return asyncio.run(_simulate(cfg, timeout, resolve_device(device),
+                                         nodes, tls_dir, sidecar))
+    finally:
+        if sidecar is not None:
+            sidecar.close()
 
 
 def launch(cfg: ScenarioConfig, config_path: str | pathlib.Path,
@@ -304,10 +431,12 @@ def launch(cfg: ScenarioConfig, config_path: str | pathlib.Path,
     collect their results; raises if a child fails."""
     if max_restarts > 0:
         raise _unported("restarting node processes (--max-restarts)", "A22d")
-    if cfg.encrypt:
-        raise _unported("mutual TLS on the socket plane", "A22c")
     _refuse_unported(cfg)
     ports = _free_ports(cfg.n_nodes)
+    tls_dir = None
+    if cfg.encrypt:
+        tls_dir = _mint_credentials(
+            cfg, pathlib.Path(config_path).resolve().parent / "tls")
     k = max(int(nodes_per_proc), 1)
     groups = [list(range(i, min(i + k, cfg.n_nodes)))
               for i in range(0, cfg.n_nodes, k)]
@@ -322,6 +451,8 @@ def launch(cfg: ScenarioConfig, config_path: str | pathlib.Path,
                "--ports", ",".join(map(str, ports))]
         if platform:
             cmd += ["--platform", platform]
+        if tls_dir:
+            cmd += ["--tls-dir", tls_dir]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True,
                                       env=env))
@@ -361,7 +492,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--platform", default=None, choices=("cpu", "cuda"),
                     help="run on the CPU (the card is the default); "
                          "children inherit it")
-    ap.add_argument("--tls-dir", default=None, help="A22c: not ported")
+    ap.add_argument("--tls-dir", default=None,
+                    help="child mode: the scenario's CA and node "
+                         "certificates (mutual TLS; needs cryptography)")
     ap.add_argument("--hosts", default=None,
                     help="comma-separated per-node hostnames (child mode)")
     ap.add_argument("--bind", default="127.0.0.1",
@@ -370,8 +503,6 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--max-restarts", type=int, default=0,
                     help="A22d: not ported")
     args = ap.parse_args(argv)
-    if args.tls_dir:
-        raise _unported("mutual TLS on the socket plane (--tls-dir)", "A22c")
     if args.resume:
         raise _unported("resuming a node (--resume)", "A22d")
     device = args.platform or "cuda"
@@ -383,7 +514,7 @@ def main(argv: list[str] | None = None) -> int:
         node_main(args.config, [int(i) for i in str(args.node).split(",")],
                   [int(p) for p in args.ports.split(",")],
                   hosts=args.hosts.split(",") if args.hosts else None,
-                  bind=args.bind, device=device)
+                  bind=args.bind, device=device, tls_dir=args.tls_dir)
         return 0
     cfg = ScenarioConfig.load(args.config)
     results = launch(cfg, args.config, platform=args.platform,

@@ -19,13 +19,32 @@ frames, P2TP envelopes), so a fleet may mix the two packages' nodes:
   CFL and SDFL with the leadership token's transfer; int8's error
   feedback on the node's own update; the final METRICS flood.
 
+The transport and privacy layers, each off unless asked for:
+
+- ``tls`` (``p2p/tls.py``): mutual TLS on the listener and every dial,
+  the hello's index bound to the connection's certificate, every frame
+  this node originates signed and every frame received verified against
+  its origin (a forged or unverifiable frame is neither handled nor
+  relayed, nor marked seen);
+- ``netem`` (a ``NetworkConfig``, ``p2p/netem.py``): every send goes
+  through the link shaper (delay, jitter, loss, rate, partition windows,
+  whose edges reach membership as partition and heal faults);
+  ``apply_partition`` / ``heal_partition`` cut and heal links by hand;
+- ``sidecar`` (``p2p/aggd.py``): PARAMS payloads land in the sidecar's
+  shared-memory arena and the session (``SidecarSession``) has the
+  worker fuse them, so the round path decodes no payload on the loop
+  (``loop_payload_touch_bytes`` stays 0);
+- ``masker`` (``privacy/secagg.py``): this node's update is quantized
+  and pairwise-masked before it enters its session or the wire, and an
+  evicted member's pair seed is revealed (SECAGG_SHARE) so the quorum
+  can unmask without it.
+
 Fit and evaluate run in the loop's executor, so heartbeats keep flowing
 while a node trains; a fit or an evaluation that raises fails the node
-(``error`` set, ``finished`` set) and the launcher raises. TLS, link
-shaping, the aggregation sidecar, secure aggregation and partitions
-are ROADMAP A22c; attacks, reputation, DP, async aggregation, the live
-join (STATE_SYNC) and node checkpoints are A22d: each raises naming its
-item. Trace spans and flight events are A23 and are left out.
+(``error`` set, ``finished`` set) and the launcher raises. Attacks,
+reputation, DP, async aggregation, the live join (STATE_SYNC) and node
+checkpoints are A22d: each raises naming its item. Trace spans and
+flight events are A23 and are left out.
 """
 
 from __future__ import annotations
@@ -69,14 +88,14 @@ from p2pfl_tpu_torch.p2p.protocol import (
     read_message,
     write_message,
 )
-from p2pfl_tpu_torch.p2p.session import AggregationSession
+from p2pfl_tpu_torch.p2p.netem import shaper_from_config
+from p2pfl_tpu_torch.p2p.session import AggregationSession, SidecarSession
 
 log = logging.getLogger("p2pfl_tpu_torch.p2p")
 
 #: transport-buffer ceiling of the idle-lane fast write (asyncio's
 #: default 64 KiB high-water mark)
 _FAST_LANE_MAX = 1 << 16
-_SHAPING = ("delay_ms", "jitter_ms", "loss_pct", "rate_mbps", "partitions")
 
 
 @dataclasses.dataclass
@@ -109,14 +128,6 @@ class NodeProgress:
     agg_round: int = -1
     initialized: bool = False
     ready_round: int = -1
-
-
-def _shaped(netem) -> bool:
-    if netem is None:
-        return False
-    get = (netem.get if isinstance(netem, dict)
-           else lambda k: getattr(netem, k, None))
-    return any(get(k) for k in _SHAPING)
 
 
 class P2PNode:
@@ -153,10 +164,6 @@ class P2PNode:
     ):
         el = elastic if elastic is not None else ElasticConfig()
         for given, what, item in (
-            (tls is not None, "mutual TLS on the socket plane", "A22c"),
-            (_shaped(netem), "link shaping (netem) and partitions", "A22c"),
-            (sidecar is not None, "the aggregation sidecar", "A22c"),
-            (masker is not None, "secure aggregation (the masker)", "A22c"),
             (attack is not None, "attacks on the socket plane", "A22d"),
             (reputation is not None, "reputation on the socket plane",
              "A22d"),
@@ -172,6 +179,13 @@ class P2PNode:
         if wire_dtype not in WIRE_DTYPES:
             raise ValueError(
                 f"unknown wire_dtype {wire_dtype!r}; have {WIRE_DTYPES}")
+        if sidecar is not None and masker is not None:
+            # the schema refuses it; a direct caller too: the sidecar
+            # float-averages slot bytes, not the masks' modular sum
+            raise ValueError(
+                "secagg masking needs the inline session: the sidecar "
+                "fuses raw slot bytes as floats, not the modular sum"
+            )
         self.idx = idx
         self.learner = learner
         self.host = host
@@ -186,6 +200,23 @@ class P2PNode:
         # relays are damped, the origin's broadcast reached everyone
         self.full_mesh = full_mesh
         self._rng = random.Random(seed * 7919 + idx)
+        # mutual TLS: this node signs what it originates and verifies
+        # every origin (``cryptography`` is imported here only)
+        self.tls = tls
+        self._signer = self._verifier = None
+        if tls is not None:
+            from p2pfl_tpu_torch.p2p.tls import MessageSigner, MessageVerifier
+
+            self._signer = MessageSigner(tls)
+            self._verifier = MessageVerifier(tls.ca_cert)
+        # the link shaper (None unshaped: sends are direct writes)
+        self.shaper = shaper_from_config(
+            idx, netem, on_error=self._drop_conn,
+            on_transition=self._on_netem_transition, on_sent=self._count_tx)
+        # peers behind a cut applied by hand: frames to them are dropped
+        # at the write (every node applies the same cut: symmetric)
+        self._severed: set[int] = set()
+        self.masker = masker
         self.wire_dtype = wire_dtype
         self._peer_wire: dict[int, tuple[str, ...]] = {}
         # int8 error feedback: the quantization error of this node's
@@ -200,10 +231,19 @@ class P2PNode:
         self.fit_slowdown = float(fit_slowdown)
         self.local_epochs = local_epochs
         self._peer_addrs: dict[int, tuple[str, int]] = {}
-        #: payload bytes the round path decoded on the loop
+        #: payload bytes the round path decoded on the loop (0 with the
+        #: sidecar: its payloads stay in the arena)
         self.loop_payload_touch_bytes = 0
-        self.session = AggregationSession(
-            aggregator, timeout_s=self.protocol.aggregation_timeout_s)
+        #: the host's ``aggd.SidecarClient``, shared by the process's nodes
+        self.sidecar = sidecar
+        if sidecar is not None:
+            self.session: AggregationSession = SidecarSession(
+                aggregator, timeout_s=self.protocol.aggregation_timeout_s,
+                client=sidecar, spawn=self._track_task)
+        else:
+            self.session = AggregationSession(
+                aggregator, timeout_s=self.protocol.aggregation_timeout_s,
+                masker=masker)
         self.membership = Membership(
             n_nodes, self.protocol, virtual=False,
             retry_limit=el.heartbeat_retry_limit,
@@ -228,6 +268,11 @@ class P2PNode:
         # body: replayed when the round body reaches them
         self._pending_params: list[tuple[PeerState, Message]] = []
         self._beat_seen: dict[int, int] = {}
+        # the START_LEARNING frame this node started from, and the nodes
+        # seen in a round (a vote, progress or an aggregate): direct peers
+        # not seen get the frame again (``_resend_start``)
+        self._start_msg: Message | None = None
+        self._peers_learning: set[int] = set()
         self._round_active = False
         self.learn_t0: float | None = None
         self.learn_t1: float | None = None
@@ -259,9 +304,13 @@ class P2PNode:
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
-            self._on_connection, self.host, self.port)
+            self._on_connection, self.host, self.port,
+            ssl=self.tls.server_context() if self.tls else None)
         self.port = self._server.sockets[0].getsockname()[1]
         self.membership.beat(self.idx, 0.0)
+        if self.shaper is not None:
+            # the partition plan's time 0 is the node's start
+            self.shaper.start_clock()
         self._track_task(self._heartbeat_loop(), "heartbeat_loop")
 
     async def _cancel_all(self) -> None:
@@ -270,6 +319,8 @@ class P2PNode:
                 t.cancel()
                 with contextlib.suppress(asyncio.CancelledError):
                     await t
+        if self.shaper is not None:
+            self.shaper.close()  # shaped frames in flight are lost
         for peer in list(self.peers.values()):
             self._flush(peer)
             for t in (peer.send_task, peer.reader_task):
@@ -279,16 +330,68 @@ class P2PNode:
                         await t
             peer.writer.close()
 
+    def _release_slot_refs(self) -> None:
+        """Return every arena slot this node still holds (buffered
+        messages of a later round, the session's entries) to the
+        sidecar: a stopped node must not strand the shared arena's
+        slots."""
+        if self.sidecar is None:
+            return
+        for _peer, msg in self._pending_params:
+            if msg._slot is not None:
+                self.sidecar.release(msg._slot)
+                msg._slot = None
+        self.session.release_entries()
+
+    # ------------------------------------------------------------------
+    # partitions
+    # ------------------------------------------------------------------
     def apply_partition(self, groups: list) -> None:
-        raise _unported("partitions on the socket plane", "A22c")
+        """Sever every link across the ``groups`` cut, as seen from this
+        node: frames to peers of other groups are dropped at the write.
+        Applied on every node, the cut is symmetric; a node in no group
+        is unaffected. Membership sees a partition fault. (The fault
+        driver that applies cuts on a schedule is A22d.)"""
+        mine = next((g for g in groups if self.idx in g), None)
+        if mine is None:
+            return
+        others = {int(n) for g in groups if g is not mine for n in g}
+        self._severed |= others - {self.idx}
+        self.membership.apply_fault(
+            FaultEvent(node=self.idx, kind="partition", groups=groups))
 
     def heal_partition(self) -> None:
-        raise _unported("partitions on the socket plane", "A22c")
+        """Reconnect every cut applied by hand and grant the evicted an
+        amnesty: membership re-arms a probe of each, the probes redial
+        and the first beat brings the peer back."""
+        if not self._severed:
+            return
+        self._severed.clear()
+        self.membership.apply_fault(FaultEvent(node=self.idx, kind="heal"))
+
+    def _on_netem_transition(self, kind: str, groups: list) -> None:
+        """A shaper window's edge: the shaper drops the frames, so only
+        membership hears of a partition; a heal also clears the cuts
+        applied by hand and grants the amnesty."""
+        if kind == "partition":
+            self.membership.apply_fault(
+                FaultEvent(node=self.idx, kind="partition", groups=groups))
+        else:
+            self._severed.clear()
+            self.membership.apply_fault(
+                FaultEvent(node=self.idx, kind="heal"))
+
+    def _link_severed(self, node: int) -> bool:
+        """True while a cut (by hand or a shaper window) separates this
+        node from ``node``."""
+        if node in self._severed:
+            return True
+        return self.shaper is not None and self.shaper.severed_now(node)
 
     async def stop(self) -> None:
         # announce the departure (per peer, bounded, concurrently) so
         # peers drop this node at once instead of timing it out
-        stop_msg = Message(MsgType.STOP, self.idx)
+        stop_msg = self._sign(Message(MsgType.STOP, self.idx))
         self.dedup.check_and_add(stop_msg.msg_id)
 
         async def announce(peer: PeerState) -> None:
@@ -306,6 +409,7 @@ class P2PNode:
         self.peers.clear()
         if self._server:
             self._server.close()
+        self._release_slot_refs()
 
     # ------------------------------------------------------------------
     # connections
@@ -315,12 +419,37 @@ class P2PNode:
         node decodes."""
         return {"port": self.port, "wd": list(WIRE_DTYPES)}
 
+    def _hello_ok(self, hello: Message, writer) -> bool:
+        """Under TLS the index a hello claims must be the connection
+        certificate's (else member A could register a connection as
+        B), and the hello's own signature must verify."""
+        if self.tls is None:
+            return True
+        from p2pfl_tpu_torch.p2p.tls import peer_index
+
+        cert_idx = peer_index(writer.get_extra_info("peercert"))
+        if (cert_idx is not None and cert_idx == int(hello.sender)
+                and self._verify_origin(hello)):
+            return True
+        log.warning("node %d rejecting CONNECT: hello claims %s but "
+                    "certificate CN says %s", self.idx, hello.sender,
+                    cert_idx)
+        return False
+
     async def connect_to(self, host: str, port: int) -> None:
         """Dial a neighbour."""
-        reader, writer = await asyncio.open_connection(host, port)
-        await write_message(
-            writer, Message(MsgType.CONNECT, self.idx, self._hello_body()))
-        hello = await read_message(reader)
+        reader, writer = await asyncio.open_connection(
+            host, port, ssl=self.tls.client_context() if self.tls else None)
+        try:
+            await write_message(writer, self._sign(
+                Message(MsgType.CONNECT, self.idx, self._hello_body())))
+            hello = await read_message(reader)
+        except BaseException:
+            writer.close()  # a refused handshake leaves no open socket
+            raise
+        if not self._hello_ok(hello, writer):
+            writer.close()
+            raise ConnectionError("peer hello does not match its certificate")
         self._record_peer_wire(hello)
         peer = self._register_peer(int(hello.sender), reader, writer)
         self._on_hello_extras(peer, hello, host=host)
@@ -331,11 +460,12 @@ class P2PNode:
         except (asyncio.IncompleteReadError, ValueError):
             writer.close()
             return
-        if hello.type is not MsgType.CONNECT:
+        if hello.type is not MsgType.CONNECT or not self._hello_ok(
+                hello, writer):
             writer.close()
             return
-        await write_message(
-            writer, Message(MsgType.CONNECT, self.idx, self._hello_body()))
+        await write_message(writer, self._sign(
+            Message(MsgType.CONNECT, self.idx, self._hello_body())))
         self._record_peer_wire(hello)
         peer = self._register_peer(int(hello.sender), reader, writer)
         self._on_hello_extras(peer, hello)
@@ -379,6 +509,7 @@ class P2PNode:
         if we have it, the model."""
 
         async def send(msg: Message) -> None:
+            self._sign(msg)
             self.dedup.check_and_add(msg.msg_id)
             await self._write(peer, msg)
 
@@ -429,6 +560,26 @@ class P2PNode:
         conn = self.peers.pop(node, None)
         if conn is not None:
             self._teardown_conn(conn)
+        self._secagg_on_evict(node)
+
+    def _secagg_on_evict(self, node: int) -> None:
+        """Dropout recovery: note the eviction, and flood this node's
+        round seed against the evicted member, so every aggregator can
+        rebuild the dead pairs' mask streams (it unmasks nothing of a
+        survivor)."""
+        if (self.masker is None
+                or self.masker.round_num is None
+                or node not in self.masker.members
+                or node in self.masker.evicted):
+            return
+        self.masker.note_evicted(node)
+        seed = self.masker.reveal_share(node)
+        self._track_task(
+            self.broadcast(Message(
+                MsgType.SECAGG_SHARE, self.idx,
+                {"dead": int(node), "round": int(self.masker.round_num),
+                 "seed": int(seed)})),
+            "secagg_share")
 
     async def _drain_send_q(self, peer: PeerState) -> None:
         """The lane's writer under congestion: FIFO; after a write
@@ -470,23 +621,59 @@ class P2PNode:
         pb[peer.idx] = pb.get(peer.idx, 0) + n
 
     async def _read_loop(self, peer: PeerState, reader) -> None:
+        # with the sidecar a round's PARAMS payload lands in the arena:
+        # the loop reads the header and a slot number
+        sink = self._slot_sink if self.sidecar is not None else None
         try:
             while True:
-                msg = await read_message(reader)
+                msg = await read_message(reader, slot_sink=sink)
                 self._count_rx(peer, msg)
                 await self._dispatch(peer, msg)
         except (asyncio.IncompleteReadError, ConnectionError, ValueError):
             self._drop_conn(peer)
+
+    def _slot_sink(self, obj: dict, pl: int):
+        """``read_message``'s divert: a leased arena slot for this
+        payload, or None for the heap path. Diverted: an unsigned round
+        PARAMS whose header carries its contributors and weight ("c",
+        "w"), not the initial diffusion, not on a proxy (it relays the
+        bytes), and not an aggregate a waiting session adopts (that
+        one is decoded)."""
+        if obj.get("t") != MsgType.PARAMS.value or obj.get("g"):
+            return None
+        body = obj.get("b") or {}
+        if body.get("init") or body.get("c") is None or body.get("w") is None:
+            return None
+        if self.role == "proxy":
+            return None
+        if self.session.waiting and body.get("aggregated"):
+            return None
+        lease = self.sidecar.lease(pl)
+        if lease is None:
+            return None  # arena full or payload too large: the heap
+        slot, mv = lease
+        return slot, mv, self.sidecar.release
+
+    def _release_msg_slot(self, msg: Message) -> None:
+        if msg._slot is not None:
+            self.sidecar.release(msg._slot)
+            msg._slot = None
 
     # ------------------------------------------------------------------
     # receive path
     # ------------------------------------------------------------------
     async def _dispatch(self, peer: PeerState, msg: Message) -> None:
         if not (0 <= msg.sender < self.n_nodes):
+            self._release_msg_slot(msg)
             return  # garbage index: neither handled nor forwarded
         if msg.type in GOSSIPED:
-            if not self.dedup.check_and_add(msg.msg_id):
+            # peek, verify, and only then mark seen: marking a forgery
+            # seen would let a relay censor the genuine frame's id
+            if self.dedup.seen(msg.msg_id):
                 return  # at most once
+            if not self._verify_origin(msg):
+                return  # forged: not handled, not relayed, not seen
+            self.dedup.check_and_add(msg.msg_id)
             # on a declared full mesh the periodic floods' relay runs with
             # probability 1/(n-2): about one repair relay a beat at any n
             relay_p = min(1.0, 1.0 / max(self.n_nodes - 2, 1))
@@ -497,6 +684,9 @@ class P2PNode:
             if not damped:
                 await self._forward(msg, exclude=peer.idx,
                                     limit=self.protocol.gossip_fanout)
+        elif msg.type is MsgType.PARAMS and not self._verify_origin(msg):
+            self._release_msg_slot(msg)
+            return
         t = msg.type
         if t is MsgType.BEAT:
             # only strictly newer beats count (a replay cannot keep a dead
@@ -509,6 +699,7 @@ class P2PNode:
             self.peer_roles[msg.sender] = msg.body["role"]
         elif t is MsgType.START_LEARNING:
             if not self.learning and not self.finished.is_set():
+                self._start_msg = msg
                 self._start_learning(msg.body["rounds"], msg.body["epochs"],
                                      leader=msg.body.get("leader"))
         elif t is MsgType.STOP_LEARNING:
@@ -522,6 +713,7 @@ class P2PNode:
         elif t is MsgType.MODELS_AGGREGATED:
             # within a round coverage only grows: older rounds are
             # ignored, the same round's sets union
+            self._peers_learning.add(msg.sender)
             pr = self._progress(msg.sender)
             r = int(msg.body.get("round", 0))
             if r > pr.agg_round:
@@ -532,9 +724,11 @@ class P2PNode:
         elif t is MsgType.MODEL_INITIALIZED:
             self._progress(msg.sender).initialized = True
         elif t is MsgType.MODELS_READY:
+            self._peers_learning.add(msg.sender)
             pr = self._progress(msg.sender)
             pr.ready_round = max(pr.ready_round, int(msg.body["round"]))
         elif t is MsgType.VOTE_TRAIN_SET:
+            self._peers_learning.add(msg.sender)
             r = int(msg.body["round"])
             if r >= self.round:
                 self._votes.setdefault(r, {})[msg.sender] = tuple(
@@ -544,8 +738,17 @@ class P2PNode:
             if int(msg.body.get("round", self.round)) >= self.round:
                 self.leader = int(msg.body["to"])
                 self.leader_history.append(self.leader)
-        # SECAGG_SHARE (A22c) and STATE_SYNC (A22d) are relayed or
-        # dropped, never acted on
+        elif t is MsgType.SECAGG_SHARE:
+            # a survivor's reveal against an evicted member: filed with
+            # the masker, and the eviction mirrored here (which reveals
+            # this node's seed too, once)
+            if self.masker is not None:
+                self.masker.add_share(
+                    int(msg.sender), int(msg.body["dead"]),
+                    int(msg.body["round"]), int(msg.body["seed"]))
+                if int(msg.body["round"]) == self.masker.round_num:
+                    self._secagg_on_evict(int(msg.body["dead"]))
+        # STATE_SYNC (A22d) is dropped, never acted on
 
     async def _on_params(self, peer: PeerState, msg: Message) -> None:
         if msg.body.get("init"):
@@ -578,13 +781,39 @@ class P2PNode:
             self._pending_params.append((peer, msg))
             return
         if msg_round < self.round:
+            self._release_msg_slot(msg)
             return
         if self.session.waiting and not msg.body.get("aggregated"):
+            self._release_msg_slot(msg)
             return  # waiting nodes adopt only a finished aggregate
-        self.loop_payload_touch_bytes += len(msg.payload)
-        payload = decode_parameters(msg.payload)
-        covered = self.session.add_model(payload.params, payload.contributors,
-                                         payload.weight)
+        contribs = tuple(int(c) for c in msg.body.get("c") or ())
+        weight = int(msg.body.get("w", 1))
+        if msg._slot is not None:
+            if self.session.waiting:
+                # a buffered aggregate meeting a session that turned
+                # waiting: adoption decodes (counted; the sink never
+                # diverts an adoption on the live path)
+                n = msg._slot_len
+                self.loop_payload_touch_bytes += n
+                blob = bytes(self.sidecar.view(msg._slot, n))
+                self._release_msg_slot(msg)
+                payload = decode_parameters(blob)
+                covered = self.session.add_model(
+                    payload.params, payload.contributors, payload.weight)
+            else:
+                covered = self.session.add_slot(msg._slot, msg._slot_len,
+                                                contribs, weight)
+                msg._slot = None  # the session owns it now
+        elif (self.sidecar is not None and not self.session.waiting
+              and "c" in msg.body and "w" in msg.body):
+            # the arena was full at the sink: the bytes still fold
+            # undecoded
+            covered = self.session.add_blob(msg.payload, contribs, weight)
+        else:
+            self.loop_payload_touch_bytes += len(msg.payload)
+            payload = decode_parameters(msg.payload)
+            covered = self.session.add_model(
+                payload.params, payload.contributors, payload.weight)
         if covered:
             await self.broadcast(Message(
                 MsgType.MODELS_AGGREGATED, self.idx,
@@ -593,7 +822,29 @@ class P2PNode:
     # ------------------------------------------------------------------
     # send path
     # ------------------------------------------------------------------
+    def _sign(self, msg: Message) -> Message:
+        """Origin-sign a message this node creates (no-op without TLS);
+        a relayed message keeps its origin's signature."""
+        if self._signer is not None and not msg.sig:
+            msg.sig = self._signer.sign(msg.signing_bytes())
+            msg.cert = self._signer.cert_pem
+            msg._head = None  # the signature changes the header
+        return msg
+
+    def _verify_origin(self, msg: Message) -> bool:
+        """True when the message's origin signature holds for its claimed
+        sender (always without TLS)."""
+        if self._verifier is None:
+            return True
+        if self._verifier.verify(msg.cert, msg.sig, msg.signing_bytes(),
+                                 msg.sender):
+            return True
+        log.warning("node %d dropping %s with unverifiable origin claim "
+                    "sender=%d", self.idx, msg.type.value, msg.sender)
+        return False
+
     async def broadcast(self, msg: Message, exclude: int | None = None) -> None:
+        self._sign(msg)
         if msg.type in GOSSIPED:
             self.dedup.check_and_add(msg.msg_id)
         await self._forward(msg, exclude)
@@ -601,7 +852,10 @@ class P2PNode:
     def _try_fast_write(self, peer: PeerState, msg: Message) -> bool:
         """Put the frame in the idle lane's outbox when the transport and
         the outbox together hold less than the high-water mark; False
-        when the caller must queue."""
+        when the caller must queue. A frame to a peer behind a cut
+        applied by hand dies here (True)."""
+        if peer.idx in self._severed:
+            return True
         q = peer.send_q
         if (q is None or not q.empty() or peer.draining
                 or self.peers.get(peer.idx) is not peer):
@@ -633,8 +887,14 @@ class P2PNode:
             self._drop_conn(peer)
 
     async def _write(self, peer: PeerState, msg: Message) -> None:
-        """The one egress point: the outbox, else the peer's bounded lane
+        """The one egress point: the link shaper's schedule when links
+        are shaped, else the outbox, else the peer's bounded lane
         (blocking only when that lane is full)."""
+        if peer.idx in self._severed:
+            return  # a cut applied by hand: dropped on the cut
+        if self.shaper is not None:
+            await self.shaper.send(peer, msg)
+            return
         if self._try_fast_write(peer, msg):
             return
         if peer.send_q is not None and self.peers.get(peer.idx) is peer:
@@ -653,7 +913,8 @@ class P2PNode:
         await self._ship(targets, msg)
 
     async def _ship(self, peers: list[PeerState], msg: Message) -> None:
-        congested = [p for p in peers if not self._try_fast_write(p, msg)]
+        congested = [p for p in peers if self.shaper is not None
+                     or not self._try_fast_write(p, msg)]
         if not congested:
             return
 
@@ -716,9 +977,9 @@ class P2PNode:
                                  wire_dtype=wd)
         self.params_bytes_out += len(blob) * len(peers)
         # explicit id: PARAMS is direct, but proxies relay and dedup it
-        await self._ship(peers, Message(MsgType.PARAMS, self.idx, body,
-                                        payload=blob,
-                                        msg_id=secrets.token_hex(8)))
+        await self._ship(peers, self._sign(Message(
+            MsgType.PARAMS, self.idx, body, payload=blob,
+            msg_id=secrets.token_hex(8))))
 
     # ------------------------------------------------------------------
     # control plane loops
@@ -735,15 +996,37 @@ class P2PNode:
             if beats % 2 == 0:
                 await self.broadcast(
                     Message(MsgType.ROLE, self.idx, {"role": self.role}))
+                await self._resend_start()
             self.membership.advance_to(self.membership.clock + period)
             await self._probe_suspects()
             await asyncio.sleep(period)
+
+    async def _resend_start(self) -> None:
+        """A flood can lose every copy a node would get (lossy links on a
+        ring), and a node that never hears START_LEARNING never trains
+        and never finishes. So a learning node sends the frame it started
+        from again, its id unchanged, to each direct peer not yet seen in
+        a round; a peer that has the id drops it unread."""
+        if not self.learning or self._start_msg is None:
+            return
+        for idx, peer in list(self.peers.items()):
+            if idx not in self._peers_learning:
+                try:
+                    await self._write(peer, self._start_msg)
+                except (ConnectionError, RuntimeError):
+                    self._drop_conn(peer)
 
     async def _probe_suspects(self) -> None:
         """Probe each suspect whose backoff elapsed: a closed lane is
         redialled; an open one only burns a retry (its silence is more
         often a busy loop than a death). A spent budget evicts."""
         for node in self.membership.probes_due():
+            if self._link_severed(node):
+                # the emulated cut drops frames but not sockets: a dial
+                # across it would succeed, so the probe fails here
+                if self.membership.probe_failed(node):
+                    self._evict(node)
+                continue
             conn = self.peers.get(node)
             if conn is not None and not conn.writer.is_closing():
                 if self.membership.probe_failed(node):
@@ -772,11 +1055,12 @@ class P2PNode:
         self._track_task(self._kickoff(rounds, epochs), "kickoff")
 
     async def _kickoff(self, rounds: int, epochs: int) -> None:
-        await self.broadcast(Message(
+        self._start_msg = Message(
             MsgType.START_LEARNING, self.idx,
             {"rounds": rounds, "epochs": epochs,
              "leader": self.idx if self.role in ("server", "aggregator")
-             else None}))
+             else None})
+        await self.broadcast(self._start_msg)
         # the starter floods its own MODEL_INITIALIZED too: adopters
         # re-diffuse until every peer, the starter included, says so
         self.initialized = True
@@ -961,6 +1245,9 @@ class P2PNode:
     async def _train_round(self) -> None:
         train_set = await self._vote_train_set()
         self.session.clear()
+        if self.masker is not None:
+            # fresh pair streams for this round's members
+            self.masker.begin_round(self.round, train_set)
         # the round's role and token position, fixed for the whole round
         role = self._effective_role()
         leader_at_start = self.leader
@@ -970,6 +1257,10 @@ class P2PNode:
         # aggregate arriving meanwhile is adopted by a waiting node
         if role in ("aggregator", "server"):
             self.session.set_nodes_to_aggregate(train_set)
+            if self.masker is not None:
+                # the template the masked sum dequantizes against (set
+                # before the replay: a replayed model may close the round)
+                self.session.set_reference(self.learner.get_parameters())
         else:
             self.session.set_waiting_aggregated_model()
         self._round_active = True
@@ -977,10 +1268,12 @@ class P2PNode:
         for peer, msg in pending:
             if peer.idx in self.peers:
                 await self._on_params(peer, msg)
+            else:  # the sender is gone: its buffered slot goes back
+                self._release_msg_slot(msg)
         if role in ("aggregator", "server"):
             await self._fit()
             n_samples = self.learner.get_num_samples()[0]
-            covered = self.session.add_model(self.learner.get_parameters(),
+            covered = self.session.add_model(self._own_update(n_samples),
                                              (self.idx,), n_samples)
             await self.broadcast(Message(
                 MsgType.MODELS_AGGREGATED, self.idx,
@@ -992,7 +1285,7 @@ class P2PNode:
             target = leader_at_start if leader_at_start in self.peers else None
             sent_to = ([self.peers[target]] if target is not None
                        else list(self.peers.values()))
-            await self._send_params(sent_to, self.learner.get_parameters(),
+            await self._send_params(sent_to, self._own_update(n_samples),
                                     (self.idx,), n_samples, _ef=True)
             await self._wait_done()
         else:  # idle / proxy: adopt whatever aggregate arrives
@@ -1019,6 +1312,15 @@ class P2PNode:
         await self.broadcast(Message(MsgType.MODELS_READY, self.idx,
                                      {"round": self.round}))
         await self._wait_neighbors_ready()
+
+    def _own_update(self, n_samples: int):
+        """This round's trained params as they leave the learner: under
+        secure aggregation quantized, weighted and pairwise-masked (the
+        raw update never enters the session or the wire)."""
+        own = self.learner.get_parameters()
+        if self.masker is not None:
+            own = self.masker.mask_update(own, n_samples)
+        return own
 
     async def _gossip_until_done(self, train_set: set[int], role: str,
                                  leader_at_start: int | None) -> None:

@@ -14,9 +14,18 @@ path. A frame of another wire version, an oversized header or payload,
 and garbage raise ``ValueError``.
 
 Gossiped types carry a random ``msg_id``; a receiver keeps a bounded
-ring of the ids it has seen (``DedupRing``). The signature and
-certificate fields stay empty: signing and verifying are A22c (TLS),
-and the causal trace context is A23.
+ring of the ids it has seen (``DedupRing``).
+
+Under TLS a node signs the frames it originates (``p2p/tls.py``): the
+signature covers ``Message.signing_bytes()``, which holds the payload
+through its SHA-256 (``payload_digest``, computed once a message), and
+relays keep the origin's signature and certificate. A verifier always
+hashes the payload it received: the header's digest seeds the cache of
+unsigned frames only. ``read_message(reader, slot_sink)`` can land a
+PARAMS payload straight in a shared-memory slot of the aggregation
+sidecar (``p2p/aggd.py``) instead of a heap ``bytes``. The causal trace
+context (the header's ``tc``) is A23: it is never written, and a frame
+that carries one is read without it.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import enum
+import hashlib
 import secrets
 import struct
 from collections import OrderedDict
@@ -51,7 +61,8 @@ class MsgType(enum.Enum):
     MODELS_AGGREGATED = "models_aggregated"
     MODEL_INITIALIZED = "model_initialized"
     STOP = "stop"
-    SECAGG_SHARE = "secagg_share"  # A22c: decoded, never acted on
+    # a survivor's reveal of its round seed against an evicted member
+    SECAGG_SHARE = "secagg_share"
     # direct messages
     CONNECT = "connect"
     PARAMS = "params"
@@ -87,17 +98,52 @@ class Message:
     # received frame keeps the bytes it arrived with)
     _head: bytes | None = dataclasses.field(
         default=None, repr=False, compare=False)
+    # the payload's SHA-256, computed at most once a message (the signer
+    # fills it; a verifier recomputes it from the bytes it received)
+    _payload_digest: bytes | None = dataclasses.field(
+        default=None, repr=False, compare=False)
     # the frame's size on the wire, stamped by read_message
     _wire_bytes: int = dataclasses.field(default=0, repr=False, compare=False)
+    # a payload read_message's slot sink diverted into a shared-memory
+    # slot: ``payload`` is empty and these name the leased slot and the
+    # payload's length in it (the receiver owns the lease)
+    _slot: int | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _slot_len: int = dataclasses.field(default=0, repr=False, compare=False)
 
     def __post_init__(self):
         if not self.msg_id and self.type in GOSSIPED:
             self.msg_id = secrets.token_hex(8)
 
+    def payload_digest(self) -> bytes:
+        """The payload's SHA-256, computed once (empty without a
+        payload)."""
+        if not self.payload:
+            return b""
+        if self._payload_digest is None:
+            self._payload_digest = hashlib.sha256(self.payload).digest()
+        return self._payload_digest
+
+    def signing_bytes(self) -> bytes:
+        """The bytes an origin signature covers: the msgpack map of
+        type, sender, body, payload digest and message id, in that order
+        (the JAX package's bytes). A verifier calls it only with a digest
+        of the payload it received."""
+        return packb({
+            "t": self.type.value,
+            "s": self.sender,
+            "b": self.body,
+            "ph": self.payload_digest(),
+            "i": self.msg_id,
+        })
+
     def wire_segments(self) -> list:
         """The frame as writev-ready segments: the framed header, and a
         view of the payload object itself when there is one."""
         if self._head is None:
+            ph = self._payload_digest
+            if ph is None and self.sig:
+                ph = self.payload_digest()  # a signed frame's digest
             header = packb({
                 "v": WIRE_VERSION,
                 "t": self.type.value,
@@ -107,7 +153,7 @@ class Message:
                 "g": self.sig,
                 "c": self.cert,
                 "pl": len(self.payload),
-                "ph": b"",  # the payload digest signs a frame: A22c
+                "ph": ph or b"",
             })
             if len(header) > MAX_HEADER:
                 raise ValueError(f"header too large: {len(header)} bytes")
@@ -147,6 +193,12 @@ class Message:
             )
         except (KeyError, TypeError) as e:
             raise ValueError(f"malformed frame header: {e!r}") from e
+        # the header's digest seeds the cache of an unsigned frame only:
+        # a signed frame's digest is recomputed from the payload, or a
+        # relay could swap the payload under a valid signature
+        ph = obj.get("ph", b"")
+        if ph and payload and not msg.sig:
+            msg._payload_digest = ph
         return msg
 
     @staticmethod
@@ -212,9 +264,47 @@ async def write_message(writer: asyncio.StreamWriter, msg: Message) -> None:
     await writer.drain()
 
 
-async def read_message(reader: asyncio.StreamReader) -> Message:
+#: ``_read_into``'s chunk when the reader's buffer is empty: bounds the
+#: transient copies the public StreamReader API makes
+_INTO_CHUNK = 1 << 18
+
+
+async def _read_into(reader: asyncio.StreamReader, mv: memoryview,
+                     n: int) -> None:
+    """Land exactly ``n`` stream bytes in ``mv`` without an n-byte heap
+    object: the reader's internal buffer is copied out directly while it
+    holds data (``_buffer``, a bytearray in CPython; another reader takes
+    the fallback), else bounded ``read()`` chunks."""
+    buf = getattr(reader, "_buffer", None)
+    resume = getattr(reader, "_maybe_resume_transport", None)
+    got = 0
+    while got < n:
+        if isinstance(buf, bytearray) and len(buf):
+            take = min(len(buf), n - got)
+            with memoryview(buf) as bmv:
+                mv[got:got + take] = bmv[:take]
+            del buf[:take]
+            if resume is not None:
+                resume()
+            got += take
+            continue
+        chunk = await reader.read(min(n - got, _INTO_CHUNK))
+        if not chunk:
+            raise asyncio.IncompleteReadError(bytes(mv[:got]), n)
+        mv[got:got + len(chunk)] = chunk
+        got += len(chunk)
+
+
+async def read_message(reader: asyncio.StreamReader,
+                       slot_sink=None) -> Message:
     """Read one frame; ``IncompleteReadError`` at EOF, ``ValueError`` on
-    another wire version or a bogus length."""
+    another wire version or a bogus length.
+
+    ``slot_sink(header, payload_len)``, when given, is asked once the
+    header is read: a ``(slot, memoryview, release)`` answer diverts the
+    payload into that view, and the message carries ``_slot`` and
+    ``_slot_len`` with an empty ``payload`` (a failed read calls
+    ``release(slot)`` before it raises); None keeps the heap path."""
     pre = await reader.readexactly(len(WIRE_MAGIC) + _LEN.size)
     if pre[:len(WIRE_MAGIC)] != WIRE_MAGIC:
         raise ValueError(
@@ -228,6 +318,20 @@ async def read_message(reader: asyncio.StreamReader) -> Message:
     pl = int(obj.get("pl", 0))
     if pl < 0 or pl > MAX_FRAME:
         raise ValueError(f"peer announced bad payload length: {pl}")
+    if pl and slot_sink is not None:
+        lease = slot_sink(obj, pl)
+        if lease is not None:
+            slot, dst, on_error = lease
+            try:
+                await _read_into(reader, dst, pl)
+            except BaseException:
+                on_error(slot)
+                raise
+            msg = Message._from_header(obj, b"")
+            msg._slot = slot
+            msg._slot_len = pl
+            msg._wire_bytes = len(pre) + hlen + pl
+            return msg
     # the one host-side copy of the payload on the receive path
     payload = await reader.readexactly(pl) if pl else b""
     msg = Message._from_header(obj, payload)

@@ -16,10 +16,18 @@ and ``p2pfl_tpu/p2p/aggd.py::fuse_numpy``:
 
 FedAvg is the host numpy weighted mean (``fuse_numpy``: f32
 accumulation, the leaf's dtype kept) in both packages, so the two give
-the same bits. Any other aggregator runs the port's
-``core/aggregators.py`` over the stacked entries on the CPU.
-``SidecarSession`` and the secure-aggregation masker are A22c; the
-async close rule and the reputation ``entry_scales`` are A22d.
+the same bits; the sidecar's worker runs the same function. Any other
+aggregator runs the port's ``core/aggregators.py`` over the stacked
+entries on the CPU.
+
+With a ``masker`` (``privacy/secagg.py``) the entries are masked uint64
+trees with the weight folded in: fusing is the exact mod-2^64 sum, and
+``_finish`` subtracts the evicted members' residue and dequantizes
+against the round-start reference (``set_reference``).
+
+``SidecarSession`` keeps its entries undecoded in the sidecar's arena
+(``p2p/aggd.py``) and has the worker fuse them. The async close rule,
+stale folds and the reputation ``entry_scales`` are A22d.
 """
 
 from __future__ import annotations
@@ -36,12 +44,15 @@ from p2pfl_tpu_torch.core.aggregators import Aggregator, FedAvg
 from p2pfl_tpu_torch.core.serialize import (
     as_f32,
     astype,
+    decode_parameters,
     dtype_name,
+    encode_parameters,
     from_host,
     own_params,
     to_host,
     tree_map_sorted,
 )
+from p2pfl_tpu_torch.p2p.aggd import SlotEntry
 
 Params = Any
 
@@ -86,9 +97,12 @@ class AggregationSession:
             raise _unported("reputation-weighted socket sessions", "A22d")
         if min_received < 1.0 or staleness_beta:
             raise _unported("async aggregation on the socket plane", "A22d")
-        if masker is not None:
-            raise _unported("secure aggregation (the masker)", "A22c")
         self.aggregator = aggregator or FedAvg()
+        #: a ``privacy.secagg.PairwiseMasker``: entries are masked trees
+        self.masker = masker
+        #: the owner's round-start params: the template a masked sum
+        #: dequantizes against
+        self.reference: Params | None = None
         self.timeout_s = timeout_s
         self.models: dict[frozenset[int], tuple[Params, float]] = {}
         self.train_set: frozenset[int] = frozenset()
@@ -108,6 +122,10 @@ class AggregationSession:
     def set_waiting_aggregated_model(self) -> None:
         """Trainer, proxy, idle: adopt the next aggregate received."""
         self.waiting = True
+
+    def set_reference(self, params: Params) -> None:
+        """The round-start params (what this node's round trained from)."""
+        self.reference = params
 
     # -- state ----------------------------------------------------------
     @property
@@ -142,12 +160,17 @@ class AggregationSession:
         if (contrib & self.covered) - explained:
             return ()  # overlapping but not superseding
         for key in evict:
+            self._evict_entry(self.models[key])
             del self.models[key]
         self.models[contrib] = (params, float(weight))
         self._partial_memo.clear()
         if self.train_set and self.covered >= self.train_set:
             self._finish()
         return tuple(sorted(self.covered))
+
+    def _evict_entry(self, entry) -> None:
+        """``entry`` (a ``(params, weight)``) is about to be superseded;
+        ``SidecarSession`` releases its slot here."""
 
     # -- partial aggregation for a peer ----------------------------------
     def get_partial_aggregation(
@@ -185,7 +208,19 @@ class AggregationSession:
         return False
 
     def _finish(self) -> None:
-        params, _, _ = self._aggregate(list(self.models.values()))
+        params, _, total = self._aggregate(list(self.models.values()))
+        if self.masker is not None:
+            # the quorum's close is the one place masked bits become a
+            # model: the evicted members' residue out, then dequantized
+            from p2pfl_tpu_torch.privacy.secagg import SecaggError
+
+            if self.reference is None:
+                raise SecaggError(
+                    "masked session closed without a round-start "
+                    "reference (set_reference) to dequantize against"
+                )
+            params, _ = self.masker.unmask(params, total, self.covered,
+                                           self.reference)
         self.result = (own_params(params), tuple(sorted(self.covered)))
         self.done.set()
 
@@ -193,6 +228,13 @@ class AggregationSession:
         if len(entries) == 1:
             p, w = entries[0]
             return p, (), w
+        if self.masker is not None:
+            # the weights are folded into the masked integers: the exact
+            # modular sum, no reweighting (partials stay masked)
+            from p2pfl_tpu_torch.privacy.secagg import masked_sum
+
+            tree, total = masked_sum(entries)
+            return tree, (), total
         weights = np.asarray([w for _, w in entries], np.float32)
         if type(self.aggregator) is FedAvg:
             tree, total = fuse_numpy([p for p, _ in entries], weights)
@@ -206,6 +248,7 @@ class AggregationSession:
         """Reset for the next round."""
         self.models.clear()
         self._partial_memo.clear()
+        self.reference = None
         self.train_set = frozenset()
         self.waiting = False
         self.result = None
@@ -214,7 +257,232 @@ class AggregationSession:
 
 
 class SidecarSession(AggregationSession):
-    """The shared-memory aggregation sidecar's session: A22c."""
+    """The aggregation session with its payloads in the sidecar's arena
+    (``p2p/aggd.py``). The node drives it as the inline session, plus
+    ``add_slot`` for a payload the protocol reader landed in a slot and
+    ``add_blob`` for one that arrived as bytes when the arena was full:
 
-    def __init__(self, *args, **kwargs):
-        raise _unported("the aggregation sidecar (SidecarSession)", "A22c")
+    - entries are ``SlotEntry`` markers (undecoded bytes in the arena)
+      or raw envelopes, never decoded trees: the loop never touches a
+      payload;
+    - ``_finish`` sends the fuse to the worker and completes when the
+      reply comes; ``check_and_run`` answers False meanwhile, and the
+      store is frozen (a late entry is refused and its slot released);
+    - partial gossip serves the node's own model alone: the schema
+      holds the sidecar to a full mesh, where every update reaches every
+      aggregator from its origin;
+    - a dead or stalled worker falls back to an in-process fuse of the
+      same entries with the same function, off the loop, and counts it
+      in the client's ``fallbacks``.
+    """
+
+    def __init__(self, aggregator: Aggregator | None = None,
+                 timeout_s: float = 60.0, reputation=None,
+                 min_received: float = 1.0, staleness_beta: float = 0.0,
+                 client=None, spawn=None):
+        super().__init__(aggregator, timeout_s=timeout_s,
+                         reputation=reputation, min_received=min_received,
+                         staleness_beta=staleness_beta)
+        #: the host's ``aggd.SidecarClient`` (one a process)
+        self.client = client
+        #: a task spawner, the node's ``_track_task(coro, what)``; None
+        #: when a test drives the session without a node
+        self._spawn = spawn
+        # the node's own trained model, decoded, for partial gossip
+        self._own: tuple[Params, tuple[int, ...], float] | None = None
+        self._fusing = False
+        self._fuse_task = None
+
+    # -- adding models ---------------------------------------------------
+    def _entry(self, blob) -> Any:
+        """``blob`` in a leased slot (a ``SlotEntry``), or the bytes
+        themselves when the arena cannot take it."""
+        lease = self.client.lease(len(blob)) if self.client else None
+        if lease is None:
+            return bytes(blob)
+        slot, mv = lease
+        mv[:len(blob)] = blob
+        return SlotEntry(slot, len(blob))
+
+    def _release_rejected(self, entry) -> None:
+        if isinstance(entry, SlotEntry):
+            self.client.release(entry.slot)
+
+    def add_model(self, params: Params, contributors, weight: float,
+                  staleness: float = 0.0) -> tuple[int, ...]:
+        """The node's own model (and a waiting node's adoption, as the
+        inline session): encoded into a leased slot, so every entry of a
+        fuse is in the arena when it can be."""
+        if self.waiting:
+            return super().add_model(params, contributors, weight, staleness)
+        if staleness > 0.0:
+            raise _unported("stale-update folds on the socket plane", "A22d")
+        contrib = tuple(int(i) for i in contributors)
+        entry = self._entry(encode_parameters(params, contrib,
+                                              max(1, int(weight))))
+        covered = self._add_model(entry, contrib, weight)
+        if covered:
+            self._own = (params, contrib, float(weight))
+        else:
+            self._release_rejected(entry)
+        return covered
+
+    def add_slot(self, slot: int, length: int, contributors,
+                 weight: float) -> tuple[int, ...]:
+        """A payload left undecoded in slot ``slot``: the session owns
+        the lease from here (a refused entry's slot is released now, an
+        accepted one's when its fuse or ``clear`` consumes it)."""
+        covered = self._add_model(SlotEntry(slot, length), contributors,
+                                  weight)
+        if not covered and self.client is not None:
+            self.client.release(slot)
+        return covered
+
+    def add_blob(self, blob, contributors, weight: float) -> tuple[int, ...]:
+        """A payload that arrived as bytes (the arena was full when the
+        reader asked): still never decoded here; a slot freed since may
+        take it, else the bytes go to the worker in the descriptor."""
+        entry = self._entry(blob)
+        covered = self._add_model(entry, contributors, weight)
+        if not covered:
+            self._release_rejected(entry)
+        return covered
+
+    def _add_model(self, params, contributors, weight):
+        if not self.waiting and (self._fusing or self.done.is_set()):
+            # the round is closing: a superseding eviction now could
+            # release a slot the worker is reading
+            return ()
+        return super().add_model(params, contributors, weight)
+
+    def _evict_entry(self, entry) -> None:
+        p, _w = entry
+        if isinstance(p, SlotEntry) and self.client is not None:
+            self.client.release(p.slot)
+
+    # -- partial aggregation for a peer ----------------------------------
+    def get_partial_aggregation(self, peer_has):
+        """The node's own model alone (see the class's note)."""
+        if self._own is None:
+            return None
+        params, contribs, weight = self._own
+        if {int(i) for i in peer_has} & set(contribs):
+            return None
+        return params, contribs, weight
+
+    # -- completion -------------------------------------------------------
+    def check_and_run(self) -> bool:
+        if self.done.is_set():
+            return True
+        if not self._fusing and self.models and (
+            (self.train_set and self.covered >= self.train_set)
+            or self.timed_out()
+        ):
+            self._finish()
+        # False while the fuse is in flight: the gossip loop keeps going
+        return self.done.is_set()
+
+    def _finish(self) -> None:
+        if self._fusing or self.done.is_set():
+            return
+        self._fusing = True
+        entries = list(self.models.values())
+        covered = tuple(sorted(self.covered))
+        weights = np.asarray([w for _, w in entries], np.float32)
+        coro = self._fuse_and_close(entries, weights, covered)
+        if self._spawn is not None:
+            self._spawn(coro, "aggd_fuse")
+            return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            # no loop (a synchronous test): the in-process fuse
+            coro.close()
+            params = self._fallback_fuse(entries, weights)
+            self._release_entries(entries)
+            self._publish(params, covered)
+            return
+        self._fuse_task = loop.create_task(coro)
+
+    async def _fuse_and_close(self, entries, weights, covered) -> None:
+        loop = asyncio.get_running_loop()
+        req = []
+        for (p, _w), w in zip(entries, weights):
+            if isinstance(p, SlotEntry):
+                req.append(("s", p.slot, p.length, float(w)))
+            else:
+                req.append(("b", bytes(p), float(w)))
+        out = None
+        if self.client is not None:
+            out = await self.client.fuse(req,
+                                         timeout_s=max(5.0, self.timeout_s))
+        if out is not None:
+            slot, length, _stats = out
+            try:
+                payload = await loop.run_in_executor(
+                    None, _decode_owned, self.client.view(slot, length))
+            finally:
+                self.client.release(slot)
+            params = payload.params
+        else:
+            if self.client is not None:
+                self.client.fallbacks += 1
+            params = await loop.run_in_executor(
+                None, self._fallback_fuse, entries, weights)
+        self._release_entries(entries)
+        self._publish(params, covered)
+
+    def _fallback_fuse(self, entries, weights):
+        """The in-process fuse of the session's own entries, with the
+        worker's function (a dead or stalled worker, or no loop)."""
+        trees = []
+        for p, _w in entries:
+            if isinstance(p, SlotEntry):
+                trees.append(_decode_owned(
+                    self.client.view(p.slot, p.length)).params)
+            else:
+                trees.append(_decode_owned(p).params)
+        if len(trees) == 1:
+            return trees[0]  # as _aggregate's single entry
+        tree, _total = fuse_numpy(trees, weights)
+        return tree
+
+    def _release_entries(self, entries) -> None:
+        if self.client is None:
+            return
+        for p, _w in entries:
+            if isinstance(p, SlotEntry):
+                self.client.release(p.slot)
+        # the store still names these slots for its coverage: blank the
+        # markers, so clear() cannot release a slot leased again since
+        for k, (p, w) in list(self.models.items()):
+            if isinstance(p, SlotEntry):
+                self.models[k] = (None, w)
+
+    def _publish(self, params, covered) -> None:
+        self.result = (own_params(params), covered)
+        self.done.set()
+
+    def release_entries(self) -> None:
+        """Release every slot this session still holds (the node's stop
+        and the round's ``clear``), so an interrupted round strands no
+        slot."""
+        if self.client is None:
+            return
+        for k, (p, w) in list(self.models.items()):
+            if isinstance(p, SlotEntry):
+                self.client.release(p.slot)
+                self.models[k] = (None, w)
+
+    def clear(self) -> None:
+        self.release_entries()
+        super().clear()
+        self._own = None
+        self._fusing = False
+        self._fuse_task = None
+
+
+def _decode_owned(blob):
+    """Decode and copy off the buffer in one executor hop: the slot (or
+    blob) behind the decode is free to reuse at once."""
+    return decode_parameters(blob).release()

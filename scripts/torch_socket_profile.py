@@ -1,12 +1,17 @@
 """Where a socket-plane round's host time goes, on the card or the CPU.
 
     python scripts/torch_socket_profile.py [--arm socket24|ring]
-        [--device cuda|cpu] [--rounds 1] [--top 20]
+        [--plane inline|sidecar] [--device cuda|cpu] [--rounds 1]
+        [--top 20]
 
 Runs one arm of ``chip_smoke.py`` phase 12 through ``run_simulation``
 under ``cProfile``: ``socket24`` is ``bench.py``'s ``_socket24``
 uncapped (24 mnist-mlp nodes, every node trains), ``ring`` the
 FEMNIST-CNN ring over sockets with f32 wire and phase 12b's protocol.
+``--plane sidecar`` runs ``socket24`` on the aggregation sidecar
+(phase 13a, ``bench.py``'s ``aggd24u``): the worker process's decode
+and fuse are outside the profiled thread, and the result line adds the
+sidecar's counters.
 It prints the wall time, the frames and bytes the nodes received, the
 learners' fit time (the fits run in the loop's executor threads, which
 ``cProfile`` does not see; the event loop is the profiled thread), and
@@ -61,9 +66,13 @@ def layer(key) -> str:
     return "other"
 
 
-def config(arm: str, rounds: int):
+def config(arm: str, rounds: int, plane: str = "inline"):
     if arm == "socket24":
-        return cs.socket24_config(24, rounds=rounds)
+        cfg = cs.socket24_config(24, rounds=rounds)
+        cfg.aggregation_plane = plane
+        return cfg
+    if plane != "inline":
+        raise SystemExit("the sidecar runs on a full mesh: --arm socket24")
     cfg = cs.ring_config("socket-ring-f32", rounds=rounds)
     cfg.wire_dtype = "f32"
     cfg.protocol = cs.socket_protocol(0, **cs.RING_PROTOCOL)
@@ -73,6 +82,8 @@ def config(arm: str, rounds: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arm", choices=("socket24", "ring"), default="socket24")
+    ap.add_argument("--plane", choices=("inline", "sidecar"),
+                    default="inline")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--top", type=int, default=20)
@@ -82,6 +93,13 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip())
+        from p2pfl_tpu_torch.ops import _build
+
+        # the kernels' build (or load) before the profile: a fresh
+        # machine's build would read as the loop's "other" time
+        t0 = time.perf_counter()
+        _build.kernels()
+        print(f"kernels built or loaded in {time.perf_counter() - t0:.1f} s")
     fit_s = [0.0]
     fit = TorchLearner.fit
 
@@ -95,7 +113,8 @@ def main(argv=None) -> int:
     prof = cProfile.Profile()
     t0 = time.perf_counter()
     prof.enable()
-    res = run_simulation(config(args.arm, args.rounds), timeout=600,
+    res = run_simulation(config(args.arm, args.rounds, args.plane),
+                         timeout=600,
                          device=torch.device(args.device), nodes_out=nodes)
     prof.disable()
     wall = time.perf_counter() - t0
@@ -104,9 +123,11 @@ def main(argv=None) -> int:
     for key, (_, _, tt, _, _) in st.stats.items():
         by_layer[layer(key)] = by_layer.get(layer(key), 0.0) + tt
     loop_s = sum(by_layer.values())
-    print(f"{args.arm} on {args.device}, {args.rounds} round(s) under "
-          f"cProfile: {wall:.3f} s wall (setup included), round_s "
-          f"{res['round_s']}, bytes in {res['bytes_in']}, fits "
+    aggd = {k: v for k, v in res.items() if k.startswith("aggd_")}
+    print(f"{args.arm} ({args.plane}) on {args.device}, {args.rounds} "
+          f"round(s) under cProfile: {wall:.3f} s wall (setup included), "
+          f"round_s {res['round_s']}, bytes in {res['bytes_in']}, loop "
+          f"payload bytes {res['loop_payload_touch_bytes']} {aggd}, fits "
           f"{sum(len(nd.learner.train_losses) for nd in nodes)} taking "
           f"{fit_s[0]:.3f} s in the executor")
     print(f"loop thread: {loop_s:.3f} s of profiled time: " + ", ".join(

@@ -9,7 +9,10 @@
   imports, in a fresh interpreter loads none of ``jax``, ``flax``,
   ``optax``, ``msgpack`` or ``p2pfl_tpu`` (top-level names compared
   exactly: the port's own name starts with ``p2pfl_tpu``; the port's
-  checkpoints go through its own msgpack codec).
+  checkpoints go through its own msgpack codec);
+- the socket plane with TLS off (its modules, the shaper, the sidecar's
+  client and a masked node on seeded secrets) never imports
+  ``cryptography``.
 """
 
 from __future__ import annotations
@@ -83,3 +86,24 @@ def test_port_never_imports_jax_or_the_jax_package():
     top = set(json.loads(out.strip().splitlines()[-1].replace("'", '"')))
     assert "p2pfl_tpu_torch" in top
     assert not (top & FORBIDDEN), top & FORBIDDEN
+
+
+def test_the_socket_plane_without_tls_never_imports_cryptography():
+    code = (
+        "import sys\n"
+        "import p2pfl_tpu_torch.p2p, p2pfl_tpu_torch.p2p.launch\n"
+        "import p2pfl_tpu_torch.p2p.aggd, p2pfl_tpu_torch.p2p.netem\n"
+        "import p2pfl_tpu_torch.privacy\n"
+        "from p2pfl_tpu_torch.config.schema import NetworkConfig\n"
+        "from p2pfl_tpu_torch.p2p import P2PNode\n"
+        "from p2pfl_tpu_torch.p2p.aggd import SidecarClient\n"
+        "from p2pfl_tpu_torch.privacy import PairwiseMasker\n"
+        "P2PNode(0, None, n_nodes=2, netem=NetworkConfig(delay_ms=1),\n"
+        "        masker=PairwiseMasker(0))\n"
+        "P2PNode(1, None, n_nodes=2, sidecar=SidecarClient())\n"
+        "print(sorted(m for m in sys.modules if m.startswith('crypto')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip().splitlines()[-1] == "[]"

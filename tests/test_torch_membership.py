@@ -235,9 +235,16 @@ def test_validation_matches_jax(cls, kw):
 
 
 def test_secagg_is_refused_naming_its_item():
+    """Secure aggregation runs on the socket plane (A22c): the config
+    loads in both packages alike, and the stacked Scenario refuses it
+    with the JAX package's message."""
+    from p2pfl_tpu_torch.federation.scenario import Scenario
+
     raw = {"n_nodes": 2, "privacy": {"secagg": True}}
-    with pytest.raises(NotImplementedError, match="A22"):
-        tschema.ScenarioConfig.from_dict(raw)
+    cfg = tschema.ScenarioConfig.from_dict(raw)
+    assert cfg.privacy == tschema.PrivacyConfig(secagg=True)
+    with pytest.raises(ValueError, match="socket-plane feature"):
+        Scenario(cfg, device="cpu")
     for kind in KINDS:  # every fault kind is accepted
         groups = [[0], [1]] if kind == "partition" else []
         tschema.ScenarioConfig.from_dict({

@@ -19,8 +19,9 @@ no assertion is on wall time.
   the same inputs. A port starter: the fleet completes and agrees. bf16
   tier (bf16 compute and wire): the fleet completes and its nodes agree
   within rtol 2e-2, atol 2e-3 (two bf16 roundings of the partials).
-- Refusals: what this slice leaves out raises ``NotImplementedError``
-  naming A22c or A22d.
+- Refusals: what the socket plane leaves out raises
+  ``NotImplementedError`` naming A22d (the transport and privacy layers
+  of A22c run: ``tests/test_torch_{aggd,netem,tls,secagg}.py``).
 """
 
 from __future__ import annotations
@@ -426,10 +427,6 @@ def test_mixed_fleet_bf16_completes_and_agrees():
 # ---- refusals -------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"tls": object()}, "A22c"),
-    ({"netem": {"delay_ms": 5}}, "A22c"),
-    ({"sidecar": object()}, "A22c"),
-    ({"masker": object()}, "A22c"),
     ({"attack": object()}, "A22d"),
     ({"reputation": object()}, "A22d"),
     ({"dp": object()}, "A22d"),
@@ -444,17 +441,19 @@ def test_left_out_node_features_raise_naming_their_item(kwargs, item):
 
 
 def test_left_out_partitions_and_launcher_options_raise(tmp_path):
+    """The launcher's restarts and resume, and the scenario sections of
+    A22d, raise; partitions by hand, ``--tls-dir`` and the A22c sections
+    load and run (their own test files hold them)."""
     nd = P2PNode(0, None, n_nodes=2)
-    for call in (lambda: nd.apply_partition([[0], [1]]), nd.heal_partition):
-        with pytest.raises(NotImplementedError, match="A22c"):
-            call()
+    nd.apply_partition([[0], [1]])
+    assert nd._link_severed(1)
+    nd.heal_partition()
+    assert not nd._link_severed(1)
     cfg = _sim_config()
     path = tmp_path / "s.json"
     cfg.save(path)
     with pytest.raises(NotImplementedError, match="A22d"):
         launch(cfg, path, platform="cpu", max_restarts=1)
-    with pytest.raises(NotImplementedError, match="A22c"):
-        main([str(path), "--platform", "cpu", "--tls-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="A22d"):
         main([str(path), "--platform", "cpu", "--resume"])
     for raw in ({"faults": [{"node": 1, "round": 1, "kind": "crash"}]},
@@ -464,12 +463,13 @@ def test_left_out_partitions_and_launcher_options_raise(tmp_path):
         bad = ScenarioConfig.from_dict({**json.loads(cfg.to_json()), **raw})
         with pytest.raises(NotImplementedError, match="A22d"):
             run_simulation(bad, device="cpu")
-    for raw, item in (({"network": {"delay_ms": 5}}, "A22c"),
-                      ({"encrypt": True}, "A22c"),
-                      ({"aggregation_plane": "sidecar"}, "A22c"),
-                      ({"privacy": {"secagg": True}}, "A22c")):
-        with pytest.raises(NotImplementedError, match=item):
-            ScenarioConfig.from_dict({"n_nodes": 2, **raw})
+    for raw, loaded in (
+            ({"network": {"delay_ms": 5}}, lambda c: c.network.delay_ms == 5),
+            ({"encrypt": True}, lambda c: c.encrypt),
+            ({"aggregation_plane": "sidecar"},
+             lambda c: c.aggregation_plane == "sidecar"),
+            ({"privacy": {"secagg": True}}, lambda c: c.privacy.secagg)):
+        assert loaded(ScenarioConfig.from_dict({"n_nodes": 2, **raw}))
 
 
 def test_the_port_modules_import_no_jax():

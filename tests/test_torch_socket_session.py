@@ -6,7 +6,7 @@ for and the final aggregate must be equal, at tolerance 0 (FedAvg is
 the host numpy weighted mean in both). Also: overlap rejection and
 supersede eviction, the timeout close, waiting-mode adoption, a robust
 aggregator over stacked entries, bf16 leaves, and the refusals of what
-this slice leaves out (A22c, A22d).
+the socket plane leaves out (A22d).
 """
 
 from __future__ import annotations
@@ -149,7 +149,6 @@ def test_robust_aggregator_over_stacked_entries():
     ({"reputation": object()}, "A22d"),
     ({"min_received": 0.5}, "A22d"),
     ({"staleness_beta": 0.5}, "A22d"),
-    ({"masker": object()}, "A22c"),
 ])
 def test_left_out_session_features_are_refused(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -157,8 +156,13 @@ def test_left_out_session_features_are_refused(kwargs, item):
 
 
 def test_sidecar_session_and_stale_folds_are_refused():
-    with pytest.raises(NotImplementedError, match="A22c"):
-        SidecarSession()
+    """Stale folds (A22d) are refused by both session kinds; the
+    sidecar's session itself runs (``tests/test_torch_aggd.py``)."""
+    side = SidecarSession()
+    side.set_nodes_to_aggregate({0, 1})
+    with pytest.raises(NotImplementedError, match="A22d"):
+        side.add_model(_tree(np.random.default_rng(4)), (0,), 1,
+                       staleness=1.0)
     s = AggregationSession()
     s.set_nodes_to_aggregate({0, 1})
     with pytest.raises(NotImplementedError, match="A22d"):
