@@ -15,9 +15,12 @@ present rows (with an even count the two middle norms averaged, as
 ``jnp.nanmedian`` does). A non-finite delta scores 0 and leaves the
 consensus.
 
-Not ported here: the socket plane's ``observe_entries`` /
-``entry_scales`` (ROADMAP.md queue A, item A22) and the flight-recorder
-events the JAX monitor emits on exclusion and restoration (item A23).
+The socket plane's session scores its stored entries at finish
+(``observe_entries``, host numpy over decoded trees, the JAX package's
+arithmetic through :func:`cohort_scores_np`) and rescales each entry's
+weight by the least trust among its contributors (``entry_scales``).
+The flight-recorder events the JAX monitor emits on exclusion and
+restoration are ROADMAP item A23.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from p2pfl_tpu_torch.core.pytree import Params, tree_leaves
+from p2pfl_tpu_torch.core.serialize import as_f32, tree_leaves_sorted
 
 
 def _masked_median(values: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -67,6 +71,36 @@ def cohort_scores(deltas: torch.Tensor,
     return torch.where(pm > 0, score, torch.zeros_like(score))
 
 
+def cohort_scores_np(deltas: np.ndarray) -> np.ndarray:
+    """:func:`cohort_scores` in numpy over every row, as the JAX
+    package's socket session computes it (``xp=np``): the socket plane
+    scores host trees whose entry count varies with gossip timing."""
+    eps = 1e-12
+    deltas = deltas.astype(np.float32)
+    pm = np.ones((deltas.shape[0],), np.float32)
+    norms = np.sqrt(np.sum(deltas * deltas, axis=1))
+    finite = np.isfinite(norms)
+    pm = pm * finite.astype(np.float32)
+    norms = np.where(finite, norms, 0.0)
+    deltas = np.where(finite[:, None], deltas, 0.0)
+    unit = deltas / (norms + eps)[:, None]
+    direction = np.sum(unit * pm[:, None], axis=0) / np.maximum(
+        np.sum(pm), 1.0)
+    dnorm = np.sqrt(np.sum(direction * direction)) + eps
+    cos = unit @ (direction / dnorm)
+    vals = norms[pm > 0]
+    med = np.float32(np.median(vals)) if vals.size else np.float32(0.0)
+    ratio = (np.minimum(norms, med) + eps) / (np.maximum(norms, med) + eps)
+    score = np.clip(cos, 0.0, 1.0) * ratio
+    return np.where(pm > 0, score, 0.0)
+
+
+def _flat(tree) -> np.ndarray:
+    """A host tree's leaves in f32, flattened in JAX's order."""
+    return np.concatenate([as_f32(leaf).ravel()
+                           for leaf in tree_leaves_sorted(tree)])
+
+
 def spmd_trust_obs(params_stacked: Params, ref_stacked: Params,
                    present: torch.Tensor) -> torch.Tensor:
     """The round's per-node score: each node's flattened delta against
@@ -95,6 +129,10 @@ class ReputationMonitor:
         self.cutoff = float(cutoff)
         self.trust = np.ones(n_nodes, np.float32)
         self._seen = np.zeros(n_nodes, bool)
+        # nodes caught by direct evidence: a singleton entry (one
+        # contributor) scoring below the cutoff; only these anchor the
+        # explaining-away of ``observe_entries``
+        self._confirmed_bad = np.zeros(n_nodes, bool)
         #: per-round trust snapshots
         self.history: list[list[float]] = []
 
@@ -110,10 +148,55 @@ class ReputationMonitor:
         self._seen = self._seen | obs
         self.history.append([float(t) for t in self.trust])
 
+    def observe_entries(self, reference, entries) -> None:
+        """The socket plane's observation: ``entries`` is ``[(contributor
+        frozenset, host params tree), ...]`` from one session and
+        ``reference`` the round-start params its owner trained from.
+        Each entry's delta is scored against the others; the score is an
+        observation of every contributor it is attributed to, with
+        evidence weight ``1 / |attributed|``. A singleton entry scoring
+        below the cutoff confirms its contributor as bad (sticky), and
+        an entry holding a confirmed node is attributed to the confirmed
+        nodes alone (explaining away)."""
+        ref_flat = _flat(reference)
+        keys = [k for k, _ in entries]
+        deltas = np.stack([_flat(p) - ref_flat for _, p in entries])
+        scores = cohort_scores_np(deltas)
+        for key, s in zip(keys, scores):
+            ids = [c for c in key if 0 <= c < self.n_nodes]
+            if len(ids) == 1 and float(s) < self.cutoff:
+                self._confirmed_bad[ids[0]] = True
+        obs_sum = np.zeros(self.n_nodes, np.float64)
+        obs_cnt = np.zeros(self.n_nodes, np.float64)
+        for key, s in zip(keys, scores):
+            ids = [c for c in key if 0 <= c < self.n_nodes]
+            if not ids:
+                continue
+            targets = [c for c in ids if self._confirmed_bad[c]] or ids
+            ev = 1.0 / len(targets)
+            for c in targets:
+                obs_sum[c] += float(s) * ev
+                obs_cnt[c] += ev
+        mask = obs_cnt > 0
+        per_node = np.where(mask, obs_sum / np.maximum(obs_cnt, 1e-9), 0.0)
+        self.observe(per_node.astype(np.float32), mask)
+
     def weights_vector(self) -> np.ndarray:
         """Per-node weight multipliers: trust, zero below the cutoff."""
         return np.where(self.trust < self.cutoff, 0.0, self.trust).astype(
             np.float32)
+
+    def entry_scales(self, keys) -> np.ndarray:
+        """Per-entry weight multipliers for a session's stored models: the
+        least multiplier among each entry's contributors (1.0 for an
+        entry naming none): a partial merged with a distrusted node is
+        poisoned through and through."""
+        wv = self.weights_vector()
+        out = []
+        for key in keys:
+            ids = [c for c in key if 0 <= c < self.n_nodes]
+            out.append(float(np.min(wv[ids])) if ids else 1.0)
+        return np.asarray(out, np.float32)
 
     def suspects(self) -> list[int]:
         """Nodes currently below the trust cutoff."""

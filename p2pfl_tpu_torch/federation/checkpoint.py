@@ -40,6 +40,12 @@ import numpy as np
 import torch
 
 from p2pfl_tpu_torch.core.pytree import Params, tree_map
+from p2pfl_tpu_torch.core.serialize import (
+    from_host,
+    to_host,
+    tree_leaves_sorted,
+    tree_map_sorted,
+)
 from p2pfl_tpu_torch.learning.learner import AdamState, TrainState
 from p2pfl_tpu_torch.parallel.federated import FederatedState
 from p2pfl_tpu_torch.utils import msgpack_codec
@@ -54,8 +60,8 @@ def checkpoint_path(directory: str | pathlib.Path,
 
 def node_checkpoint_path(directory: str | pathlib.Path,
                          node_idx: int) -> pathlib.Path:
-    """A socket node's private checkpoint (one file a node, replaced at
-    each save; the socket plane is ROADMAP item A22)."""
+    """A socket node's private checkpoint: one file a node, replaced at
+    each save, so the newest state wins and the directory never grows."""
     return pathlib.Path(directory) / f"node_{node_idx:03d}{_SUFFIX}"
 
 
@@ -98,7 +104,10 @@ def _restore_blob(path: str | pathlib.Path) -> Any:
 
 
 def _host(leaf: Any) -> np.ndarray:
-    """A tensor leaf as the array the file holds (bf16 as its words)."""
+    """A leaf as the array the file holds (bf16 as its words); a host
+    array passes through."""
+    if isinstance(leaf, np.ndarray):
+        return leaf
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(msgpack_codec.BF16Array)
@@ -296,20 +305,58 @@ def load_checkpoint(path: str | pathlib.Path, template: FederatedState,
                          f"federation: {e}") from e
 
 
-# ---- one model and its round (the join handshake's payload, A22) ------
+# ---- one model and its round (the join handshake's payload) -----------
 
 def pack_model(params: Params, round_num: int) -> bytes:
-    """One params tree and its round as a checkpoint-format blob."""
+    """One params tree (tensors or host arrays) and its round as a
+    checkpoint-format blob: the STATE_SYNC payload and a node's own
+    checkpoint file."""
     return msgpack_codec.serialize(
         {"round": int(round_num), "params": tree_map(_host, params)})
+
+
+def _model_from_obj(obj: Any, template: Params) -> tuple[Params, int]:
+    """``obj["params"]`` in the structure of ``template``; a template of
+    host arrays gets host arrays back (bf16 as ``BF16Array``)."""
+    host = any(isinstance(leaf, np.ndarray)
+               for leaf in tree_leaves_sorted(template))
+    like = tree_map_sorted(from_host, template) if host else template
+    try:
+        params = _conform(like, obj["params"], "params")
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"state blob does not match model: {e}") from e
+    if host:
+        params = tree_map_sorted(to_host, params)
+    return params, int(obj.get("round", 0))
 
 
 def unpack_model(blob: bytes, template: Params) -> tuple[Params, int]:
     """A :func:`pack_model` blob in the structure of ``template``:
     ``(params, round)``, leaves copied and conformed to its dtypes."""
-    obj = msgpack_codec.restore(blob)
+    return _model_from_obj(msgpack_codec.restore(blob), template)
+
+
+def save_node_checkpoint(directory: str | pathlib.Path, node_idx: int,
+                         params: Params, round_num: int) -> pathlib.Path:
+    """A socket node's params and round, atomically, in the STATE_SYNC
+    blob's format (:func:`pack_model`): a relaunched node adopts the
+    newer of its own file and a peer's sync with one decoder."""
+    path = node_checkpoint_path(directory, node_idx)
+    blob = pack_model(params, round_num)
+    _atomic_write(path, lambda write: write(blob))
+    return path
+
+
+def load_node_checkpoint(directory: str | pathlib.Path, node_idx: int,
+                         template: Params) -> tuple[Params, int] | None:
+    """A node's own checkpoint as ``(params, round)`` in the structure of
+    ``template``; None when the node never saved one. A torn or corrupt
+    file raises ValueError naming it."""
+    path = node_checkpoint_path(directory, node_idx)
+    if not path.is_file():
+        return None
+    obj = _restore_blob(path)
     try:
-        params = _conform(template, obj["params"], "params")
-    except (KeyError, TypeError, ValueError) as e:
-        raise ValueError(f"state blob does not match model: {e}") from e
-    return params, int(obj.get("round", 0))
+        return _model_from_obj(obj, template)
+    except ValueError as e:
+        raise ValueError(f"checkpoint {path}: {e}") from e

@@ -492,6 +492,25 @@ class TorchLearner:
         self.state = dataclasses.replace(self.state, params=tree_map(
             _onto_device, self._host, self.state.params))
 
+    def device_parameters(self):
+        """A copy of the params on the device, without the node axis (an
+        update's reference: the round's starting params)."""
+        with self._lock:
+            return tree_map(lambda p: p[0].clone(), self.state.params)
+
+    def transform_parameters(self, fn) -> None:
+        """Replace the params by ``fn(params)`` on the device, ``params``
+        being the node's row without the node axis (a socket node's
+        attack and DP, with the stacked rows' arithmetic); the host copy
+        ``get_parameters`` answers with is taken here."""
+        with self._lock:
+            new = fn(tree_map(lambda p: p[0], self.state.params))
+            self.state = dataclasses.replace(self.state, params=tree_map(
+                lambda n, p: n.to(p.dtype).reshape(p.shape).contiguous(),
+                new, self.state.params))
+            self._host = None
+            self.get_parameters()
+
     def check_parameters(self, params) -> bool:
         try:
             check_parameters(params, self.get_parameters())

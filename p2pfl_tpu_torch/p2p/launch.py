@@ -15,7 +15,11 @@ wall time, seconds a round, mean final accuracy and wire bytes.
 Nodes train on the card unless ``--platform cpu`` (children inherit
 the platform) or ``device="cpu"`` asks for the CPU; every node of a
 process shares its device. A child whose node fails exits non-zero and
-``launch`` raises.
+``launch`` raises, unless ``--max-restarts N`` makes the parent a
+supervisor: a child group that exits non-zero is spawned again with
+``--resume`` (each node adopts its own checkpoint, or a peer's newer
+STATE_SYNC), after ``restart_backoff_s * 2^(attempt - 1)`` seconds
+capped at 30, up to N times a group.
 
 The scenario's transport and privacy layers reach every node: its
 ``network`` shaping and partition windows, ``privacy.secagg`` (pair
@@ -24,16 +28,33 @@ else from the seed), ``aggregation_plane="sidecar"`` (one
 ``aggd.SidecarClient`` a process) and ``encrypt``: ``launch`` mints a
 scenario CA and the nodes' certificates in ``tls/`` beside the config
 and hands the children ``--tls-dir``; ``run_simulation`` mints them in
-a temporary directory. ``--max-restarts`` and ``--resume`` are A22d, as
-are faults, attacks, reputation, DP, async aggregation and node
-checkpoints in the scenario.
+a temporary directory.
+
+The adversarial and elastic layers reach every node from the config
+alone, so every process derives the same cohort, noise and secrets:
+the ``adversary`` block (the malicious cohort's attack, a label-flipped
+shard, one ``ReputationMonitor`` a node), ``privacy.dp`` (a ``DPSpec``
+keyed by the scenario's seed), ``elastic`` (async quorum, stragglers),
+``checkpoint_dir`` / ``checkpoint_every`` (each node's own file). In
+``run_simulation`` the scenario's ``faults`` drive real nodes: a crash
+tears a node down without STOP, a join or recover builds a fresh node
+that enters through the "jr" hello and STATE_SYNC, a restart does so
+from its own checkpoint (``resume``), and partition and heal cut and
+mend every live node's links. Each fires when the federation's round
+front (the largest round of a live node) reaches the fault's round, not
+on a clock. The result's ``churn`` holds what happened, under the JAX
+package's keys; with reputation, ``trust`` and ``suspects`` hold each
+node's own view.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import dataclasses
 import json
+import math
 import os
 import pathlib
 import socket
@@ -41,10 +62,18 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
-from p2pfl_tpu_torch.config.schema import ScenarioConfig, _unported
+from p2pfl_tpu_torch.adversary.attacks import (
+    AttackSpec,
+    flip_labels,
+    malicious_indices,
+)
+from p2pfl_tpu_torch.adversary.reputation import ReputationMonitor
+from p2pfl_tpu_torch.config.schema import ScenarioConfig
 from p2pfl_tpu_torch.core.aggregators import get_aggregator
 from p2pfl_tpu_torch.datasets.data import FederatedDataset
 from p2pfl_tpu_torch.device import resolve_device
@@ -53,24 +82,65 @@ from p2pfl_tpu_torch.learning.lora import maybe_wrap_lora
 from p2pfl_tpu_torch.models.base import build_model
 from p2pfl_tpu_torch.p2p.aggd import SidecarClient
 from p2pfl_tpu_torch.p2p.node import P2PNode
+from p2pfl_tpu_torch.privacy.dp import DPSpec, epsilon_at
 from p2pfl_tpu_torch.topology.topology import generate_topology
 from p2pfl_tpu_torch.utils.monitor import publish_status
 
 
-def _refuse_unported(cfg: ScenarioConfig) -> None:
-    """What the scenario asks of the socket plane that this port does not
-    run yet."""
-    adv, el = cfg.adversary, cfg.elastic
-    for given, what in (
-        (bool(cfg.faults), "scripted faults and churn on the socket plane"),
-        (adv.active or adv.reputation,
-         "attacks and reputation on the socket plane"),
-        (cfg.privacy.dp, "DP-FedAvg on the socket plane"),
-        (el.async_aggregation, "async aggregation on the socket plane"),
-        (cfg.checkpoint_dir is not None, "node checkpoints"),
-    ):
-        if given:
-            raise _unported(what, "A22d")
+#: a rejoining node's dial to one neighbour, the hello's answer included
+_DIAL_S = 10.0
+
+
+def _adversary_setup(cfg: ScenarioConfig):
+    """``(malicious mask, AttackSpec or None, reputation on)`` from the
+    config alone: every process computes the same cohort."""
+    adv = cfg.adversary
+    if not (adv.active or adv.reputation):
+        return None, None, False
+    mask = (malicious_indices(cfg.n_nodes, adv.fraction, adv.seed,
+                              tuple(adv.nodes))
+            if adv.active else np.zeros(cfg.n_nodes, bool))
+    spec = (AttackSpec(kind=adv.kind, scale=adv.scale, seed=adv.seed)
+            if adv.active else None)
+    return mask, spec, adv.reputation
+
+
+def _poison_shard(data: FederatedDataset, idx: int) -> None:
+    """Label-flip poisoning of one node's train shard (the stacked plane
+    flips the same rows)."""
+    nd = data.nodes[idx]
+    data.nodes[idx] = dataclasses.replace(
+        nd, y=flip_labels(nd.y, data.num_classes))
+
+
+def _node_adversary_kwargs(cfg: ScenarioConfig, idx: int,
+                           data: FederatedDataset, setup) -> dict:
+    """Node ``idx``'s ``attack`` and ``reputation`` (and, for a
+    label-flipper, its poisoned shard in ``data``)."""
+    mask, spec, want_rep = setup
+    if mask is None:
+        return {}
+    if spec is not None and spec.kind == "labelflip" and mask[idx]:
+        _poison_shard(data, idx)
+    out: dict = {"attack": spec if (spec is not None and mask[idx])
+                 else None}
+    if want_rep:
+        # one monitor a node: trust is each node's own view
+        out["reputation"] = ReputationMonitor(
+            cfg.n_nodes, alpha=cfg.adversary.reputation_alpha,
+            cutoff=cfg.adversary.reputation_cutoff)
+    return out
+
+
+def _privacy_status(cfg: ScenarioConfig, round_num: int) -> dict:
+    """DP's spend for a status record: epsilon is a function of the
+    config and the rounds done, the same in every process."""
+    priv = cfg.privacy
+    if not priv.dp:
+        return {}
+    eps = epsilon_at(priv.noise_multiplier, int(round_num), priv.delta)
+    return {"dp_epsilon": round(eps, 4) if math.isfinite(eps) else eps,
+            "dp_epsilon_budget": priv.epsilon_budget}
 
 
 def _declares_full_mesh(cfg: ScenarioConfig) -> bool:
@@ -113,9 +183,15 @@ def _tls_pair_secrets(tls_dir: str | None, idx: int,
 
 def _node_layers(cfg: ScenarioConfig, idx: int,
                  tls_dir: str | None = None) -> dict:
-    """Node ``idx``'s ``tls`` and ``masker`` from the config (and the
-    TLS directory) alone, so every process derives the same secrets."""
+    """Node ``idx``'s ``tls``, ``dp`` and ``masker`` from the config (and
+    the TLS directory) alone, so every process derives the same noise
+    streams and secrets."""
     out: dict = {}
+    priv = cfg.privacy
+    if priv.dp:
+        out["dp"] = DPSpec(clip_norm=priv.clip_norm,
+                           noise_multiplier=priv.noise_multiplier,
+                           seed=cfg.seed)
     if tls_dir:
         from p2pfl_tpu_torch.p2p.tls import load_node_credentials
 
@@ -160,7 +236,9 @@ def _node(cfg: ScenarioConfig, i: int, data: FederatedDataset,
         protocol=cfg.protocol, federation=cfg.federation, seed=cfg.seed,
         full_mesh=_declares_full_mesh(cfg), wire_dtype=cfg.wire_dtype,
         elastic=cfg.elastic, fit_slowdown=cfg.nodes[i].fit_slowdown,
-        local_epochs=cfg.nodes[i].epochs, netem=cfg.network, **kw)
+        local_epochs=cfg.nodes[i].epochs, netem=cfg.network,
+        checkpoint_dir=cfg.checkpoint_dir,
+        checkpoint_every=cfg.checkpoint_every, **kw)
 
 
 def _aggd_status(client: SidecarClient | None) -> dict:
@@ -176,14 +254,18 @@ def _aggd_status(client: SidecarClient | None) -> dict:
     }
 
 
-def _status(node: P2PNode) -> dict:
-    return {"role": node.role, "round": node.round,
-            "peers": len(node.peers), "leader": node.leader,
-            "round_p95_s": node.round_p95_s(),
-            "bytes_in": node.bytes_in, "bytes_out": node.bytes_out,
-            "peer_bytes_in": dict(node.peer_bytes_in),
-            "peer_bytes_out": dict(node.peer_bytes_out),
-            "recompiles": 0, **_aggd_status(node.sidecar)}
+def _status(cfg: ScenarioConfig, node: P2PNode) -> dict:
+    out = {"role": node.role, "round": node.round,
+           "peers": len(node.peers), "leader": node.leader,
+           "round_p95_s": node.round_p95_s(),
+           "bytes_in": node.bytes_in, "bytes_out": node.bytes_out,
+           "peer_bytes_in": dict(node.peer_bytes_in),
+           "peer_bytes_out": dict(node.peer_bytes_out),
+           "recompiles": 0, **_privacy_status(cfg, node.round),
+           **_aggd_status(node.sidecar)}
+    if node.reputation is not None:
+        out["trust"] = float(node.reputation.trust[node.idx])
+    return out
 
 
 def _status_dir(cfg: ScenarioConfig) -> pathlib.Path | None:
@@ -219,19 +301,26 @@ async def _run_node(cfg: ScenarioConfig, idx: int, ports: list[int],
                     data: FederatedDataset, shared: SharedTrainer,
                     device: torch.device, hosts: list[str] | None = None,
                     bind: str = "127.0.0.1", tls_dir: str | None = None,
-                    sidecar: SidecarClient | None = None) -> dict:
-    """One node's whole life in a child process."""
+                    sidecar: SidecarClient | None = None,
+                    resume: bool = False) -> dict:
+    """One node's whole life in a child process. ``resume`` is the
+    supervisor's restart: the node adopts its own checkpoint and enters
+    the running federation through the "jr" hello and STATE_SYNC."""
     n = cfg.n_nodes
     hosts = hosts or ["127.0.0.1"] * n
     node = _node(cfg, idx, data, shared, device, host=bind, port=ports[idx],
-                 sidecar=sidecar, **_node_layers(cfg, idx, tls_dir))
+                 sidecar=sidecar, resume=resume, joiner=resume,
+                 **_node_adversary_kwargs(cfg, idx, data,
+                                          _adversary_setup(cfg)),
+                 **_node_layers(cfg, idx, tls_dir))
     learner = node.learner
     await node.start()
     topo = generate_topology(cfg.topology, n, **cfg.topology_kwargs)
     # dial the higher-index neighbours (retrying until they listen); the
-    # lower-index ones dial this node
+    # lower-index ones dial this node. A relaunch dials every neighbour:
+    # the running nodes dialled it long ago
     for j in topo.neighbors(idx):
-        if j < idx:
+        if j < idx and not resume:
             continue
         deadline = time.monotonic() + 60
         while True:
@@ -251,13 +340,14 @@ async def _run_node(cfg: ScenarioConfig, idx: int, ports: list[int],
     if status_dir is not None:
         async def _publish_loop():
             while True:
-                publish_status(status_dir, idx, _status(node))
+                publish_status(status_dir, idx, _status(cfg, node))
                 await asyncio.sleep(cfg.protocol.heartbeat_period_s)
 
         status_task = asyncio.get_running_loop().create_task(_publish_loop())
     # the kernels and the device's handles before the round clock starts
     await asyncio.get_running_loop().run_in_executor(None, learner.warm_up)
-    if cfg.nodes[idx].start:
+    if cfg.nodes[idx].start and not resume:
+        # a relaunch never starts the federation again: it joins it
         learner.init()
         node.set_start_learning(cfg.training.rounds,
                                 cfg.training.epochs_per_round)
@@ -271,11 +361,12 @@ async def _run_node(cfg: ScenarioConfig, idx: int, ports: list[int],
     metrics = {k: v for k, v in node.peer_metrics[idx].items()
                if k != "round"}
     if status_dir is not None:
-        publish_status(status_dir, idx, {**_status(node), **metrics})
+        publish_status(status_dir, idx, {**_status(cfg, node), **metrics})
     result = {"node": idx, "round": node.round,
               "round_p95_s": node.round_p95_s(),
               "bytes_in": node.bytes_in, "bytes_out": node.bytes_out,
-              "params_bytes_out": node.params_bytes_out, **metrics,
+              "params_bytes_out": node.params_bytes_out,
+              "floods_dropped": node.floods_dropped, **metrics,
               "device": str(device), "device_name": _device_name(device)}
     if node.learn_t0 is not None and node.learn_t1 is not None:
         result["learn_wall_s"] = round(node.learn_t1 - node.learn_t0, 3)
@@ -303,12 +394,11 @@ def _sidecar_result(client: SidecarClient | None) -> dict:
 def node_main(config_path: str, idx: int | list[int], ports: list[int],
               hosts: list[str] | None = None, bind: str = "127.0.0.1",
               device: torch.device | str = "cuda",
-              tls_dir: str | None = None) -> None:
+              tls_dir: str | None = None, resume: bool = False) -> None:
     """A child process: the nodes ``idx`` (one or a list) on one event
     loop, one ``P2PFL_RESULT`` line each."""
     idxs = [idx] if isinstance(idx, int) else list(idx)
     cfg = ScenarioConfig.load(config_path)
-    _refuse_unported(cfg)
     dev = resolve_device(device)
     data = FederatedDataset.make(cfg.data, cfg.n_nodes)  # the same shards
     shared = _shared_trainer(cfg, data, dev)
@@ -317,7 +407,8 @@ def node_main(config_path: str, idx: int | list[int], ports: list[int],
     async def _run_all() -> list[dict]:
         return list(await asyncio.gather(*(
             _run_node(cfg, i, ports, data, shared, dev, hosts=hosts,
-                      bind=bind, tls_dir=tls_dir, sidecar=sidecar)
+                      bind=bind, tls_dir=tls_dir, sidecar=sidecar,
+                      resume=resume)
             for i in idxs)))
 
     try:
@@ -334,13 +425,17 @@ async def _simulate(cfg: ScenarioConfig, timeout: float,
                     device: torch.device, nodes: list,
                     tls_dir: str | None,
                     sidecar: SidecarClient | None) -> dict:
-    _refuse_unported(cfg)
     n = cfg.n_nodes
     data = FederatedDataset.make(cfg.data, n)
     topo = generate_topology(cfg.topology, n, **cfg.topology_kwargs)
     shared = _shared_trainer(cfg, data, device)
+    adv_setup = _adversary_setup(cfg)
+    # a label-flipped shard is in place before its learner is built
+    adv_kwargs = [_node_adversary_kwargs(cfg, i, data, adv_setup)
+                  for i in range(n)]
     nodes.extend(_node(cfg, i, data, shared, device, sidecar=sidecar,
-                       **_node_layers(cfg, i, tls_dir)) for i in range(n))
+                       **adv_kwargs[i], **_node_layers(cfg, i, tls_dir))
+                 for i in range(n))
     for node in nodes:
         await node.start()
     for i in range(n):
@@ -358,13 +453,98 @@ async def _simulate(cfg: ScenarioConfig, timeout: float,
         async def _status_loop() -> None:
             while True:
                 for nd in nodes:
-                    publish_status(status_dir, nd.idx, _status(nd))
+                    if not nd._crashed:  # a dead node's record ages out
+                        publish_status(status_dir, nd.idx, _status(cfg, nd))
                 await asyncio.sleep(cfg.protocol.heartbeat_period_s)
 
         status_task = asyncio.create_task(_status_loop())
 
+    # scripted churn: a crash kills a real node, a join, recover or
+    # restart builds a fresh one in its slot that enters the running
+    # federation through the "jr" hello and STATE_SYNC
+    joined: list[int] = []
+    restarted: list[int] = []
+
+    async def _rejoin_node(i: int, resume: bool = False) -> None:
+        nd = _node(cfg, i, data, shared, device, sidecar=sidecar,
+                   joiner=True, resume=resume, **{
+                       **adv_kwargs[i],
+                       # a fresh masker derives the same pair streams
+                       **_node_layers(cfg, i, tls_dir)})
+        nodes[i] = nd
+        await nd.start()
+        (restarted if resume else joined).append(i)
+        # off the loop: on the card it waits for the device's lock, which
+        # the running nodes' fits take in turn
+        await asyncio.get_running_loop().run_in_executor(
+            None, nd.learner.warm_up)
+
+        # every neighbour, a finished one too: it answers with its final
+        # model and round, and a joiner late for the whole run finishes
+        # at once (a crashed one refuses the dial, or never answers)
+        for j in topo.neighbors(i):
+            if nodes[j] is not nd:
+                with contextlib.suppress(OSError, asyncio.TimeoutError):
+                    await asyncio.wait_for(
+                        nd.connect_to(nodes[j].host, nodes[j].port),
+                        timeout=_DIAL_S)
+
+    fault_task = None
+    watch_tasks: list[asyncio.Task] = []
+    # rejoins run beside the driver: a node coming back takes seconds
+    # (its warm-up, a dial to each neighbour), and one after another the
+    # last of a round's joins could land after the run ended
+    join_tasks: list[asyncio.Task] = []
+    recovery: dict = {"partitions": 0, "heals": 0}
+
+    def _live() -> list[P2PNode]:
+        return [nd for nd in nodes if not nd.finished.is_set()]
+
+    async def _recovery_watch(t_heal: float, at_heal: dict[int, int]) -> None:
+        # heal to the first round every live node began after the heal
+        while True:
+            live = _live()
+            if not live or all(nd.round > at_heal.get(nd.idx, -1)
+                               for nd in live):
+                break
+            await asyncio.sleep(0.05)
+        recovery["recovery_s"] = round(time.monotonic() - t_heal, 3)
+
+    async def _fault_driver() -> None:
+        for f in sorted(cfg.faults, key=lambda f: (f.round, f.node)):
+            # on the round front, not a clock: a fault for round r fires
+            # once a live node has reached round r
+            while True:
+                live = _live()
+                if not live:
+                    return  # the federation is over
+                if max(nd.round for nd in live) >= f.round:
+                    break
+                await asyncio.sleep(0.05)
+            if f.kind == "crash":
+                await nodes[f.node].crash()
+            elif f.kind == "partition":
+                recovery["partitions"] += 1
+                for nd in _live():  # the same cut everywhere: symmetric
+                    nd.apply_partition(f.groups)
+            elif f.kind == "heal":
+                recovery["heals"] += 1
+                at_heal = {nd.idx: nd.round for nd in _live()}
+                for nd in _live():
+                    nd.heal_partition()
+                watch_tasks.append(asyncio.create_task(
+                    _recovery_watch(time.monotonic(), at_heal)))
+            else:  # restart (from the node's checkpoint), join, recover
+                join_tasks.append(asyncio.create_task(
+                    _rejoin_node(f.node, resume=f.kind == "restart")))
+
+    if cfg.faults:
+        fault_task = asyncio.create_task(_fault_driver())
+
     async def _all_finished() -> None:
-        await asyncio.gather(*(nd.finished.wait() for nd in nodes))
+        # a join puts a new node in its slot: poll the list
+        while not all(nd.finished.is_set() for nd in nodes):
+            await asyncio.sleep(0.1)
 
     t0 = time.monotonic()
     nodes[starter].set_start_learning(cfg.training.rounds,
@@ -373,18 +553,30 @@ async def _simulate(cfg: ScenarioConfig, timeout: float,
         await asyncio.wait_for(_all_finished(), timeout=timeout)
     finally:
         wall = time.monotonic() - t0
-        if status_task is not None:
-            status_task.cancel()
+        for task in (fault_task, status_task, *join_tasks):
+            if task is not None and not task.done():
+                task.cancel()
+                with contextlib.suppress(asyncio.CancelledError):
+                    await task
+        for wt in watch_tasks:
+            # one tick for a pending watch to see the finished run
+            with contextlib.suppress(asyncio.TimeoutError,
+                                     asyncio.CancelledError):
+                await asyncio.wait_for(wt, timeout=0.5)
         for node in nodes:
             await node.stop()
+    for task in (fault_task, *join_tasks):
+        if (task is not None and not task.cancelled()
+                and task.exception() is not None):
+            raise RuntimeError("a scripted fault failed") from task.exception()
     _raise_failed(nodes)
     if status_dir is not None:
         for nd in nodes:
-            publish_status(status_dir, nd.idx, _status(nd))
+            publish_status(status_dir, nd.idx, _status(cfg, nd))
     accs = [m.get("accuracy") for m in
             (nd.peer_metrics.get(nd.idx) or {} for nd in nodes)
             if m.get("accuracy") is not None]
-    return {
+    out = {
         "n_nodes": n,
         "rounds": min(nd.round for nd in nodes),
         "wall_s": round(wall, 3),
@@ -396,8 +588,36 @@ async def _simulate(cfg: ScenarioConfig, timeout: float,
         "params_bytes_out": sum(nd.params_bytes_out for nd in nodes),
         "loop_payload_touch_bytes": sum(
             nd.loop_payload_touch_bytes for nd in nodes),
+        # beats and roles read loops dropped on full lanes
+        "floods_dropped": sum(nd.floods_dropped for nd in nodes),
         **_sidecar_result(sidecar),
     }
+    el = cfg.elastic
+    if cfg.faults or el.active:
+        out["churn"] = {
+            "async": el.async_aggregation,
+            "crashes": sorted(f.node for f in cfg.faults
+                              if f.kind == "crash"),
+            "joined": sorted(joined),
+            "restarted": sorted(restarted),
+            "stragglers": [i for i in range(n)
+                           if cfg.nodes[i].fit_slowdown > 1.0],
+        }
+        if recovery["partitions"] or recovery["heals"]:
+            out["churn"]["partitions"] = recovery["partitions"]
+            out["churn"]["heals"] = recovery["heals"]
+            if "recovery_s" in recovery:
+                out["churn"]["recovery_s"] = recovery["recovery_s"]
+    if any(nd.reputation is not None for nd in nodes):
+        # each node's own trust vector, and whom any node would exclude
+        out["trust"] = [
+            [round(float(t), 4) for t in nd.reputation.trust]
+            if nd.reputation is not None else None for nd in nodes]
+        out["suspects"] = sorted({s for nd in nodes
+                                  if nd.reputation is not None
+                                  for s in nd.reputation.suspects()})
+    out.update(_privacy_status(cfg, out["rounds"]))
+    return out
 
 
 def run_simulation(cfg: ScenarioConfig, timeout: float = 600,
@@ -426,12 +646,13 @@ def run_simulation(cfg: ScenarioConfig, timeout: float = 600,
 
 def launch(cfg: ScenarioConfig, config_path: str | pathlib.Path,
            platform: str | None = None, nodes_per_proc: int = 1,
-           max_restarts: int = 0, timeout: float = 900) -> list[dict]:
+           max_restarts: int = 0, restart_backoff_s: float = 1.0,
+           timeout: float = 900) -> list[dict]:
     """Spawn the node processes (``nodes_per_proc`` nodes each) and
-    collect their results; raises if a child fails."""
-    if max_restarts > 0:
-        raise _unported("restarting node processes (--max-restarts)", "A22d")
-    _refuse_unported(cfg)
+    collect their results; raises if a child group fails for good.
+    Every group is supervised concurrently; with ``max_restarts`` > 0 a
+    group that exits non-zero is spawned again with ``--resume`` after
+    the capped exponential backoff (see the module doc)."""
     ports = _free_ports(cfg.n_nodes)
     tls_dir = None
     if cfg.encrypt:
@@ -444,7 +665,7 @@ def launch(cfg: ScenarioConfig, config_path: str | pathlib.Path,
     root = str(pathlib.Path(__file__).resolve().parents[2])
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p)}
-    procs = []
+    cmds = []
     for group in groups:
         cmd = [sys.executable, "-m", "p2pfl_tpu_torch.p2p.launch",
                str(config_path), "--node", ",".join(map(str, group)),
@@ -453,30 +674,60 @@ def launch(cfg: ScenarioConfig, config_path: str | pathlib.Path,
             cmd += ["--platform", platform]
         if tls_dir:
             cmd += ["--tls-dir", tls_dir]
-        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True,
-                                      env=env))
-    outs, failed = [], []
+        cmds.append(cmd)
+    live: list[subprocess.Popen] = []
+
+    def spawn(cmd: list[str]) -> subprocess.Popen:
+        p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, env=env)
+        live.append(p)
+        return p
+
+    procs = [spawn(cmd) for cmd in cmds]
+    t_end = time.monotonic() + timeout
+
+    def supervise(gi: int) -> tuple[str, int, int]:
+        """One group to its end: (every attempt's output, the last exit
+        code, the restarts taken)."""
+        p, attempt, chunks = procs[gi], 0, []
+        while True:
+            out, _ = p.communicate(timeout=max(t_end - time.monotonic(), 1))
+            chunks.append(out)
+            if p.returncode == 0 or attempt >= max_restarts:
+                return "".join(chunks), p.returncode, attempt
+            attempt += 1
+            time.sleep(restart_backoff_delay(restart_backoff_s, attempt))
+            p = spawn(cmds[gi] + ["--resume"])
+
     try:
-        for group, p in zip(groups, procs):
-            out, _ = p.communicate(timeout=timeout)
-            outs.append(out)
-            if p.returncode != 0:
-                failed.append(f"nodes {group} exited {p.returncode}:\n"
-                              + out[-4000:])
+        # every group at once: a dead group must come back while its
+        # peers are still mid-federation, and no child may block on a
+        # full stdout pipe while another group is waited on
+        with ThreadPoolExecutor(max_workers=len(groups)) as pool:
+            done = list(pool.map(supervise, range(len(groups))))
     finally:
-        for p in procs:
+        for p in live:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    failed = [f"nodes {group} exited {rc}:\n" + out[-4000:]
+              for group, (out, rc, _) in zip(groups, done) if rc != 0]
     if failed:
         raise RuntimeError("socket federation failed: " + "\n".join(failed))
     results = []
-    for out in outs:
+    for group, (out, _rc, restarts) in zip(groups, done):
         for line in out.splitlines():
             if line.startswith("P2PFL_RESULT "):
-                results.append(json.loads(line[len("P2PFL_RESULT "):]))
+                result = json.loads(line[len("P2PFL_RESULT "):])
+                result["restarts"] = restarts
+                results.append(result)
     return results
+
+
+def restart_backoff_delay(base_s: float, attempt: int) -> float:
+    """The supervisor's wait before restart ``attempt`` (1, 2, ...):
+    ``base_s * 2^(attempt - 1)``, capped at 30 s."""
+    return min(float(base_s) * (2.0 ** (attempt - 1)), 30.0)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -499,12 +750,16 @@ def main(argv: list[str] | None = None) -> int:
                     help="comma-separated per-node hostnames (child mode)")
     ap.add_argument("--bind", default="127.0.0.1",
                     help="listen address (0.0.0.0 inside containers)")
-    ap.add_argument("--resume", action="store_true", help="A22d: not ported")
+    ap.add_argument("--resume", action="store_true",
+                    help="child mode: adopt each node's own checkpoint and "
+                         "join the running federation (the restart path)")
     ap.add_argument("--max-restarts", type=int, default=0,
-                    help="A22d: not ported")
+                    help="parent mode: spawn a dead child group again with "
+                         "--resume up to this many times")
+    ap.add_argument("--restart-backoff-s", type=float, default=1.0,
+                    help="base of the restart backoff (doubling per "
+                         "attempt, capped at 30 s)")
     args = ap.parse_args(argv)
-    if args.resume:
-        raise _unported("resuming a node (--resume)", "A22d")
     device = args.platform or "cuda"
     if device == "cuda" and not torch.cuda.is_available():
         print("p2pfl_tpu_torch.p2p.launch: no CUDA device is available; "
@@ -514,12 +769,14 @@ def main(argv: list[str] | None = None) -> int:
         node_main(args.config, [int(i) for i in str(args.node).split(",")],
                   [int(p) for p in args.ports.split(",")],
                   hosts=args.hosts.split(",") if args.hosts else None,
-                  bind=args.bind, device=device, tls_dir=args.tls_dir)
+                  bind=args.bind, device=device, tls_dir=args.tls_dir,
+                  resume=args.resume)
         return 0
     cfg = ScenarioConfig.load(args.config)
     results = launch(cfg, args.config, platform=args.platform,
                      nodes_per_proc=args.nodes_per_proc,
-                     max_restarts=args.max_restarts)
+                     max_restarts=args.max_restarts,
+                     restart_backoff_s=args.restart_backoff_s)
     print(json.dumps({"nodes": results}))
     return 0
 

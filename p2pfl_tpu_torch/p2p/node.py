@@ -39,20 +39,48 @@ The transport and privacy layers, each off unless asked for:
   evicted member's pair seed is revealed (SECAGG_SHARE) so the quorum
   can unmask without it.
 
+The adversarial and elastic layers, each off unless asked for:
+
+- ``attack`` (an ``AttackSpec``) and ``dp`` (a ``DPSpec``): this node's
+  trained update is poisoned, then privatized, once, on its device,
+  against the round's starting params and keyed by (seed, node, round),
+  so it has the bits of the stacked plane's row for this node
+  (``poison_stacked``, ``privatize_stacked``); the transformed params
+  back both the node's own session entry and every send;
+- ``reputation`` (a ``ReputationMonitor``, one a node): the session
+  scores its entries at finish and weighs them by trust;
+- ``elastic.async_aggregation``: the session closes at its quorum, the
+  gossip and the round barrier stop at that quorum too, and an update
+  for an earlier round folds into the current session with its weight
+  discounted by its staleness (``self.round - msg_round``), on the
+  inline and the sidecar plane alike;
+- ``crash()``: an abrupt teardown without STOP, found by the peers'
+  heartbeat silence and probes;
+- ``joiner``: the CONNECT hello declares a live join ("jr"); an
+  established node answers with STATE_SYNC (the model in the checkpoint
+  blob's format, the round and the run's parameters, also after its run
+  ended), and the joiner adopts it and fast-forwards, never rewinding
+  (a STATE_SYNC landing while the joiner votes ends that round at once;
+  one landing later waits for the round's boundary);
+- ``checkpoint_dir`` / ``checkpoint_every``: the node's params and round
+  saved atomically every ``checkpoint_every`` rounds; ``resume`` adopts
+  that file before any peer contact, and the first STATE_SYNC decides
+  once whether the peer's newer round wins.
+
 Fit and evaluate run in the loop's executor, so heartbeats keep flowing
 while a node trains; a fit or an evaluation that raises fails the node
-(``error`` set, ``finished`` set) and the launcher raises. Attacks,
-reputation, DP, async aggregation, the live join (STATE_SYNC) and node
-checkpoints are A22d: each raises naming its item. Trace spans and
-flight events are A23 and are left out.
+(``error`` set, ``finished`` set) and the launcher raises. Trace spans
+and flight events are A23 and are left out.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import logging
+import math
 import random
 import secrets
 import time
@@ -60,11 +88,11 @@ from typing import Any
 
 import numpy as np
 
+from p2pfl_tpu_torch.adversary.attacks import poison_update
 from p2pfl_tpu_torch.config.schema import (
     ElasticConfig,
     FaultEvent,
     ProtocolConfig,
-    _unported,
 )
 from p2pfl_tpu_torch.core.aggregators import Aggregator
 from p2pfl_tpu_torch.core.serialize import (
@@ -78,6 +106,12 @@ from p2pfl_tpu_torch.core.serialize import (
     tree_leaves_sorted,
     tree_unflatten_sorted,
 )
+from p2pfl_tpu_torch.federation.checkpoint import (
+    load_node_checkpoint,
+    pack_model,
+    save_node_checkpoint,
+    unpack_model,
+)
 from p2pfl_tpu_torch.federation.membership import Membership
 from p2pfl_tpu_torch.p2p.protocol import (
     GOSSIPED,
@@ -90,12 +124,22 @@ from p2pfl_tpu_torch.p2p.protocol import (
 )
 from p2pfl_tpu_torch.p2p.netem import shaper_from_config
 from p2pfl_tpu_torch.p2p.session import AggregationSession, SidecarSession
+from p2pfl_tpu_torch.privacy.dp import privatize_update
 
 log = logging.getLogger("p2pfl_tpu_torch.p2p")
 
 #: transport-buffer ceiling of the idle-lane fast write (asyncio's
 #: default 64 KiB high-water mark)
 _FAST_LANE_MAX = 1 << 16
+
+
+
+def _abort_unsent(writer: asyncio.StreamWriter) -> None:
+    """Close a closing connection at once, dropping what it has not sent.
+    With nothing unsent its close is under way or done (aborting a
+    transport whose close already finished would fail)."""
+    if writer.transport.get_write_buffer_size():
+        writer.transport.abort()
 
 
 @dataclasses.dataclass
@@ -117,6 +161,13 @@ class PeerState:
     outbox: list = dataclasses.field(default_factory=list)
     outbox_bytes: int = 0
     flush_due: bool = False
+    #: floods a read loop could not put on the full lane, in order; one
+    #: task puts them as room comes (see ``P2PNode._write``)
+    overflow: collections.deque = dataclasses.field(
+        default_factory=collections.deque)
+    #: the peer's hello declared a live join ("jr"): its model comes in
+    #: the STATE_SYNC answer, not in the catch-up's initial weights
+    joiner: bool = False
 
 
 @dataclasses.dataclass
@@ -157,25 +208,13 @@ class P2PNode:
         local_epochs: int | None = None,
         joiner: bool = False,
         checkpoint_dir: str | None = None,
+        checkpoint_every: int = 0,
         resume: bool = False,
         sidecar=None,
         dp=None,
         masker=None,
     ):
         el = elastic if elastic is not None else ElasticConfig()
-        for given, what, item in (
-            (attack is not None, "attacks on the socket plane", "A22d"),
-            (reputation is not None, "reputation on the socket plane",
-             "A22d"),
-            (dp is not None, "DP-FedAvg on the socket plane", "A22d"),
-            (el.async_aggregation, "async aggregation on the socket plane",
-             "A22d"),
-            (joiner, "the live join (STATE_SYNC)", "A22d"),
-            (checkpoint_dir is not None or resume,
-             "node checkpoints and resume", "A22d"),
-        ):
-            if given:
-                raise _unported(what, item)
         if wire_dtype not in WIRE_DTYPES:
             raise ValueError(
                 f"unknown wire_dtype {wire_dtype!r}; have {WIRE_DTYPES}")
@@ -217,12 +256,37 @@ class P2PNode:
         # at the write (every node applies the same cut: symmetric)
         self._severed: set[int] = set()
         self.masker = masker
+        #: the ``AttackSpec`` this node applies to its own update (None:
+        #: honest), the ``DPSpec`` it privatizes it with, and its own
+        #: ``ReputationMonitor``, shared with its session
+        self.attack = attack
+        self.dp = dp
+        self.reputation = reputation
+        self.elastic = el
+        #: entering a running federation: the hello declares it ("jr")
+        self.joiner = bool(joiner)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
+        self.resume = bool(resume)
+        # the round of the checkpoint a resume adopted, until the first
+        # STATE_SYNC decides which is newer
+        self._resume_round: int | None = None
+        # a STATE_SYNC round that landed mid-round: the learning loop
+        # fast-forwards at the next round boundary
+        self._join_round_target: int | None = None
+        #: the models this node adopted, in order: "initial" (weights a
+        #: peer pushed), "checkpoint" (its own file), "state_sync"
+        self.adopted: list[str] = []
+        self._crashed = False
         self.wire_dtype = wire_dtype
         self._peer_wire: dict[int, tuple[str, ...]] = {}
         # int8 error feedback: the quantization error of this node's
         # own shipped update, carried into its next send
         self._ef_residual: list[Any] | None = None
         self.params_bytes_out = 0
+        #: beats and roles a read loop dropped on a full lane (see
+        #: ``_write``)
+        self.floods_dropped = 0
         self.bytes_in = 0
         self.bytes_out = 0
         self.peer_bytes_in: dict[int, int] = {}
@@ -236,14 +300,19 @@ class P2PNode:
         self.loop_payload_touch_bytes = 0
         #: the host's ``aggd.SidecarClient``, shared by the process's nodes
         self.sidecar = sidecar
+        quorum = dict(
+            min_received=el.min_received if el.async_aggregation else 1.0,
+            staleness_beta=el.staleness_beta if el.async_aggregation
+            else 0.0)
         if sidecar is not None:
             self.session: AggregationSession = SidecarSession(
                 aggregator, timeout_s=self.protocol.aggregation_timeout_s,
-                client=sidecar, spawn=self._track_task)
+                reputation=reputation, client=sidecar,
+                spawn=self._track_task, **quorum)
         else:
             self.session = AggregationSession(
                 aggregator, timeout_s=self.protocol.aggregation_timeout_s,
-                masker=masker)
+                reputation=reputation, masker=masker, **quorum)
         self.membership = Membership(
             n_nodes, self.protocol, virtual=False,
             retry_limit=el.heartbeat_retry_limit,
@@ -251,6 +320,9 @@ class P2PNode:
             backoff_max_s=el.heartbeat_backoff_max_s,
         )
         self.peers: dict[int, PeerState] = {}
+        # every connection registered, also those a redial replaced:
+        # stop and crash end their tasks too
+        self._conns: list[PeerState] = []
         self.progress: dict[int, NodeProgress] = {}
         self.peer_roles: dict[int, str] = {}
         self.peer_metrics: dict[int, dict[str, Any]] = {}
@@ -311,17 +383,68 @@ class P2PNode:
         if self.shaper is not None:
             # the partition plan's time 0 is the node's start
             self.shaper.start_clock()
+        if self.resume and self.checkpoint_dir:
+            await self._try_resume()
         self._track_task(self._heartbeat_loop(), "heartbeat_loop")
 
+    async def _try_resume(self) -> None:
+        """A relaunch adopts its own checkpoint before any peer contact;
+        a later STATE_SYNC replaces it only with a newer round. A torn
+        file is logged naming it, and the node joins as a fresh
+        joiner."""
+        ln = self.learner
+        if getattr(ln, "state", True) is None or getattr(ln, "fns", True) is None:
+            ln.init()
+        try:
+            got = load_node_checkpoint(self.checkpoint_dir, self.idx,
+                                       ln.get_parameters())
+        except ValueError as e:
+            log.warning("node %d resume failed, joining fresh: %s",
+                        self.idx, e)
+            return
+        if got is None:
+            return
+        params, rnd = got
+        await self._set_parameters(params)
+        self.initialized = True
+        self.round = rnd
+        self._resume_round = rnd
+        self.adopted.append("checkpoint")
+
+    async def crash(self) -> None:
+        """An abrupt teardown without the STOP announcement: the peers
+        find the death by heartbeat silence and failed probes, as for a
+        killed process. A fit in flight in the executor cannot be
+        cancelled: it is asked to stop at its next epoch and writes only
+        into this node's own learner. ``stop()`` after a crash does
+        nothing."""
+        if self._crashed:
+            return
+        self._crashed = True
+        self.learning = False
+        interrupt = getattr(self.learner, "interrupt_fit", None)
+        if interrupt is not None:
+            interrupt()
+        await self._cancel_all()
+        for peer in {id(p): p for p in (*self._conns,
+                                        *self.peers.values())}.values():
+            _abort_unsent(peer.writer)  # unsent bytes die with it
+        self.peers.clear()
+        if self._server:
+            self._server.close()
+        self._release_slot_refs()
+        self.finished.set()
+
     async def _cancel_all(self) -> None:
-        for t in [self._learn_task, *self._tasks]:
+        for t in [self._learn_task, *list(self._tasks)]:
             if t is not None:
                 t.cancel()
                 with contextlib.suppress(asyncio.CancelledError):
                     await t
         if self.shaper is not None:
             self.shaper.close()  # shaped frames in flight are lost
-        for peer in list(self.peers.values()):
+        for peer in {id(p): p for p in (*self._conns,
+                                        *self.peers.values())}.values():
             self._flush(peer)
             for t in (peer.send_task, peer.reader_task):
                 if t is not None:
@@ -350,8 +473,8 @@ class P2PNode:
         """Sever every link across the ``groups`` cut, as seen from this
         node: frames to peers of other groups are dropped at the write.
         Applied on every node, the cut is symmetric; a node in no group
-        is unaffected. Membership sees a partition fault. (The fault
-        driver that applies cuts on a schedule is A22d.)"""
+        is unaffected. Membership sees a partition fault (the launcher's
+        fault driver applies scripted cuts here)."""
         mine = next((g for g in groups if self.idx in g), None)
         if mine is None:
             return
@@ -389,6 +512,8 @@ class P2PNode:
         return self.shaper is not None and self.shaper.severed_now(node)
 
     async def stop(self) -> None:
+        if self._crashed:
+            return
         # announce the departure (per peer, bounded, concurrently) so
         # peers drop this node at once instead of timing it out
         stop_msg = self._sign(Message(MsgType.STOP, self.idx))
@@ -403,9 +528,15 @@ class P2PNode:
 
         await asyncio.gather(*(announce(p) for p in list(self.peers.values())))
         await self._cancel_all()
-        for peer in list(self.peers.values()):
-            with contextlib.suppress(Exception):
-                await asyncio.wait_for(peer.writer.wait_closed(), timeout=1.0)
+        peers = list(self.peers.values())
+        # one second for every lane to flush, together; what a peer that
+        # stopped reading left unsent is dropped
+        with contextlib.suppress(asyncio.TimeoutError):
+            await asyncio.wait_for(asyncio.gather(
+                *(p.writer.wait_closed() for p in peers),
+                return_exceptions=True), timeout=1.0)
+        for peer in peers:
+            _abort_unsent(peer.writer)
         self.peers.clear()
         if self._server:
             self._server.close()
@@ -415,9 +546,13 @@ class P2PNode:
     # connections
     # ------------------------------------------------------------------
     def _hello_body(self) -> dict:
-        """The CONNECT hello: the dial-back port and the wire dtypes this
-        node decodes."""
-        return {"port": self.port, "wd": list(WIRE_DTYPES)}
+        """The CONNECT hello: the dial-back port, the wire dtypes this
+        node decodes and, entering a running federation, the live-join
+        declaration "jr" (the last round it knows)."""
+        body = {"port": self.port, "wd": list(WIRE_DTYPES)}
+        if self.joiner:
+            body["jr"] = self.round
+        return body
 
     def _hello_ok(self, hello: Message, writer) -> bool:
         """Under TLS the index a hello claims must be the connection
@@ -473,18 +608,42 @@ class P2PNode:
     def _on_hello_extras(self, peer: PeerState, hello: Message,
                          host: str | None = None) -> None:
         """Remember the peer's dial-back address (reconnect probes redial
-        it). A joiner's hello ("jr", from a JAX node) re-admits it to
-        membership; its model comes through ``_sync_peer``'s catch-up,
-        since answering with STATE_SYNC is A22d."""
+        it). A joiner's hello ("jr") re-admits it to membership and is
+        answered with STATE_SYNC, during learning and after the run
+        ended (a finished node sends its final model and round, so a
+        late joiner adopts it and finishes at once)."""
         port = hello.body.get("port")
         if host is None:
             peername = peer.writer.get_extra_info("peername")
             host = peername[0] if peername else None
         if host is not None and port is not None:
             self._peer_addrs[peer.idx] = (host, int(port))
-        if hello.body.get("jr") is not None:
-            self.membership.apply_fault(
-                FaultEvent(node=peer.idx, round=self.round, kind="join"))
+        if hello.body.get("jr") is None:
+            return
+        peer.joiner = True
+        self.membership.apply_fault(
+            FaultEvent(node=peer.idx, round=self.round, kind="join"))
+        if self.initialized and (self.learning or self.finished.is_set()):
+            self._track_task(self._send_state_sync(peer), "state_sync")
+
+    async def _send_state_sync(self, peer: PeerState) -> None:
+        """The current model as a checkpoint-format blob (``pack_model``,
+        the node checkpoint's bytes), with the round, rounds, epochs and
+        leader a joiner needs to fast-forward. MODEL_INITIALIZED goes
+        first: a node whose run ended floods it no more, and a joiner
+        would wait out its initial diffusion for it."""
+        init = self._sign(Message(MsgType.MODEL_INITIALIZED, self.idx))
+        self.dedup.check_and_add(init.msg_id)
+        msg = self._sign(Message(
+            MsgType.STATE_SYNC, self.idx,
+            {"round": self.round, "rounds": self.total_rounds,
+             "epochs": self.epochs, "leader": self.leader},
+            payload=pack_model(self.learner.get_parameters(), self.round)))
+        try:
+            await self._write(peer, init)
+            await self._write(peer, msg)
+        except (ConnectionError, RuntimeError):
+            self._drop_conn(peer)
 
     def _record_peer_wire(self, hello: Message) -> None:
         """The wire precisions the peer's hello advertised (none from a
@@ -499,6 +658,10 @@ class P2PNode:
         peer.send_task = asyncio.create_task(self._drain_send_q(peer))
         peer.reader_task = asyncio.create_task(self._read_loop(peer, reader))
         self.peers[idx] = peer
+        self._conns = [c for c in self._conns
+                       if c.reader_task is not None
+                       and not c.reader_task.done()]
+        self._conns.append(peer)
         self.membership.beat(idx)
         self._track_task(self._sync_peer(peer), "sync_peer")
         return peer
@@ -522,8 +685,10 @@ class P2PNode:
                      "leader": self.leader}))
                 if self.initialized:
                     await send(Message(MsgType.MODEL_INITIALIZED, self.idx))
-                    await self._send_params(
-                        peer, self.learner.get_parameters(), (), 1, init=True)
+                    if not peer.joiner:  # a joiner's comes in STATE_SYNC
+                        await self._send_params(
+                            peer, self.learner.get_parameters(), (), 1,
+                            init=True)
                 await send(Message(MsgType.MODELS_READY, self.idx,
                                    {"round": self.round}))
         except (ConnectionError, RuntimeError):
@@ -536,6 +701,7 @@ class P2PNode:
             self.peers.pop(peer.idx, None)
         if peer.send_task is not None and not peer.send_task.done():
             peer.send_task.cancel()
+        peer.overflow.clear()
         if peer.send_q is not None:
             while True:
                 try:
@@ -631,6 +797,7 @@ class P2PNode:
                 await self._dispatch(peer, msg)
         except (asyncio.IncompleteReadError, ConnectionError, ValueError):
             self._drop_conn(peer)
+            peer.writer.close()  # the peer is gone (a crash closes no lane)
 
     def _slot_sink(self, obj: dict, pl: int):
         """``read_message``'s divert: a leased arena slot for this
@@ -683,8 +850,10 @@ class P2PNode:
                       and self._rng.random() >= relay_p)
             if not damped:
                 await self._forward(msg, exclude=peer.idx,
-                                    limit=self.protocol.gossip_fanout)
-        elif msg.type is MsgType.PARAMS and not self._verify_origin(msg):
+                                    limit=self.protocol.gossip_fanout,
+                                    nowait=True)
+        elif (msg.type in (MsgType.PARAMS, MsgType.STATE_SYNC)
+              and not self._verify_origin(msg)):
             self._release_msg_slot(msg)
             return
         t = msg.type
@@ -710,6 +879,8 @@ class P2PNode:
             self._evict(int(msg.sender))
         elif t is MsgType.PARAMS:
             await self._on_params(peer, msg)
+        elif t is MsgType.STATE_SYNC:
+            await self._on_state_sync(msg)
         elif t is MsgType.MODELS_AGGREGATED:
             # within a round coverage only grows: older rounds are
             # ignored, the same round's sets union
@@ -748,7 +919,6 @@ class P2PNode:
                     int(msg.body["round"]), int(msg.body["seed"]))
                 if int(msg.body["round"]) == self.masker.round_num:
                     self._secagg_on_evict(int(msg.body["dead"]))
-        # STATE_SYNC (A22d) is dropped, never acted on
 
     async def _on_params(self, peer: PeerState, msg: Message) -> None:
         if msg.body.get("init"):
@@ -762,8 +932,10 @@ class P2PNode:
                 finally:
                     self._adopting_initial = False
                 self.initialized = True
+                self.adopted.append("initial")
                 await self.broadcast(
-                    Message(MsgType.MODEL_INITIALIZED, self.idx))
+                    Message(MsgType.MODEL_INITIALIZED, self.idx),
+                    nowait=True)
                 # relay the initial weights onward (multi-hop overlays)
                 self._track_task(self._diffuse_initial(), "diffuse_initial")
             return
@@ -773,51 +945,138 @@ class P2PNode:
                 await self._forward(msg, exclude=peer.idx)
         # round fence: a future round's model, or this round's before the
         # round body is ready, waits for that round's start; a past
-        # round's model is dropped
+        # round's model folds (async) or is dropped
         msg_round = int(msg.body.get("round", self.round))
         if msg_round > self.round or (
             msg_round == self.round and not self._round_active
         ):
             self._pending_params.append((peer, msg))
             return
-        if msg_round < self.round:
+        staleness = self.round - msg_round
+        if staleness > 0 and not self._folds(msg):
             self._release_msg_slot(msg)
             return
         if self.session.waiting and not msg.body.get("aggregated"):
             self._release_msg_slot(msg)
             return  # waiting nodes adopt only a finished aggregate
-        contribs = tuple(int(c) for c in msg.body.get("c") or ())
-        weight = int(msg.body.get("w", 1))
-        if msg._slot is not None:
-            if self.session.waiting:
-                # a buffered aggregate meeting a session that turned
-                # waiting: adoption decodes (counted; the sink never
-                # diverts an adoption on the live path)
-                n = msg._slot_len
-                self.loop_payload_touch_bytes += n
-                blob = bytes(self.sidecar.view(msg._slot, n))
-                self._release_msg_slot(msg)
-                payload = decode_parameters(blob)
-                covered = self.session.add_model(
-                    payload.params, payload.contributors, payload.weight)
-            else:
-                covered = self.session.add_slot(msg._slot, msg._slot_len,
-                                                contribs, weight)
-                msg._slot = None  # the session owns it now
-        elif (self.sidecar is not None and not self.session.waiting
-              and "c" in msg.body and "w" in msg.body):
-            # the arena was full at the sink: the bytes still fold
-            # undecoded
-            covered = self.session.add_blob(msg.payload, contribs, weight)
-        else:
-            self.loop_payload_touch_bytes += len(msg.payload)
-            payload = decode_parameters(msg.payload)
+        if msg._slot is not None and self.session.waiting:
+            # a buffered aggregate meeting a session that turned waiting:
+            # adoption decodes (counted; the sink never diverts an
+            # adoption on the live path)
+            n = msg._slot_len
+            self.loop_payload_touch_bytes += n
+            blob = bytes(self.sidecar.view(msg._slot, n))
+            self._release_msg_slot(msg)
+            payload = decode_parameters(blob)
             covered = self.session.add_model(
                 payload.params, payload.contributors, payload.weight)
+        else:
+            covered = self._session_add(msg, staleness)
         if covered:
             await self.broadcast(Message(
                 MsgType.MODELS_AGGREGATED, self.idx,
-                {"contributors": sorted(covered), "round": self.round}))
+                {"contributors": sorted(covered), "round": self.round}),
+                nowait=True)
+
+    def _folds(self, msg: Message) -> bool:
+        """An update for an earlier round folds into the open session in
+        async mode (FedBuff's late inclusion) when it is a raw
+        contribution: a stale aggregate is last round's result, and it
+        would cover the fresh session at once."""
+        return (self.session.async_mode and self._round_active
+                and not self.session.waiting
+                and not msg.body.get("aggregated"))
+
+    def _session_add(self, msg: Message, staleness: int = 0):
+        """``msg``'s contribution into the session, its weight discounted
+        by ``staleness`` rounds: a slot stays undecoded, and so do bytes
+        the arena had no room for (the header's "c" and "w" carry what
+        the session needs); other payloads are decoded. A stale entry
+        naming nobody, or the whole train set, is dropped."""
+        undecoded = msg._slot is not None or (
+            self.sidecar is not None and not self.session.waiting
+            and "c" in msg.body and "w" in msg.body)
+        if undecoded:
+            contribs = tuple(int(c) for c in msg.body.get("c") or ())
+            weight = int(msg.body.get("w", 1))
+        else:
+            self.loop_payload_touch_bytes += len(msg.payload)
+            payload = decode_parameters(msg.payload)
+            contribs, weight = payload.contributors, payload.weight
+        ts = self.session.train_set
+        if staleness > 0 and (not contribs or (ts and set(contribs) >= ts)):
+            self._release_msg_slot(msg)
+            return ()
+        if msg._slot is not None:
+            covered = self.session.add_slot(msg._slot, msg._slot_len,
+                                            contribs, weight,
+                                            staleness=staleness)
+            msg._slot = None  # the session owns it now
+            return covered
+        if undecoded:
+            return self.session.add_blob(msg.payload, contribs, weight,
+                                         staleness=staleness)
+        return self.session.add_model(payload.params, contribs, weight,
+                                      staleness=staleness)
+
+    async def _on_state_sync(self, msg: Message) -> None:
+        """The joiner's side of the live join: adopt the established
+        node's model (once: the first answer wins, or the init catch-up
+        of ``_sync_peer`` if it landed first), fast-forward to its round
+        (never back), and enter the federation. A resumed node compares
+        the first answer's round with its checkpoint's, once, and adopts
+        the peer's model only when it is strictly newer."""
+        if not self.joiner:
+            return
+        # the sender has the model, as a pusher of initial weights has
+        self._progress(msg.sender).initialized = True
+        rnd = int(msg.body.get("round", 0))
+        while self._adopting_initial:  # an adoption in flight decides
+            await asyncio.sleep(self.gossip_period_s)
+        adopt_over_resume = (self.initialized
+                             and self._resume_round is not None
+                             and rnd > self._resume_round)
+        # the first answer decides, also when a START_LEARNING came first
+        # (the JAX package decides again at every answer then, and a
+        # resumed node adopts every peer's model in turn)
+        self._resume_round = None
+        if rnd > self.round:
+            if self.learning:
+                # a round body is running (or voting): jump at the next
+                # boundary, where no session names the old round
+                self._join_round_target = max(self._join_round_target or 0,
+                                              rnd)
+            else:
+                self.round = rnd
+        if not self.initialized or adopt_over_resume:
+            ln = self.learner
+            if (getattr(ln, "state", True) is None
+                    or getattr(ln, "fns", True) is None):
+                ln.init()
+            try:
+                params, _ = unpack_model(msg.payload, ln.get_parameters())
+            except ValueError:
+                log.warning("node %d: STATE_SYNC blob from %d does not "
+                            "match the local model", self.idx, msg.sender)
+                return
+            self._adopting_initial = True
+            try:
+                await self._set_parameters(params)
+            finally:
+                self._adopting_initial = False
+            self.initialized = True
+            self.adopted.append("state_sync")
+            await self.broadcast(Message(MsgType.MODEL_INITIALIZED, self.idx),
+                                 nowait=True)
+        if not self.learning and not self.finished.is_set():
+            body = {"rounds": int(msg.body.get("rounds", 0)),
+                    "epochs": int(msg.body.get("epochs", 1)),
+                    "leader": msg.body.get("leader")}
+            # the frame ``_resend_start`` sends peers not seen in a round
+            self._start_msg = self._sign(
+                Message(MsgType.START_LEARNING, self.idx, body))
+            self._start_learning(body["rounds"], body["epochs"],
+                                 leader=body["leader"])
 
     # ------------------------------------------------------------------
     # send path
@@ -843,11 +1102,12 @@ class P2PNode:
                     "sender=%d", self.idx, msg.type.value, msg.sender)
         return False
 
-    async def broadcast(self, msg: Message, exclude: int | None = None) -> None:
+    async def broadcast(self, msg: Message, exclude: int | None = None,
+                        nowait: bool = False) -> None:
         self._sign(msg)
         if msg.type in GOSSIPED:
             self.dedup.check_and_add(msg.msg_id)
-        await self._forward(msg, exclude)
+        await self._forward(msg, exclude, nowait=nowait)
 
     def _try_fast_write(self, peer: PeerState, msg: Message) -> bool:
         """Put the frame in the idle lane's outbox when the transport and
@@ -857,7 +1117,7 @@ class P2PNode:
         if peer.idx in self._severed:
             return True
         q = peer.send_q
-        if (q is None or not q.empty() or peer.draining
+        if (q is None or not q.empty() or peer.draining or peer.overflow
                 or self.peers.get(peer.idx) is not peer):
             return False
         tr = peer.writer.transport
@@ -886,10 +1146,22 @@ class P2PNode:
         except (ConnectionError, RuntimeError, OSError):
             self._drop_conn(peer)
 
-    async def _write(self, peer: PeerState, msg: Message) -> None:
+    async def _write(self, peer: PeerState, msg: Message,
+                     nowait: bool = False) -> None:
         """The one egress point: the link shaper's schedule when links
         are shaped, else the outbox, else the peer's bounded lane
-        (blocking only when that lane is full)."""
+        (blocking only when that lane is full).
+
+        ``nowait`` is a read loop's send (a relay, a coverage or
+        initialized announcement): it never waits on a full lane. A read
+        loop that waited would stop draining its own socket; on a full
+        mesh of large models every lane fills, and the readers, each
+        waiting on a lane to a peer whose reader waits on one back,
+        deadlocked the federation. Such a flood goes to the lane's
+        ``overflow`` instead, which one task puts on the lane in order,
+        so no vote, share, readiness or coverage frame is lost. Only a
+        beat or a role (``PERIODIC_FLOODS``) is dropped there, counted in
+        ``floods_dropped``: the next one replaces it."""
         if peer.idx in self._severed:
             return  # a cut applied by hand: dropped on the cut
         if self.shaper is not None:
@@ -898,21 +1170,39 @@ class P2PNode:
         if self._try_fast_write(peer, msg):
             return
         if peer.send_q is not None and self.peers.get(peer.idx) is peer:
+            if nowait and msg.type in GOSSIPED and (
+                    peer.overflow or peer.send_q.full()):
+                if msg.type in PERIODIC_FLOODS:
+                    self.floods_dropped += 1
+                    return
+                peer.overflow.append(msg)
+                if len(peer.overflow) == 1:
+                    self._track_task(self._put_overflow(peer), "overflow")
+                return
             await peer.send_q.put(msg)
         elif not peer.writer.is_closing():
             self._flush(peer)
             await write_message(peer.writer, msg)
 
+    async def _put_overflow(self, peer: PeerState) -> None:
+        """Put a lane's overflow on the lane, oldest first, while the
+        connection is the registered one (``_drop_conn`` empties it)."""
+        while peer.overflow and self.peers.get(peer.idx) is peer:
+            await peer.send_q.put(peer.overflow[0])
+            if peer.overflow:
+                peer.overflow.popleft()
+
     async def _forward(self, msg: Message, exclude: int | None = None,
-                       limit: int = 0) -> None:
+                       limit: int = 0, nowait: bool = False) -> None:
         """Send to the peers (a random ``limit`` of them when > 0): idle
         lanes written inline, congested ones enqueued concurrently."""
         targets = [p for p in self.peers.values() if p.idx != exclude]
         if limit > 0 and len(targets) > limit:
             targets = self._rng.sample(targets, limit)
-        await self._ship(targets, msg)
+        await self._ship(targets, msg, nowait=nowait)
 
-    async def _ship(self, peers: list[PeerState], msg: Message) -> None:
+    async def _ship(self, peers: list[PeerState], msg: Message,
+                    nowait: bool = False) -> None:
         congested = [p for p in peers if self.shaper is not None
                      or not self._try_fast_write(p, msg)]
         if not congested:
@@ -920,7 +1210,7 @@ class P2PNode:
 
         async def enqueue(peer: PeerState) -> None:
             try:
-                await self._write(peer, msg)
+                await self._write(peer, msg, nowait=nowait)
             except (ConnectionError, RuntimeError):
                 self._drop_conn(peer)
 
@@ -1136,7 +1426,7 @@ class P2PNode:
                                       "candidates": ballot}))
         deadline = loop.time() + self.protocol.vote_timeout_s
         complete = False
-        while loop.time() < deadline:
+        while loop.time() < deadline and not self._behind_a_join():
             alive = set(self.membership.get_nodes())
             if alive <= set(votes):
                 complete = True
@@ -1179,9 +1469,17 @@ class P2PNode:
                 await asyncio.sleep(self.gossip_period_s)
         self.learn_t0 = time.monotonic()
         while self.round < self.total_rounds:
+            if self._join_round_target is not None:
+                # a STATE_SYNC that landed mid-round: jump here, where no
+                # session names the old round
+                self.round = max(self.round, self._join_round_target)
+                self._join_round_target = None
+                if self.round >= self.total_rounds:
+                    break
             t0 = time.monotonic()
-            await self._train_round()
-            self.round_wall_s.append(time.monotonic() - t0)
+            if await self._train_round():
+                self.round_wall_s.append(time.monotonic() - t0)
+                self._maybe_checkpoint()
         self.learn_t1 = time.monotonic()
         # the final evaluation, flooded to the federation
         metrics = await asyncio.get_running_loop().run_in_executor(
@@ -1191,6 +1489,20 @@ class P2PNode:
                                      {"round": self.round, **metrics}))
         self.learning = False
         self.finished.set()
+
+    def _maybe_checkpoint(self) -> None:
+        """Every ``checkpoint_every`` rounds, this node's params and round
+        to its own file (atomically). A failed save is logged, not
+        raised: a full disk must not end a healthy round loop."""
+        if (not self.checkpoint_dir or self.checkpoint_every <= 0
+                or self.round % self.checkpoint_every != 0):
+            return
+        try:
+            save_node_checkpoint(self.checkpoint_dir, self.idx,
+                                 self.learner.get_parameters(), self.round)
+        except Exception as e:
+            log.warning("node %d checkpoint failed at round %d: %s",
+                        self.idx, self.round, e)
 
     async def _diffuse_initial(self) -> None:
         """Push the initial weights, paced, until every peer reports
@@ -1242,8 +1554,18 @@ class P2PNode:
         xs = sorted(self.round_wall_s)
         return xs[min(len(xs) - 1, int(0.95 * len(xs)))]
 
-    async def _train_round(self) -> None:
+    def _behind_a_join(self) -> bool:
+        """A STATE_SYNC named a later round than the one being voted."""
+        return (self._join_round_target is not None
+                and self._join_round_target > self.round)
+
+    async def _train_round(self) -> bool:
+        """One round; False when a STATE_SYNC that landed during the vote
+        moved the node past it (the loop fast-forwards; the JAX node runs
+        the stale round's body to its timeouts first)."""
         train_set = await self._vote_train_set()
+        if self._behind_a_join():
+            return False
         self.session.clear()
         if self.masker is not None:
             # fresh pair streams for this round's members
@@ -1257,9 +1579,10 @@ class P2PNode:
         # aggregate arriving meanwhile is adopted by a waiting node
         if role in ("aggregator", "server"):
             self.session.set_nodes_to_aggregate(train_set)
-            if self.masker is not None:
-                # the template the masked sum dequantizes against (set
-                # before the replay: a replayed model may close the round)
+            if self.reputation is not None or self.masker is not None:
+                # the reputation scores' delta reference, and the template
+                # the masked sum dequantizes against (set before the
+                # replay: a replayed model may close the round)
                 self.session.set_reference(self.learner.get_parameters())
         else:
             self.session.set_waiting_aggregated_model()
@@ -1271,7 +1594,9 @@ class P2PNode:
             else:  # the sender is gone: its buffered slot goes back
                 self._release_msg_slot(msg)
         if role in ("aggregator", "server"):
+            ref = await self._update_reference()
             await self._fit()
+            await self._transform_own_update(ref)
             n_samples = self.learner.get_num_samples()[0]
             covered = self.session.add_model(self._own_update(n_samples),
                                              (self.idx,), n_samples)
@@ -1280,7 +1605,9 @@ class P2PNode:
                 {"contributors": sorted(covered), "round": self.round}))
             await self._gossip_until_done(train_set, role, leader_at_start)
         elif role == "trainer":
+            ref = await self._update_reference()
             await self._fit()
+            await self._transform_own_update(ref)
             n_samples = self.learner.get_num_samples()[0]
             target = leader_at_start if leader_at_start in self.peers else None
             sent_to = ([self.peers[target]] if target is not None
@@ -1312,6 +1639,40 @@ class P2PNode:
         await self.broadcast(Message(MsgType.MODELS_READY, self.idx,
                                      {"round": self.round}))
         await self._wait_neighbors_ready()
+        return True
+
+    def _poisons_updates(self) -> bool:
+        return self.attack is not None and self.attack.poisons_updates
+
+    async def _update_reference(self):
+        """The round's starting params on the device (a copy), when this
+        node transforms its update (an attack or DP); else None."""
+        if not (self._poisons_updates() or self.dp is not None):
+            return None
+        return await asyncio.get_running_loop().run_in_executor(
+            None, self.learner.device_parameters)
+
+    async def _transform_own_update(self, ref) -> None:
+        """Poison, then privatize, the trained params once, on the device,
+        against ``ref``, keyed by (seed, this node, this round) as the
+        stacked rows are: the result backs the session entry and every
+        send, and the clip bounds what an attack injects."""
+        if ref is None:
+            return
+        idx, rnd, attack, dp = self.idx, self.round, self.attack, self.dp
+        poisons = self._poisons_updates()
+
+        def transform(params):
+            if poisons:
+                params = poison_update(params, ref, idx, rnd, attack)
+            if dp is not None:
+                params = privatize_update(params, ref, dp.clip_norm,
+                                          dp.noise_multiplier,
+                                          (dp.seed, idx, rnd))
+            return params
+
+        await asyncio.get_running_loop().run_in_executor(
+            None, self.learner.transform_parameters, transform)
 
     def _own_update(self, n_samples: int):
         """This round's trained params as they leave the learner: under
@@ -1350,10 +1711,21 @@ class P2PNode:
             proxies = [p for i, p in self.peers.items()
                        if self.peer_roles.get(i) == "proxy"]
             live = set(self.membership.get_nodes())
+            # async: a peer whose coverage meets the quorum its session
+            # closes on is no target (full coverage is out of reach once
+            # a voted member crashed mid-round)
+            quorum = (self.session.quorum() if self.session.async_mode
+                      else None)
+
+            def stale(has: set[int]) -> bool:
+                if train_set <= has:
+                    return False
+                return quorum is None or len(has & train_set) < quorum
+
             targets = [
                 (i, self._aggregated_by(i))
                 for i in sorted((aggregators - {self.idx}) & live)
-                if not train_set <= self._aggregated_by(i)
+                if stale(self._aggregated_by(i))
                 and (i in self.peers or proxies)
             ]
             if (done and not targets) or loop.time() > deadline:
@@ -1409,14 +1781,23 @@ class P2PNode:
 
     async def _wait_neighbors_ready(self) -> None:
         """The round barrier: every alive node heard of reports this
-        round (MODELS_READY floods), bounded by the timeout."""
+        round (MODELS_READY floods), bounded by the timeout. In async
+        mode the barrier waits for the session's quorum share of them
+        only; the stragglers catch up through the stale fold."""
         loop = asyncio.get_event_loop()
         deadline = loop.time() + self.session.timeout_s
+        frac = self.session.min_received
         while loop.time() < deadline:
             alive = set(self.membership.get_nodes())
             known = set(self.peers) | set(self.progress)
-            if all(self._progress(i).ready_round >= self.round
-                   for i in alive & known if i != self.idx):
+            others = [i for i in alive & known if i != self.idx]
+            behind = [i for i in others
+                      if self._progress(i).ready_round < self.round]
+            if not behind:
                 return
+            if self.session.async_mode and others:
+                need = max(1, math.ceil(frac * len(others)))
+                if len(others) - len(behind) >= need:
+                    return
             await asyncio.sleep(self.gossip_period_s)
 

@@ -66,7 +66,7 @@ class MsgType(enum.Enum):
     # direct messages
     CONNECT = "connect"
     PARAMS = "params"
-    STATE_SYNC = "state_sync"  # A22d (the live join): never acted on
+    STATE_SYNC = "state_sync"  # the live join: a joiner adopts the model
 
 
 GOSSIPED = frozenset({

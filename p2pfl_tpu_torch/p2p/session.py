@@ -25,21 +25,37 @@ trees with the weight folded in: fusing is the exact mod-2^64 sum, and
 ``_finish`` subtracts the evicted members' residue and dequantizes
 against the round-start reference (``set_reference``).
 
+The async mode (``min_received < 1``, FedBuff's close rule): the
+round closes once a quorum ``max(1, ceil(min_received * |train set|))``
+of the train set is covered, or on the timeout; a straggler's update
+that missed its round folds into a later one with its weight scaled by
+``staleness_scale(staleness, staleness_beta)`` when it is added (the
+stacked plane's f32 formula, so the two planes weigh alike). Staleness
+belongs to the update, so it is applied once, at entry, and composes
+with the weighted partials gossip forwards.
+
+With a ``reputation`` monitor (``adversary/reputation.py``) the session
+scores its entries against the round-start reference at finish
+(``observe_entries``, three entries or more) and scales each entry's
+weight by ``entry_scales`` in the fuse, at finish only: a gossiped
+partial is weighted again in each receiver's own finish.
+
 ``SidecarSession`` keeps its entries undecoded in the sidecar's arena
-(``p2p/aggd.py``) and has the worker fuse them. The async close rule,
-stale folds and the reputation ``entry_scales`` are A22d.
+(``p2p/aggd.py``) and has the worker fuse them with the effective
+weights (staleness and ``entry_scales`` folded in); it cannot score
+entries it never decodes, so the schema refuses reputation with it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import math
 import time
 from typing import Any
 
 import numpy as np
 import torch
 
-from p2pfl_tpu_torch.config.schema import _unported
 from p2pfl_tpu_torch.core.aggregators import Aggregator, FedAvg
 from p2pfl_tpu_torch.core.serialize import (
     as_f32,
@@ -53,6 +69,7 @@ from p2pfl_tpu_torch.core.serialize import (
     tree_map_sorted,
 )
 from p2pfl_tpu_torch.p2p.aggd import SlotEntry
+from p2pfl_tpu_torch.parallel.federated import staleness_scale
 
 Params = Any
 
@@ -93,15 +110,19 @@ class AggregationSession:
                  timeout_s: float = 60.0, reputation=None,
                  min_received: float = 1.0, staleness_beta: float = 0.0,
                  masker=None):
-        if reputation is not None:
-            raise _unported("reputation-weighted socket sessions", "A22d")
-        if min_received < 1.0 or staleness_beta:
-            raise _unported("async aggregation on the socket plane", "A22d")
         self.aggregator = aggregator or FedAvg()
         #: a ``privacy.secagg.PairwiseMasker``: entries are masked trees
         self.masker = masker
-        #: the owner's round-start params: the template a masked sum
-        #: dequantizes against
+        #: the async close quorum as a share of the train set (1.0: the
+        #: synchronous close, full coverage or the timeout)
+        self.min_received = float(min_received)
+        #: the staleness discount's exponent (0: stale weighs as fresh)
+        self.staleness_beta = float(staleness_beta)
+        #: an ``adversary.ReputationMonitor`` kept across rounds
+        self.reputation = reputation
+        #: the owner's round-start params: the delta reference of the
+        #: reputation scores and the template a masked sum dequantizes
+        #: against
         self.reference: Params | None = None
         self.timeout_s = timeout_s
         self.models: dict[frozenset[int], tuple[Params, float]] = {}
@@ -138,12 +159,42 @@ class AggregationSession:
     def timed_out(self) -> bool:
         return self._deadline is not None and time.monotonic() > self._deadline
 
+    @property
+    def async_mode(self) -> bool:
+        return self.min_received < 1.0
+
+    def quorum(self) -> int:
+        """The covered count that closes an async round (the whole train
+        set in sync mode)."""
+        n = len(self.train_set)
+        if not self.async_mode:
+            return n
+        return max(1, math.ceil(self.min_received * n))
+
+    def quorum_met(self) -> bool:
+        """The round closes: the async quorum, or in sync mode (quorum =
+        the train set) full coverage."""
+        return bool(self.train_set) and (
+            len(self.covered & self.train_set) >= self.quorum())
+
+    def _discounted(self, weight: float, staleness: float) -> float:
+        """``weight`` scaled by the staleness discount of an update
+        ``staleness`` rounds behind."""
+        if staleness > 0.0 and self.staleness_beta > 0.0:
+            return float(weight) * float(
+                staleness_scale(staleness, self.staleness_beta))
+        return weight
+
     # -- adding models ---------------------------------------------------
     def add_model(self, params: Params, contributors, weight: float,
                   staleness: float = 0.0) -> tuple[int, ...]:
-        """The contributors now covered (empty: rejected)."""
-        if staleness > 0.0:
-            raise _unported("stale-update folds on the socket plane", "A22d")
+        """The contributors now covered (empty: rejected). ``staleness``,
+        in rounds behind, discounts the weight (see the module doc)."""
+        return self._add_model(params, contributors,
+                               self._discounted(weight, staleness))
+
+    def _add_model(self, params: Params, contributors,
+                   weight: float) -> tuple[int, ...]:
         contrib = frozenset(int(i) for i in contributors)
         if not contrib:
             return ()
@@ -164,7 +215,7 @@ class AggregationSession:
             del self.models[key]
         self.models[contrib] = (params, float(weight))
         self._partial_memo.clear()
-        if self.train_set and self.covered >= self.train_set:
+        if self.quorum_met():
             self._finish()
         return tuple(sorted(self.covered))
 
@@ -199,16 +250,21 @@ class AggregationSession:
         """Finish on coverage or on the timeout with whatever arrived."""
         if self.done.is_set():
             return True
-        if self.models and (
-            (self.train_set and self.covered >= self.train_set)
-            or self.timed_out()
-        ):
+        if self.models and (self.quorum_met() or self.timed_out()):
             self._finish()
             return True
         return False
 
     def _finish(self) -> None:
-        params, _, total = self._aggregate(list(self.models.values()))
+        keys = list(self.models)
+        if (self.masker is None and self.reputation is not None
+                and self.reference is not None and len(self.models) >= 3):
+            # scored before the fuse: a first-round attacker is cut at
+            # once (under 3 entries the cohort statistics mean nothing)
+            self.reputation.observe_entries(
+                self.reference, [(k, p) for k, (p, _) in self.models.items()])
+        params, _, total = self._aggregate(list(self.models.values()),
+                                           keys=keys)
         if self.masker is not None:
             # the quorum's close is the one place masked bits become a
             # model: the evicted members' residue out, then dequantized
@@ -224,7 +280,8 @@ class AggregationSession:
         self.result = (own_params(params), tuple(sorted(self.covered)))
         self.done.set()
 
-    def _aggregate(self, entries) -> tuple[Params, tuple[int, ...], float]:
+    def _aggregate(self, entries,
+                   keys=None) -> tuple[Params, tuple[int, ...], float]:
         if len(entries) == 1:
             p, w = entries[0]
             return p, (), w
@@ -235,7 +292,7 @@ class AggregationSession:
 
             tree, total = masked_sum(entries)
             return tree, (), total
-        weights = np.asarray([w for _, w in entries], np.float32)
+        weights = self._weights(entries, keys)
         if type(self.aggregator) is FedAvg:
             tree, total = fuse_numpy([p for p, _ in entries], weights)
         else:
@@ -243,6 +300,14 @@ class AggregationSession:
                                       [p for p, _ in entries], weights)
             total = float(weights.sum())
         return tree, (), total
+
+    def _weights(self, entries, keys) -> np.ndarray:
+        """The entries' effective weights: the stored (staleness-scaled)
+        weights, times ``entry_scales`` at a finish with reputation."""
+        weights = np.asarray([w for _, w in entries], np.float32)
+        if keys is not None and self.reputation is not None:
+            weights = weights * self.reputation.entry_scales(keys)
+        return weights
 
     def clear(self) -> None:
         """Reset for the next round."""
@@ -315,8 +380,7 @@ class SidecarSession(AggregationSession):
         fuse is in the arena when it can be."""
         if self.waiting:
             return super().add_model(params, contributors, weight, staleness)
-        if staleness > 0.0:
-            raise _unported("stale-update folds on the socket plane", "A22d")
+        weight = self._discounted(weight, staleness)
         contrib = tuple(int(i) for i in contributors)
         entry = self._entry(encode_parameters(params, contrib,
                                               max(1, int(weight))))
@@ -328,22 +392,25 @@ class SidecarSession(AggregationSession):
         return covered
 
     def add_slot(self, slot: int, length: int, contributors,
-                 weight: float) -> tuple[int, ...]:
+                 weight: float, staleness: float = 0.0) -> tuple[int, ...]:
         """A payload left undecoded in slot ``slot``: the session owns
         the lease from here (a refused entry's slot is released now, an
-        accepted one's when its fuse or ``clear`` consumes it)."""
+        accepted one's when its fuse or ``clear`` consumes it). A stale
+        fold discounts the weight alone: the bytes stay undecoded."""
         covered = self._add_model(SlotEntry(slot, length), contributors,
-                                  weight)
+                                  self._discounted(weight, staleness))
         if not covered and self.client is not None:
             self.client.release(slot)
         return covered
 
-    def add_blob(self, blob, contributors, weight: float) -> tuple[int, ...]:
+    def add_blob(self, blob, contributors, weight: float,
+                 staleness: float = 0.0) -> tuple[int, ...]:
         """A payload that arrived as bytes (the arena was full when the
         reader asked): still never decoded here; a slot freed since may
         take it, else the bytes go to the worker in the descriptor."""
         entry = self._entry(blob)
-        covered = self._add_model(entry, contributors, weight)
+        covered = self._add_model(entry, contributors,
+                                  self._discounted(weight, staleness))
         if not covered:
             self._release_rejected(entry)
         return covered
@@ -353,7 +420,7 @@ class SidecarSession(AggregationSession):
             # the round is closing: a superseding eviction now could
             # release a slot the worker is reading
             return ()
-        return super().add_model(params, contributors, weight)
+        return super()._add_model(params, contributors, weight)
 
     def _evict_entry(self, entry) -> None:
         p, _w = entry
@@ -375,9 +442,7 @@ class SidecarSession(AggregationSession):
         if self.done.is_set():
             return True
         if not self._fusing and self.models and (
-            (self.train_set and self.covered >= self.train_set)
-            or self.timed_out()
-        ):
+                self.quorum_met() or self.timed_out()):
             self._finish()
         # False while the fuse is in flight: the gossip loop keeps going
         return self.done.is_set()
@@ -388,7 +453,9 @@ class SidecarSession(AggregationSession):
         self._fusing = True
         entries = list(self.models.values())
         covered = tuple(sorted(self.covered))
-        weights = np.asarray([w for _, w in entries], np.float32)
+        # the effective weights the worker fuses with (observe_entries
+        # needs decoded trees, which this plane never holds)
+        weights = self._weights(entries, list(self.models))
         coro = self._fuse_and_close(entries, weights, covered)
         if self._spawn is not None:
             self._spawn(coro, "aggd_fuse")

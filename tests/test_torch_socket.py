@@ -19,9 +19,10 @@ no assertion is on wall time.
   the same inputs. A port starter: the fleet completes and agrees. bf16
   tier (bf16 compute and wire): the fleet completes and its nodes agree
   within rtol 2e-2, atol 2e-3 (two bf16 roundings of the partials).
-- Refusals: what the socket plane leaves out raises
-  ``NotImplementedError`` naming A22d (the transport and privacy layers
-  of A22c run: ``tests/test_torch_{aggd,netem,tls,secagg}.py``).
+- Partitions applied by hand, and the A22c sections loading (those
+  layers run in ``tests/test_torch_{aggd,netem,tls,secagg}.py``, the
+  A22d layers in ``tests/test_torch_socket_{adversary,elastic,
+  chaos}.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,6 @@ from p2pfl_tpu.models import get_model as j_get_model
 from p2pfl_tpu.p2p import P2PNode as JNode
 from p2pfl_tpu_torch.config.schema import (
     DataConfig,
-    ElasticConfig,
     ProtocolConfig,
     ScenarioConfig,
     TrainingConfig,
@@ -424,45 +424,29 @@ def test_mixed_fleet_bf16_completes_and_agrees():
             np.testing.assert_allclose(b, a, rtol=2e-2, atol=2e-3)
 
 
-# ---- refusals -------------------------------------------------------------
+# ---- what stays true of the A22c sections ----------------------------------
 
-@pytest.mark.parametrize("kwargs, item", [
-    ({"attack": object()}, "A22d"),
-    ({"reputation": object()}, "A22d"),
-    ({"dp": object()}, "A22d"),
-    ({"elastic": ElasticConfig(async_aggregation=True)}, "A22d"),
-    ({"joiner": True}, "A22d"),
-    ({"checkpoint_dir": "ckpt"}, "A22d"),
-    ({"resume": True}, "A22d"),
-])
-def test_left_out_node_features_raise_naming_their_item(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        P2PNode(0, None, n_nodes=2, **kwargs)
-
-
-def test_left_out_partitions_and_launcher_options_raise(tmp_path):
-    """The launcher's restarts and resume, and the scenario sections of
-    A22d, raise; partitions by hand, ``--tls-dir`` and the A22c sections
-    load and run (their own test files hold them)."""
+def test_left_out_partitions_and_launcher_options_raise(tmp_path, capsys):
+    """A cut applied by hand severs the link and a heal mends it; the
+    launcher knows ``--resume``, ``--max-restarts`` and
+    ``--restart-backoff-s`` and refuses an option it does not know; the
+    A22c sections load (their own test files run them; the A22d layers
+    run in ``tests/test_torch_socket_{adversary,elastic,chaos,
+    supervisor}.py``)."""
+    path = tmp_path / "s.json"
+    _sim_config().save(path)
+    with pytest.raises(SystemExit):
+        main([str(path), "--help"])
+    usage = capsys.readouterr().out
+    for flag in ("--resume", "--max-restarts", "--restart-backoff-s"):
+        assert flag in usage
+    with pytest.raises(SystemExit):
+        main([str(path), "--platform", "cpu", "--no-such-option"])
     nd = P2PNode(0, None, n_nodes=2)
     nd.apply_partition([[0], [1]])
     assert nd._link_severed(1)
     nd.heal_partition()
     assert not nd._link_severed(1)
-    cfg = _sim_config()
-    path = tmp_path / "s.json"
-    cfg.save(path)
-    with pytest.raises(NotImplementedError, match="A22d"):
-        launch(cfg, path, platform="cpu", max_restarts=1)
-    with pytest.raises(NotImplementedError, match="A22d"):
-        main([str(path), "--platform", "cpu", "--resume"])
-    for raw in ({"faults": [{"node": 1, "round": 1, "kind": "crash"}]},
-                {"adversary": {"fraction": 0.5, "kind": "signflip"}},
-                {"privacy": {"dp": True}},
-                {"checkpoint_dir": str(tmp_path)}):
-        bad = ScenarioConfig.from_dict({**json.loads(cfg.to_json()), **raw})
-        with pytest.raises(NotImplementedError, match="A22d"):
-            run_simulation(bad, device="cpu")
     for raw, loaded in (
             ({"network": {"delay_ms": 5}}, lambda c: c.network.delay_ms == 5),
             ({"encrypt": True}, lambda c: c.encrypt),

@@ -5,8 +5,10 @@ what each add returns, the covered sets, every partial aggregate asked
 for and the final aggregate must be equal, at tolerance 0 (FedAvg is
 the host numpy weighted mean in both). Also: overlap rejection and
 supersede eviction, the timeout close, waiting-mode adoption, a robust
-aggregator over stacked entries, bf16 leaves, and the refusals of what
-the socket plane leaves out (A22d).
+aggregator over stacked entries and bf16 leaves. The async close,
+stale folds and reputation are held in
+``tests/test_torch_socket_elastic.py`` and
+``tests/test_torch_socket_adversary.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ from p2pfl_tpu_torch.core.aggregators import FedMedian
 from p2pfl_tpu_torch.core.serialize import to_bf16, tree_leaves_sorted
 from p2pfl_tpu_torch.p2p.session import (
     AggregationSession,
-    SidecarSession,
     fuse_numpy,
 )
 
@@ -143,27 +144,3 @@ def test_robust_aggregator_over_stacked_entries():
         _equal(js.result[0], ts.result[0])
 
     asyncio.run(main())
-
-
-@pytest.mark.parametrize("kwargs, item", [
-    ({"reputation": object()}, "A22d"),
-    ({"min_received": 0.5}, "A22d"),
-    ({"staleness_beta": 0.5}, "A22d"),
-])
-def test_left_out_session_features_are_refused(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        AggregationSession(**kwargs)
-
-
-def test_sidecar_session_and_stale_folds_are_refused():
-    """Stale folds (A22d) are refused by both session kinds; the
-    sidecar's session itself runs (``tests/test_torch_aggd.py``)."""
-    side = SidecarSession()
-    side.set_nodes_to_aggregate({0, 1})
-    with pytest.raises(NotImplementedError, match="A22d"):
-        side.add_model(_tree(np.random.default_rng(4)), (0,), 1,
-                       staleness=1.0)
-    s = AggregationSession()
-    s.set_nodes_to_aggregate({0, 1})
-    with pytest.raises(NotImplementedError, match="A22d"):
-        s.add_model(_tree(np.random.default_rng(5)), (1,), 1, staleness=1.0)
