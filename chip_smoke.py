@@ -273,10 +273,58 @@ one, or when run outside a checkout of this repository). Phases:
       once a step; without ``cryptography`` the arm prints ``tls: not
       run: no module named cryptography on this machine`` before the
       card's line.
-14. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
+14. The socket plane's adversarial and elastic layers
+   (``adversarial_elastic``; ``adversary/``, ``privacy/dp.py``, the
+   node's async quorum, stale folds, crash, join and resume, the
+   launcher's supervisor): every arm zeroes the launch counts before it
+   runs and reads them after:
+   a. ``bench.py``'s ``elastic24`` (24 mnist-mlp nodes, 4 rounds,
+      stragglers and churn), sync and async at quorum 0.5: every node
+      finishes, 5 crashes and 5 STATE_SYNC joins, quorum closes in every
+      async round, K4 once a step;
+   b. ``chaos16`` (16 nodes, 6 rounds, halves cut at round 2, node 11
+      crashed at 2, heal and restart from its checkpoint at 4) and its
+      fault-free twin: one partition and one heal, node 11 back through
+      its checkpoint or a STATE_SYNC, a recovery time; the accuracy gap
+      printed. The chaos arm's flight recorder dumps into its work
+      directory (phase 15c);
+   c. phase 3's FEMNIST CNN over sockets fully connected, nodes 2 and 5
+      flipping their updates' sign, reputation off (2 rounds) and on (3
+      rounds): K1-K4 as 12b's a step, node 2's round-1 update
+      ``poison_stacked``'s row bit for bit, with reputation 2 and 5
+      suspected and ranked below every honest peer by every honest
+      monitor;
+   d. ``private8`` with DP (clip 1, noise 1): the privatized row's bits,
+      epsilon ``epsilon_at``'s;
+   e. 12c's 4 launcher children on the sidecar, one SIGKILLed in round 1
+      and respawned with ``--resume``: reaped, its worker gone, its arena
+      unmapped, the respawned child on the card.
+15. Observability (``observability``; ``p2pfl_tpu_torch/obs/``):
+   a. phase 3's ring with ``P2PFL_TRACE=1``, ``P2PFL_DEVPROF=gauges`` and
+      a log dir: K1-K4 as phase 3 launched them, one ``scenario.round``
+      span a round in the exported trace, every status record with the
+      five ``devprof_*`` gauges and 0 < ``devprof_mfu`` < 1, the round's
+      FLOP count used on the card equal (as a float) to the count taken
+      through the plain versions on the CPU, ``healthcheck`` exiting 0;
+      printed: the count against the analytic count of the products and
+      the mix, and s/round traced with gauges against phase 3's (medians
+      of rounds 2-3);
+   b. 12b's model over sockets, 4 nodes fully connected, bf16 wire, 2
+      rounds, ``run_simulation`` under ``P2PFL_TRACE=<dir>`` and
+      ``P2PFL_DEVPROF=step``: K1-K4 as 12b's a step, node 0's first fit
+      replayed through the fused ``train_epochs`` gives the step-mode
+      fit's bits, the ``traceview`` merge holds every node's
+      ``node.round`` of both rounds, critpath's components sum to each
+      round's wall within 10%, the devprof phases to the ``learner.fit``
+      spans within 10%, ``p2p.rx`` spans carry ``tx_ns`` and the
+      estimated skew is within 1 ms, ``perf_report`` exits 0 and names a
+      top component (its ranked report printed);
+   c. 14b's flight file holds node 11's crash and a
+      ``checkpoint.resume*`` event of node 11 after it.
+16. One JSON line ``{"kernels": [...]}`` (the six kernels and the five
    dtype variants) and, last, ``{"ok": true, "device": {...}}``. With
    ``--out DIR`` the per-instance kernel numbers, the profiles and
-   phases 7's to 13's numbers are also written there as JSON.
+   phases 7's to 15's numbers are also written there as JSON.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -349,25 +397,18 @@ FEMNIST_CNN_LEAVES = {
     "Dense_0.kernel": (3136, 2048), "Dense_0.bias": (2048,),
     "Dense_1.kernel": (2048, 62), "Dense_1.bias": (62,)}
 
-# published peaks (NVIDIA data sheets, dense): bytes/s, bf16 FLOP/s,
-# f32 (non-tensor) FLOP/s, TF32 FLOP/s; the SKU is read from the card's
-# name
-PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
-    "H100": (3.35e12, 989e12, 67e12, 495e12),  # SXM
-    "H200": (4.8e12, 989e12, 67e12, 495e12),
-}
-
-
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
 def peaks(name: str) -> tuple[float, float, float, float]:
-    for key in ("H100 PCIe", "H200", "H100"):
-        if key in name:
-            return PEAKS[key]
-    return PEAKS["H100"]
+    """The card's published dense peaks (bytes/s, bf16 FLOP/s, f32
+    non-tensor FLOP/s, TF32 FLOP/s) from the port's one table
+    (``p2pfl_tpu_torch/obs/cost_model.py::PEAKS``, which the live MFU
+    gauge divides by too); the SXM part's off the table."""
+    from p2pfl_tpu_torch.obs.cost_model import PEAKS, card_peaks
+
+    return card_peaks(name) or PEAKS["H100"]
 
 
 def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -4903,6 +4944,12 @@ CHAOS_HALVES = [list(range(8)), list(range(8, 16))]
 #: CPU neither package holds it over seeds 0-4 (scripts/chaos16_gap.py)
 CHAOS_GAP = 0.05
 BYZ_SOCKET_ATTACKERS = [2, 5]
+#: 14c's undefended arm's rounds, cut from 3 to keep the command inside
+#: its time limit with phase 15: its gates read round 1's poisoned update
+#: and the launches a step. The reputation arm keeps 3: in 2 a monitor
+#: may finish its sessions before some peers' entries reach it, and then
+#: holds no trust of them (node 0 in one card run, PR 19)
+BYZ_UNDEFENDED_ROUNDS = 2
 DP_SOCKET = dict(clip_norm=1.0, noise_multiplier=1.0)
 RESTART_NODE = 1  # 14e: the child killed in round 1
 
@@ -5154,17 +5201,45 @@ def elastic_arms(dev, mlp_step: dict, smi: str) -> tuple[dict, list]:
     return out, failed
 
 
+def flight_summary(path: pathlib.Path) -> dict:
+    """A flight file's reasons and its events as (kind, node) pairs, in
+    order (phase 15c reads them)."""
+    doc = json.loads(path.read_text())
+    return dict(file=path.name, reasons=doc["reasons"],
+                events=[(e["kind"], e.get("node")) for e in doc["events"]])
+
+
 def chaos_arms(dev, mlp_step: dict, smi: str) -> tuple[dict, list]:
-    """14b: ``chaos16`` and its fault-free twin."""
+    """14b: ``chaos16`` and its fault-free twin. The chaos arm's flight
+    recorder dumps into its work directory (node 11's crash dumps it,
+    and the arm dumps it once more at its end): phase 15c's input."""
     import tempfile
 
+    from p2pfl_tpu_torch.obs import flight
+
     out, failed = {}, []
+    rec = flight.get_recorder()
     with tempfile.TemporaryDirectory() as d:
         clean, nodes, _ = churn_arm("14b chaos16 fault-free twin",
                                     chaos16_config([], d + "/clean"), dev)
         del nodes
-        arm, nodes, _ = churn_arm("14b chaos16", chaos16_config(
-            chaos16_faults(), d + "/chaos"), dev)
+        # a ring that holds the whole run: 16 nodes' membership and
+        # session events outgrow the default 4,096
+        ring = rec._ring_max
+        rec.clear()
+        flight.configure(dump_dir=d + "/chaos/flight", ring_max=1 << 16)
+        try:
+            arm, nodes, _ = churn_arm("14b chaos16", chaos16_config(
+                chaos16_faults(), d + "/chaos"), dev)
+            dumped = flight.dump("chaos16.end")
+            files = sorted(pathlib.Path(d, "chaos", "flight").glob(
+                "flight_*.json"))
+            out["flight"] = dict(flight_summary(dumped),
+                                 files=[f.name for f in files])
+        finally:
+            rec.dump_dir = None
+            flight.configure(ring_max=ring)
+            rec.clear()
     churn = arm["churn"]
     eleven = nodes[11]
     gap = (None if None in (clean["mean_accuracy"], arm["mean_accuracy"])
@@ -5206,7 +5281,8 @@ def byzantine_sockets(dev, ring: dict, smi: str) -> tuple[dict, list]:
     per_step = {k: ring["per_step"][k] for k in K13[1:] + ("sgd_accum",)}
     for rep in (False, True):
         tag = f"14c Byzantine sockets, reputation {'on' if rep else 'off'}"
-        cfg = ring_config(f"socket-byz-{int(rep)}", rounds=SOCKET_ROUNDS)
+        rounds = SOCKET_ROUNDS if rep else BYZ_UNDEFENDED_ROUNDS
+        cfg = ring_config(f"socket-byz-{int(rep)}", rounds=rounds)
         cfg.topology = "fully"
         # 12b's timeouts: a full mesh of 13 MB partials saturates every
         # lane, and the gossip's quiet exit after 2 s ends the resends
@@ -5227,7 +5303,7 @@ def byzantine_sockets(dev, ring: dict, smi: str) -> tuple[dict, list]:
               f"{arm['mean_accuracy']}, beats and roles dropped on full "
               f"lanes {arm['floods_dropped']}; node 2's round-1 update has "
               f"poison_stacked's row-2 bits {bits}", flush=True)
-        failed += socket_gates(tag, arm, SOCKET_ROUNDS, per_step)
+        failed += socket_gates(tag, arm, rounds, per_step)
         if arm["launches"]["stream_gemm"] < steps:
             failed.append(f"{tag}: K1 launched {arm['launches']} for "
                           f"{steps} steps")
@@ -5560,6 +5636,299 @@ def adversarial_elastic(dev, phase12: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: observability
+# ---------------------------------------------------------------------------
+
+#: one FEMNIST-CNN sample's products, forward and backward (conv1
+#: 784 x 25 -> 32, no dgrad; conv2 196 x 800 -> 64 with dgrad; dense
+#: 3136 -> 2048 and 2048 -> 62, each with dx and dw), 2 FLOPs a
+#: multiply-add: the analytic count 15a holds the FLOP count beside
+CNN_SAMPLE_FLOPS = 2 * (784 * 25 * 32 * 2 + 196 * 800 * 64 * 3
+                        + 3136 * 2048 * 3 + 2048 * 62 * 3)
+OBS_SOCKET_NODES = 4  # 15b: phase 12b's model, fully connected
+DEVPROF_GAUGES = ("devprof_fit_s", "devprof_tflops", "devprof_mfu",
+                  "devprof_hbm_peak_mb", "devprof_hbm_limit_mb")
+
+
+class ObsEnv:
+    """``P2PFL_TRACE`` and ``P2PFL_DEVPROF`` set inside the block, the
+    process tracer reset before and disabled after, the environment
+    restored."""
+
+    def __init__(self, trace: str, devprof: str):
+        self.want = {"P2PFL_TRACE": trace, "P2PFL_DEVPROF": devprof}
+
+    def __enter__(self):
+        import os
+
+        from p2pfl_tpu_torch.obs import devprof
+        from p2pfl_tpu_torch.obs.trace import get_tracer
+
+        self.saved = {k: os.environ.get(k) for k in self.want}
+        os.environ.update(self.want)
+        self.tracer = get_tracer()
+        self.tracer.reset()
+        devprof._FLOPS_CACHE.clear()
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        self.tracer.configure(enabled=False)
+        self.tracer.reset()
+
+
+def median(xs: list) -> float:
+    xs = sorted(xs)
+    mid = len(xs) // 2
+    return xs[mid] if len(xs) % 2 else (xs[mid - 1] + xs[mid]) / 2
+
+
+def observed_ring(dev, phase3: dict, work: pathlib.Path) -> tuple[dict, list]:
+    """15a: phase 3's stacked ring under ``P2PFL_TRACE=1`` and
+    ``P2PFL_DEVPROF=gauges`` with a log dir."""
+    import dataclasses
+
+    import torch
+
+    from p2pfl_tpu_torch.core.pytree import tree_leaves, tree_map
+    from p2pfl_tpu_torch.federation.scenario import (
+        Scenario,
+        _round_flops,
+        _step_fns,
+    )
+    from p2pfl_tpu_torch.models.base import build_model
+    from p2pfl_tpu_torch.obs import healthcheck
+    from p2pfl_tpu_torch.ops import gemm
+    from p2pfl_tpu_torch.utils.monitor import read_statuses
+
+    tag = "15a ring, traced, devprof gauges"
+    failed = []
+    cfg = dataclasses.replace(smoke_config(), log_dir=str(work))
+    with ObsEnv("1", "gauges"):
+        sc = Scenario(cfg, device=dev)
+        torch.cuda.synchronize(dev)
+        gemm.reset_launches()
+        res = sc.run()
+        torch.cuda.synchronize(dev)
+        launches = dict(gemm.launches)
+    root = work / cfg.name
+    traces = sorted((root / "trace").glob("proc*.trace.json"))
+    spans = [e for t in traces for e in json.loads(t.read_text())[
+        "traceEvents"] if e.get("ph") == "X" and e["name"] == "scenario.round"]
+    rounds = [e["args"]["round"] for e in spans]
+    records = read_statuses(root / "status")
+    # the count the card's run used, and the same count taken on the CPU
+    # by a model, step functions and params built there
+    x, y = sc._data_args[0], sc._data_args[1]
+    n, epochs = cfg.n_nodes, cfg.training.epochs_per_round
+    fns = _step_fns(build_model(cfg.model), cfg)
+    one = fns.init(torch.Generator().manual_seed(cfg.seed),
+                   torch.zeros((1,) + tuple(x.shape[2:])))
+    cpu = _round_flops(fns, tree_map(lambda p: p.unsqueeze(0), one),
+                       tuple(x.shape[2:]), x.dtype, y.dtype, x.shape[1],
+                       cfg.data.batch_size, epochs, n, n_mix=n)
+    card = sc._devprof_flops
+    steps = x.shape[1] // cfg.data.batch_size
+    per_node = sum(int(p[0].numel()) for p in tree_leaves(
+        sc.fed.states.params))
+    analytic_products = (n * epochs * steps * cfg.data.batch_size
+                         * CNN_SAMPLE_FLOPS)
+    analytic = analytic_products + 2.0 * n * n * per_node
+    on = median(res.round_times_s[1:])
+    off = median(phase3["round_s"][1:])
+    rc = healthcheck.main([str(root)])
+    mfus = [r.get("devprof_mfu") for r in records]
+    print(f"  {tag}: {[round(t, 4) for t in res.round_times_s]} s a round; "
+          f"scenario.round spans for rounds {rounds}; the round's FLOP "
+          f"count {card!r} on the card, {cpu!r} on the CPU, the analytic "
+          f"count of the products and the mix {analytic!r} (ratio "
+          f"{card / analytic:.6f}); devprof_mfu {mfus}; a record "
+          f"{ {k: records[0].get(k) for k in DEVPROF_GAUGES} }; "
+          f"healthcheck exit {rc}; s/round (median of rounds 2-3) "
+          f"{on:.4f} traced with gauges, {off:.4f} in phase 3; launches "
+          f"{ {k: launches[k] for k in DENSE_PATH} }", flush=True)
+    for k in DENSE_PATH:
+        if launches[k] != phase3["launches"][k]:
+            failed.append(f"{tag}: {k} launched {launches[k]} times, phase "
+                          f"3 {phase3['launches'][k]} on the same rounds")
+    if rounds != list(range(cfg.training.rounds)):
+        failed.append(f"{tag}: scenario.round spans for rounds {rounds}")
+    if [r["node"] for r in records] != list(range(n)):
+        failed.append(f"{tag}: status records of {records}")
+    for r in records:
+        missing = [k for k in DEVPROF_GAUGES if r.get(k) is None]
+        mfu = r.get("devprof_mfu")
+        if missing or not (mfu is not None and 0 < mfu < 1):
+            failed.append(f"{tag}: node {r['node']}'s gauges lack "
+                          f"{missing}, devprof_mfu {mfu}")
+    if not (card and card == cpu):
+        failed.append(f"{tag}: the card's count {card!r} is not the CPU's "
+                      f"{cpu!r}")
+    if rc != 0:
+        failed.append(f"{tag}: healthcheck exited {rc}")
+    return dict(round_s=res.round_times_s, launches=launches,
+                flops_card=card, flops_cpu=cpu, flops_analytic=analytic,
+                mfu=mfus, s_round_traced=on, s_round_phase3=off,
+                gauges={k: records[0].get(k) for k in DEVPROF_GAUGES},
+                healthcheck=rc), failed
+
+
+def observed_sockets(dev, phase12: dict, work: pathlib.Path
+                     ) -> tuple[dict, list]:
+    """15b: phase 12b's model over sockets, 4 nodes fully connected, bf16
+    wire, 2 rounds, under ``P2PFL_TRACE=<dir>`` and
+    ``P2PFL_DEVPROF=step``."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from p2pfl_tpu_torch.obs import critpath, devprof, perf_report, traceview
+    from p2pfl_tpu_torch.ops import gemm
+
+    tag = "15b sockets, traced, devprof step"
+    failed: list[str] = []
+    rounds = PHASE12_ROUNDS
+    cfg = ring_config("obs-sockets", n=OBS_SOCKET_NODES, rounds=rounds)
+    cfg.topology = "fully"
+    cfg.wire_dtype = "bf16"
+    cfg.protocol = socket_protocol(0, **RING_PROTOCOL)
+    trace_dir = work / "trace"
+    with ObsEnv(str(trace_dir), "step"):
+        arm, nodes, rec = socket_arm(tag, cfg, dev, record=True)
+    if rec.before is None:
+        return {}, [f"{tag}: node 0's first fit was not recorded"]
+    ln0 = nodes[0].learner
+    replay = replay_first_fit(tag, ln0, rec)
+    replay.pop("fit_launches")
+    failed += replay.pop("failed")
+    gemm.reset_launches()
+    for nd in nodes:
+        nd.learner.evaluate()
+    torch.cuda.synchronize()
+    evals = {k: gemm.launches[k] for k in DENSE_PATH}
+    failed += socket_gates(tag, arm, rounds, phase12["ring_bf16"]["per_step"],
+                           evals)
+    doc = traceview.merge(traceview.find_trace_files(trace_dir))
+    xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    lanes = {f"node{i}" for i in range(cfg.n_nodes)}
+    cp = critpath.analyze(doc)
+    worst = 0.0
+    for r in range(rounds):
+        comps = cp["rounds"].get(r, {}).get("nodes", {})
+        if set(comps) != lanes:
+            failed.append(f"{tag}: node.round spans of round {r} on "
+                          f"{sorted(comps)}")
+        for lane, c in comps.items():
+            parts = sum(c[k] for k in ("fit_s", "wire_s", "wait_s",
+                                       "agg_s", "other_s"))
+            err = abs(parts - c["round_s"]) / c["round_s"]
+            worst = max(worst, err)
+    if worst > 0.10:
+        failed.append(f"{tag}: components off a round's wall by {worst}")
+    phase_s: dict[str, float] = {}
+    fit_s = 0.0
+    for e in xs:
+        if e["name"] in devprof.PHASE_SPANS:
+            phase_s[e["name"]] = phase_s.get(e["name"], 0.0) + e["dur"] / 1e6
+        elif e["name"] == "learner.fit":
+            fit_s += e["dur"] / 1e6
+    phase_err = (abs(sum(phase_s.values()) - fit_s) / fit_s if fit_s
+                 else float("inf"))
+    if set(phase_s) != set(devprof.PHASE_SPANS) or phase_err > 0.10:
+        failed.append(f"{tag}: devprof phases {phase_s} against learner.fit "
+                      f"{fit_s} s ({phase_err})")
+    rx = []
+    lane_of = {(e["pid"], e["tid"]): e["args"]["name"]
+               for e in doc["traceEvents"]
+               if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    for e in xs:
+        if e["name"] == "p2p.rx":
+            rx.append(dict(e, _lane=lane_of[(e["pid"], e["tid"])]))
+    skew = critpath.estimate_skew(rx)
+    max_skew = max((abs(v) for v in skew.values()), default=0.0)
+    if not rx or any("tx_ns" not in e["args"] for e in rx):
+        failed.append(f"{tag}: {len(rx)} p2p.rx spans, tx_ns missing")
+    if max_skew > 1e-3:
+        failed.append(f"{tag}: estimated clock skew {max_skew} s")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = perf_report.main([str(trace_dir)])
+    attr = perf_report.attribute(doc)
+    print(f"    {len(xs)} spans, {len(rx)} p2p.rx; components within "
+          f"{worst:.2e} of each round's wall; devprof phases "
+          f"{ {k: round(v, 4) for k, v in phase_s.items()} } s against "
+          f"learner.fit {fit_s:.4f} s ({phase_err:.4f}); largest skew "
+          f"{max_skew:.2e} s; node 0's gauges "
+          f"{ {k: ln0.devprof_last.get(k) for k in DEVPROF_GAUGES} }; "
+          f"perf_report exit {rc}, top {attr.get('top')}:", flush=True)
+    print("    " + buf.getvalue().strip().replace("\n", "\n    "),
+          flush=True)
+    if rc != 0 or not attr.get("top"):
+        failed.append(f"{tag}: perf_report exited {rc}, top "
+                      f"{attr.get('top')}")
+    out = dict(arm, replay=replay, eval_launches=evals,
+               components=attr.get("components"), top=attr.get("top"),
+               fit_phases=attr.get("fit_phases"), phase_err=phase_err,
+               max_skew_s=max_skew, critpath=cp["rounds"],
+               gauges=dict(ln0.devprof_last))
+    del nodes, rec, ln0
+    torch.cuda.empty_cache()
+    return out, failed
+
+
+def chaos_flight(phase14: dict) -> list[str]:
+    """15c: the flight file of 14b's chaos arm holds node 11's crash and a
+    ``checkpoint.resume*`` event of node 11 after it."""
+    tag = "15c chaos16's flight dump"
+    fl = phase14["chaos"].get("flight")
+    if not fl:
+        return [f"{tag}: no flight file"]
+    events = fl["events"]
+    crash = [i for i, ev in enumerate(events)
+             if ev == ["node.crash", 11] or ev == ("node.crash", 11)]
+    resumed = [ev[0] for ev in events[crash[0] + 1:]
+               if ev[1] == 11 and ev[0].startswith("checkpoint.resume")
+               ] if crash else []
+    print(f"  {tag}: {fl['files']}, reasons {fl['reasons']}, "
+          f"{len(events)} events; node 11's crash at event "
+          f"{crash[:1]}, its resume events after it {resumed}", flush=True)
+    failed = []
+    if not crash or "node11.crash" not in fl["reasons"]:
+        failed.append(f"{tag}: no node.crash of node 11 ({fl['reasons']})")
+    if not resumed:
+        failed.append(f"{tag}: no checkpoint.resume* of node 11 after its "
+                      "crash")
+    return failed
+
+
+def observability(dev, phase3: dict, phase12: dict, phase14: dict) -> dict:
+    """Phase 15: a. phase 3's ring traced with the devprof gauges; b. 12b's
+    model over sockets, traced, in devprof's step mode; c. 14b's flight
+    dump. Gates are raised at the end."""
+    import tempfile
+
+    out, failed = {}, []
+    with tempfile.TemporaryDirectory() as d:
+        out["ring"], f = observed_ring(dev, phase3, pathlib.Path(d, "ring"))
+        failed += f
+        out["sockets"], f = observed_sockets(dev, phase12,
+                                             pathlib.Path(d, "sockets"))
+        failed += f
+    failed += chaos_flight(phase14)
+    out["chaos_flight"] = phase14["chaos"].get("flight")
+    if failed:
+        fail("; ".join(failed))
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -5607,6 +5976,7 @@ def main(argv: list[str] | None = None) -> int:
         args.out.mkdir(parents=True, exist_ok=True)
     launches, sc = end_to_end(dev)
     ring_steps = steps_of(sc, len(sc.round_times_s))
+    phase3 = dict(launches=dict(launches), round_s=list(sc.round_times_s))
     profile_round(lambda: sc.run(rounds=1), args.out)
     del sc
     torch.cuda.empty_cache()
@@ -5713,6 +6083,15 @@ def main(argv: list[str] | None = None) -> int:
     phase14 = adversarial_elastic(dev, phase12, smi)
     for k in DENSE_PATH:
         launches[k] += phase14["launches"][k]
+    torch.cuda.empty_cache()
+
+    print(f"[15] observability ({smi}): phase 3's ring traced with the "
+          f"devprof gauges, phase 12b's model over sockets ("
+          f"{OBS_SOCKET_NODES} nodes fully connected) traced in devprof's "
+          f"step mode, 14b's flight dump", flush=True)
+    print(f"    ({time.perf_counter() - t_run:.0f} s into the command)",
+          flush=True)
+    phase15 = observability(dev, phase3, phase12, phase14)
 
     replaces = {
         "stream_gemm": "p2pfl_tpu/ops/pallas_gemm.py:116",
@@ -5786,6 +6165,8 @@ def main(argv: list[str] | None = None) -> int:
             json.dumps({"card": smi, **phase13}, indent=1, default=str))
         (args.out / "chip_smoke_phase14.json").write_text(
             json.dumps({"card": smi, **phase14}, indent=1, default=str))
+        (args.out / "chip_smoke_phase15.json").write_text(
+            json.dumps({"card": smi, **phase15}, indent=1, default=str))
     if not phase13["tls"]["run"]:
         print("tls: not run: no module named cryptography on this machine",
               flush=True)

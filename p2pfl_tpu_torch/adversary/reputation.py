@@ -19,14 +19,17 @@ The socket plane's session scores its stored entries at finish
 (``observe_entries``, host numpy over decoded trees, the JAX package's
 arithmetic through :func:`cohort_scores_np`) and rescales each entry's
 weight by the least trust among its contributors (``entry_scales``).
-The flight-recorder events the JAX monitor emits on exclusion and
-restoration are ROADMAP item A23.
+A node crossing the cutoff is recorded in the flight recorder
+(``reputation.exclude``, ``reputation.restore``), as the JAX monitor
+records it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from p2pfl_tpu_torch.obs import flight
 
 from p2pfl_tpu_torch.core.pytree import Params, tree_leaves
 from p2pfl_tpu_torch.core.serialize import as_f32, tree_leaves_sorted
@@ -142,10 +145,19 @@ class ReputationMonitor:
         obs = (np.ones(self.n_nodes, bool) if mask is None
                else np.asarray(mask, bool))
         a = self.alpha
+        before = set(self.suspects())
         blended = np.where(self._seen, (1.0 - a) * self.trust + a * scores,
                            scores)
         self.trust = np.where(obs, blended, self.trust).astype(np.float32)
         self._seen = self._seen | obs
+        after = set(self.suspects())
+        for node in sorted(after - before):
+            flight.record("reputation.exclude", node=node,
+                          trust=float(self.trust[node]),
+                          cutoff=self.cutoff)
+        for node in sorted(before - after):
+            flight.record("reputation.restore", node=node,
+                          trust=float(self.trust[node]))
         self.history.append([float(t) for t in self.trust])
 
     def observe_entries(self, reference, entries) -> None:

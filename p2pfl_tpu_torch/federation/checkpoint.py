@@ -27,7 +27,10 @@ save writes that slot unchanged: a saved state saves to the same bytes
 again, and a state carried over from the JAX package
 (``convert.federated_state_from_jax``) writes the JAX file's bytes.
 
-Single process only: the multi-host save waits on ROADMAP item A23.
+Every save and load is recorded in the flight recorder
+(``checkpoint.save``, ``.load``, ``.node_save``, ``.node_load``).
+
+Single process only: the multi-host save waits on ROADMAP item A24.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from p2pfl_tpu_torch.core.serialize import (
     tree_map_sorted,
 )
 from p2pfl_tpu_torch.learning.learner import AdamState, TrainState
+from p2pfl_tpu_torch.obs import flight
 from p2pfl_tpu_torch.parallel.federated import FederatedState
 from p2pfl_tpu_torch.utils import msgpack_codec
 
@@ -276,6 +280,7 @@ def save_checkpoint(directory: str | pathlib.Path, fed: FederatedState,
     picks optax's state layout."""
     path = checkpoint_path(directory, int(fed.round))
     _atomic_write(path, _write_tree(to_state_dict(fed, optimizer)))
+    flight.record("checkpoint.save", round=int(fed.round), path=str(path))
     return path
 
 
@@ -298,6 +303,7 @@ def load_checkpoint(path: str | pathlib.Path, template: FederatedState,
     shapes checked, leaves cast to the template's dtypes (``step`` is
     int64 in the port) and copied to its device."""
     obj = _restore_blob(path)
+    flight.record("checkpoint.load", path=str(path))
     try:
         return from_state_dict(template, obj, optimizer)
     except ValueError as e:
@@ -344,6 +350,8 @@ def save_node_checkpoint(directory: str | pathlib.Path, node_idx: int,
     path = node_checkpoint_path(directory, node_idx)
     blob = pack_model(params, round_num)
     _atomic_write(path, lambda write: write(blob))
+    flight.record("checkpoint.node_save", node=int(node_idx),
+                  round=int(round_num), path=str(path))
     return path
 
 
@@ -356,6 +364,7 @@ def load_node_checkpoint(directory: str | pathlib.Path, node_idx: int,
     if not path.is_file():
         return None
     obj = _restore_blob(path)
+    flight.record("checkpoint.node_load", node=int(node_idx), path=str(path))
     try:
         return _model_from_obj(obj, template)
     except ValueError as e:

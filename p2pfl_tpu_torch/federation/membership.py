@@ -7,7 +7,10 @@ are seen at every period boundary; a node silent for longer than
 ``node_timeout_s`` turns suspect (alive False, ``NODE_DIED``). The
 suspect/probe machine (``probes_due``, ``probe_failed``, ``evict``,
 ``amnesty``) is the socket plane's death detection, copied so that both
-packages keep one state machine.
+packages keep one state machine. Every transition is recorded in the
+flight recorder (``obs/flight.py``) under the JAX package's kinds
+(``membership.suspect``, ``.recover``, ``.join``, ``.restart``,
+``.partition``, ``.heal``, ``.amnesty``, ``.probe_failed``, ``.evict``).
 """
 
 from __future__ import annotations
@@ -16,8 +19,7 @@ import numpy as np
 
 from p2pfl_tpu_torch.config.schema import FaultEvent, ProtocolConfig
 from p2pfl_tpu_torch.federation.events import Events, Observable
-
-# the JAX package's flight-recorder calls per transition wait for A23
+from p2pfl_tpu_torch.obs import flight
 
 
 class Membership(Observable):
@@ -61,6 +63,7 @@ class Membership(Observable):
         self.next_probe[node] = np.inf
         if not self.alive[node]:
             self.alive[node] = True
+            flight.record("membership.recover", node=node, t=t)
             self.notify(Events.NODE_RECOVERED, {"node": node, "t": t})
 
     def apply_fault(self, fault: FaultEvent) -> None:
@@ -72,18 +75,25 @@ class Membership(Observable):
             self.beating[fault.node] = True
             self.beat(fault.node)
             if fault.kind == "join":
+                flight.record("membership.join", node=fault.node,
+                              t=self.clock)
                 self.notify(Events.NODE_JOINED,
                             {"node": fault.node, "t": self.clock})
             elif fault.kind == "restart":
+                flight.record("membership.restart", node=fault.node,
+                              t=self.clock)
                 self.notify(Events.NODE_RESTARTED,
                             {"node": fault.node, "t": self.clock})
         elif fault.kind == "partition":
             # the cut itself lives in the transport
+            flight.record("membership.partition", groups=fault.groups,
+                          t=self.clock)
             self.notify(Events.LINK_PARTITIONED,
                         {"groups": fault.groups, "t": self.clock})
         elif fault.kind == "heal":
             for node in np.flatnonzero(self.departed):
                 self.amnesty(int(node))
+            flight.record("membership.heal", t=self.clock)
             self.notify(Events.LINK_HEALED, {"t": self.clock})
         else:
             raise ValueError(f"unknown fault kind {fault.kind!r}")
@@ -98,6 +108,7 @@ class Membership(Observable):
         self.departed[node] = False
         self.probe_failures[node] = 0
         self.next_probe[node] = t
+        flight.record("membership.amnesty", node=node, t=t)
 
     def probes_due(self, t: float | None = None) -> list[int]:
         """Suspects whose next reconnect probe is due at ``t``."""
@@ -115,6 +126,8 @@ class Membership(Observable):
         t = self.clock if t is None else t
         self.probe_failures[node] += 1
         k = int(self.probe_failures[node])
+        flight.record("membership.probe_failed", node=node, k=k,
+                      final=k >= self.retry_limit)
         if k >= self.retry_limit:
             return True
         delay = min(self.backoff_base_s * (2.0 ** k), self.backoff_max_s)
@@ -140,6 +153,7 @@ class Membership(Observable):
             self.probe_failures[died] = 0
             self.next_probe[died] = t + self.backoff_base_s
             for node in died:  # one event a node, in index order
+                flight.record("membership.suspect", node=int(node), t=t)
                 self.notify(Events.NODE_DIED, {"node": int(node), "t": t})
         return self.alive.copy()
 
@@ -148,6 +162,7 @@ class Membership(Observable):
         self.departed[node] = True
         self.beating[node] = False
         self.next_probe[node] = np.inf
+        flight.record("membership.evict", node=node, t=self.clock)
         if self.alive[node]:
             self.alive[node] = False
             self.notify(Events.NODE_DIED, {"node": node, "t": self.clock})

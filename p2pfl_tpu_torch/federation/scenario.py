@@ -27,14 +27,21 @@ before a run starts.
 
 Round-boundary services, as in the JAX package: with ``log_dir`` a
 ``MetricsLogger`` (``<log_dir>/<name>/metrics.jsonl``, per-node CSVs,
-optional TensorBoard and wandb) and per-node status records
-(``<log_dir>/<name>/status/``); with ``profile_dir`` one steady-state
-round (the run's second) traced by ``torch.profiler`` into a Chrome
-trace there; with ``checkpoint_dir`` a ``Scenario`` resumes from the
-newest file that loads (replaying the membership clock and the leader
-through the restored rounds) and saves every ``checkpoint_every``
-rounds (``federation/checkpoint.py``). ``exchange_overlap="staged"``
-seeds the staged exchange's buffer before the resume.
+optional TensorBoard and wandb), per-node status records
+(``<log_dir>/<name>/status/``) and the flight recorder's dumps
+(``<log_dir>/<name>/flight/``); under ``P2PFL_TRACE`` a
+``scenario.round`` span a round, exported when the run ends
+(``obs/trace.py``; ``1`` exports to ``<log_dir>/<name>/trace/``); under
+``P2PFL_DEVPROF`` the round's ``devprof_*`` gauges in every status
+record, from one FLOP count of the round (every node's fit through the
+plain versions, and the mix; ``obs/cost_model.py``); with
+``profile_dir`` one steady-state round (the run's second) traced by
+``torch.profiler`` into a Chrome trace there; with ``checkpoint_dir`` a
+``Scenario`` resumes from the newest file that loads (replaying the
+membership clock and the leader through the restored rounds) and saves
+every ``checkpoint_every`` rounds (``federation/checkpoint.py``).
+``exchange_overlap="staged"`` seeds the staged exchange's buffer before
+the resume.
 
     scenario = Scenario(ScenarioConfig(...))   # device "cuda" by default
     result = scenario.run()
@@ -61,7 +68,7 @@ from p2pfl_tpu_torch.adversary import (
 from p2pfl_tpu_torch.config.schema import ScenarioConfig
 from p2pfl_tpu_torch.core.aggregators import get_aggregator
 from p2pfl_tpu_torch.datasets.data import CrossDeviceData, FederatedDataset
-from p2pfl_tpu_torch.core.pytree import tree_map
+from p2pfl_tpu_torch.core.pytree import tree_leaves, tree_map
 from p2pfl_tpu_torch.device import card_numerics, resolve_device
 from p2pfl_tpu_torch.federation.checkpoint import (
     all_checkpoints,
@@ -74,6 +81,8 @@ from p2pfl_tpu_torch.federation.sampling import sample_cohorts
 from p2pfl_tpu_torch.learning.learner import make_step_fns
 from p2pfl_tpu_torch.learning.lora import maybe_wrap_lora
 from p2pfl_tpu_torch.models.base import build_model
+from p2pfl_tpu_torch.obs import cost_model, devprof, flight
+from p2pfl_tpu_torch.obs import trace as obs_trace
 from p2pfl_tpu_torch.parallel.federated import (
     build_cross_device_stream_fns,
     build_eval_fn,
@@ -139,6 +148,34 @@ def _faults_by_round(config: ScenarioConfig) -> dict[int, list]:
     for f in config.faults:
         by_round.setdefault(f.round, []).append(f)
     return by_round
+
+
+def _configure_obs(logger: MetricsLogger):
+    """The run's tracer from ``P2PFL_TRACE`` (exporting to
+    ``<log_dir>/<name>/trace`` under ``1``) and, with a log dir, the
+    flight recorder's dump directory ``<log_dir>/<name>/flight``."""
+    tracer = obs_trace.configure_from_env(
+        default_dir=(logger.dir / "trace") if logger.dir else None)
+    if logger.dir is not None:
+        flight.configure(dump_dir=logger.dir / "flight")
+    return tracer
+
+
+def _round_flops(fns, params, x_shape: tuple, x_dtype, y_dtype,
+                 n_samples: int, batch_size: int, epochs: int, n_fits: int,
+                 n_mix: int = 0) -> float | None:
+    """One round's FLOP count: ``n_fits`` fits of ``epochs`` epochs over a
+    shard of ``n_samples`` (obs.cost_model's count through the plain
+    versions), plus the ``[n_mix, n_mix]`` mix over every parameter;
+    None when the count fails."""
+    try:
+        fit = cost_model.fit_flops(fns, params, x_shape, x_dtype, y_dtype,
+                                   n_samples, batch_size)
+    except Exception:
+        return None
+    per_node = sum(int(np.prod(p.shape[1:])) for p in tree_leaves(params))
+    return (n_fits * epochs * fit
+            + (cost_model.mix_flops(n_mix, per_node) if n_mix else 0.0))
 
 
 def _logger(config: ScenarioConfig) -> MetricsLogger:
@@ -316,6 +353,10 @@ class Scenario(Observable):
         self.global_step = self.fed.round * self._steps_per_round
         self.round_times_s: list[float] = []
         self.profile_path: pathlib.Path | None = None  # the last trace
+        # devprof round gauges (MFU, TFLOPs, memory), refreshed a round;
+        # the count is taken once (False: not yet)
+        self.devprof_last: dict[str, Any] = {}
+        self._devprof_flops: float | None | bool = False
 
     # ------------------------------------------------------------------
     def _write_topology(self) -> None:
@@ -488,7 +529,21 @@ class Scenario(Observable):
                 "dp_epsilon_budget": (self.config.privacy.epsilon_budget
                                       if acct is not None else None),
                 "recompiles": 0,
+                # one stacked round serves every node, so the devprof
+                # gauges (utilization, memory) are shared
+                **self.devprof_last,
             })
+
+    def round_flops(self) -> float | None:
+        """One round's FLOP count: every node's fit (the stacked step
+        runs every row, gated or not) and the mix."""
+        x, y = self._data_args[0], self._data_args[1]
+        cfg = self.config
+        return _round_flops(self.fns, self.fed.states.params,
+                            tuple(x.shape[2:]), x.dtype, y.dtype,
+                            x.shape[1], cfg.data.batch_size,
+                            cfg.training.epochs_per_round, cfg.n_nodes,
+                            n_mix=cfg.n_nodes)
 
     def _log_round(self, r: int, dt: float, train_loss: np.ndarray) -> None:
         """The round's per-node training records (the JAX run loop's)."""
@@ -539,6 +594,7 @@ class Scenario(Observable):
         if cfg.profile_dir:
             profiler = _RoundProfiler(cfg.profile_dir, cfg.name, self.device)
             profile_round = start_round + (1 if rounds > 1 else 0)
+        tracer = _configure_obs(self.logger)
         try:
             for r in range(start_round, start_round + rounds):
                 _sync(self.device)
@@ -551,14 +607,23 @@ class Scenario(Observable):
                 self.fed = dataclasses.replace(
                     self.fed, alive=torch.from_numpy(alive).to(self.device))
                 trains_vote = self._voted_trains(alive, r)
-                self.fed, metrics = self._round_fn(
-                    self.fed, *self._data_args, *self._plan_args(trains_vote))
-                _sync(self.device)
+                with tracer.span("scenario.round", args={"round": r}):
+                    self.fed, metrics = self._round_fn(
+                        self.fed, *self._data_args,
+                        *self._plan_args(trains_vote))
+                    _sync(self.device)
                 if r == profile_round:
                     self.profile_path = profiler.stop(r)
                 self.notify(Events.AGGREGATION_FINISHED, {"round": r})
                 dt = time.monotonic() - t0
                 round_times.append(dt)
+                if devprof.enabled():
+                    # counted once a run, AFTER dt is read, so the count
+                    # never bills itself to a round time
+                    if self._devprof_flops is False:
+                        self._devprof_flops = self.round_flops()
+                    self.devprof_last = devprof.round_gauges(
+                        self._devprof_flops, dt, 1, device=self.device)
                 self.global_step += self._steps_per_round
                 train_loss = metrics["train_loss"].double().cpu().numpy()
                 rec = {"round": r, "round_time_s": dt,
@@ -601,6 +666,8 @@ class Scenario(Observable):
         finally:
             if profiler is not None:
                 profiler.close()
+            if tracer.enabled:
+                tracer.export(process_name=f"scenario[{cfg.name}]")
         last_round = start_round + rounds - 1
         if ev is None or ev_round != last_round:
             ev = self.evaluate()
@@ -691,6 +758,8 @@ class CrossDeviceScenario(Observable):
         self._y_test = torch.from_numpy(self.data.y_test).to(dev)
         # throughput and prefetch gauges of the last round
         self.crossdev_last: dict[str, Any] = {}
+        self.devprof_last: dict[str, Any] = {}
+        self._devprof_flops: float | None | bool = False
         # the last round's draw and its liveness
         self.last_sampled: np.ndarray | None = None
         self.last_cohorts: np.ndarray | None = None
@@ -799,7 +868,22 @@ class CrossDeviceScenario(Observable):
             "peers": self.cd.n_slots - 1,
             "recompiles": 0,
             **self.crossdev_last,
+            **self.devprof_last,
         })
+
+    def round_flops(self) -> float | None:
+        """One round's FLOP count: every sampled client's fit over a
+        client's shard (the per-step accumulate is elementwise and counts
+        0)."""
+        cd, cfg = self.cd, self.config
+        x, y, _, _ = self.data.cohort_buffers(1)
+        return _round_flops(self.fns, self.fed.states.params,
+                            tuple(x.shape[2:]),
+                            cost_model._torch_dtype(x.dtype),
+                            cost_model._torch_dtype(y.dtype), x.shape[1],
+                            cfg.data.batch_size,
+                            cfg.training.epochs_per_round,
+                            cd.clients_per_round)
 
     def evaluate(self) -> dict[str, Any]:
         """The global model on the shared test set. Every slot holds the
@@ -818,14 +902,25 @@ class CrossDeviceScenario(Observable):
     def run(self, rounds: int | None = None,
             target_accuracy: float | None = None) -> ScenarioResult:
         cfg = self.config
-        cd = self.cd
         rounds = rounds if rounds is not None else cfg.training.rounds
+        start_round = self.fed.round
+        tracer = _configure_obs(self.logger)
+        try:
+            result = self._run(rounds, target_accuracy, start_round, tracer)
+        finally:
+            if tracer.enabled:
+                tracer.export(process_name=f"crossdev[{cfg.name}]")
+        return result
+
+    def _run(self, rounds: int, target_accuracy: float | None,
+             start_round: int, tracer) -> ScenarioResult:
+        cfg = self.config
+        cd = self.cd
         round_times: list[float] = []
         history: list[dict] = []
         rounds_to_target = None
         ev = None
         ev_round = -1
-        start_round = self.fed.round
         for r in range(start_round, start_round + rounds):
             _sync(self.device)
             t0 = time.monotonic()
@@ -837,13 +932,19 @@ class CrossDeviceScenario(Observable):
                 seed=cd.seed, weights=self._sample_weights,
             )
             c_alive = alive[cohorts]
-            if self._stream:
-                metrics = self._run_streamed_round(cohorts, c_alive)
-            else:
-                metrics = self._run_materialized_round(sampled, c_alive)
-            _sync(self.device)
+            with tracer.span("scenario.round", args={"round": r}):
+                if self._stream:
+                    metrics = self._run_streamed_round(cohorts, c_alive)
+                else:
+                    metrics = self._run_materialized_round(sampled, c_alive)
+                _sync(self.device)
             dt = time.monotonic() - t0
             round_times.append(dt)
+            if devprof.enabled():
+                if self._devprof_flops is False:
+                    self._devprof_flops = self.round_flops()
+                self.devprof_last = devprof.round_gauges(
+                    self._devprof_flops, dt, 1, device=self.device)
             self.last_sampled = sampled
             self.last_cohorts = cohorts
             self.last_cohort_alive = c_alive

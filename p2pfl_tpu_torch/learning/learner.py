@@ -42,14 +42,19 @@ adds ``ocsvm_penalty`` over the node's params; both report accuracy
 (``p2p/node.py``); the JAX package's ``NodeLearner`` contract is
 ``TorchLearner``'s public methods. A ``TorchLearner`` is the stacked
 step at n = 1 on its device, so a node's fit takes the stacked
-federation's kernels. Its fit, evaluation and warm-up hold one lock per
-device.
+federation's kernels. Its fit, evaluation, parameter loads and warm-up
+hold one lock per device. Its fit and evaluation record the
+``learner.fit`` and ``learner.evaluate`` spans (obs.trace) once the lock
+is held, and under ``P2PFL_DEVPROF`` the fit leaves its gauges in
+``devprof_last`` (obs.devprof; ``step`` runs the step's phases apart).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
+import time
 from typing import Callable
 
 import numpy as np
@@ -73,6 +78,8 @@ from p2pfl_tpu_torch.learning.objectives import (
     masked_accuracy,
     ocsvm_penalty,
 )
+from p2pfl_tpu_torch.obs import devprof
+from p2pfl_tpu_torch.obs.trace import get_tracer
 from p2pfl_tpu_torch.ops import gemm
 
 OPTIMIZERS = ("sgd", "adam", "adamw")
@@ -111,6 +118,12 @@ class StepFns:
     # -> (state, {"loss": [n], "loss_per_epoch": [epochs, n]})
     evaluate: Callable  # (params, x, y, mask) -> {"loss", "accuracy"} [n]
     apply_update: Callable  # (state, grads, gate=None) -> state
+    # the step's phases (obs.devprof's step mode times each apart);
+    # train_step and train_epochs are built from them
+    prepare_epoch: Callable  # (state, x, y, mask) -> (bx, by, bm), each
+    # [n, steps, bsz, ...]
+    forward: Callable  # (params, bx, by, bm) -> (loss [n], grad leaves)
+    backward: Callable  # (params, grad leaves, loss) -> grads tree
 
 
 def trace_dtype(momentum_dtype: str | None) -> torch.dtype | None:
@@ -269,19 +282,35 @@ def make_step_fns(
             return loss_fn(out, by, bm) + ocsvm_penalty(params)
         return loss_fn(out, by, bm)
 
+    def forward(params: Params, bx, by, bm):
+        """The forward pass and the loss ``[n]``, with the autograd
+        graph over fresh leaves of ``params`` (returned for
+        :func:`backward`)."""
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        tree = tree_unflatten(params, leaves)
+        with torch.enable_grad():
+            loss = objective_of(model(tree, bx), tree, bx, by, bm)
+        return loss, leaves
+
+    def backward(params: Params, leaves: list, loss: torch.Tensor) -> Params:
+        """The gradient of ``loss.sum()`` with respect to the leaves
+        :func:`forward` returned, as a tree shaped like ``params``."""
+        with torch.enable_grad():
+            grads = torch.autograd.grad(loss.sum(), leaves)
+        return tree_unflatten(params, list(grads))
+
     def train_step(state: TrainState, bx, by, bm,
                    gate: torch.Tensor | None = None):
-        leaves = [p.detach().requires_grad_(True)
-                  for p in tree_leaves(state.params)]
-        params = tree_unflatten(state.params, leaves)
-        with torch.enable_grad():
-            loss = objective_of(model(params, bx), params, bx, by, bm)
-            grads = torch.autograd.grad(loss.sum(), leaves)
-        state = apply_update(state, tree_unflatten(state.params, list(grads)),
+        loss, leaves = forward(state.params, bx, by, bm)
+        state = apply_update(state, backward(state.params, leaves, loss),
                              gate)
         return state, loss.detach()
 
-    def train_one_epoch(state: TrainState, x, y, mask, gate):
+    def prepare_epoch(state: TrainState, x, y, mask):
+        """The epoch's shuffle (a fresh permutation of each node's shard
+        from ``state.rng``) laid out as drop-remainder batches ``[n,
+        steps, bsz, ...]``."""
         n, s = x.shape[0], x.shape[1]
         bsz = min(batch_size, s)  # shards smaller than a batch still train
         steps = s // bsz
@@ -293,6 +322,12 @@ def make_step_fns(
         bx = x[rows, perm].reshape((n, steps, bsz) + x.shape[2:])
         by = y[rows, perm].reshape(n, steps, bsz)
         bm = mask[rows, perm].reshape(n, steps, bsz)
+        return bx, by, bm
+
+    def train_one_epoch(state: TrainState, x, y, mask, gate):
+        n = x.shape[0]
+        bx, by, bm = prepare_epoch(state, x, y, mask)
+        steps = bx.shape[1]
         loss_sum = torch.zeros(n, device=x.device)
         for i in range(steps):
             state, loss = train_step(state, bx[:, i], by[:, i], bm[:, i],
@@ -340,7 +375,9 @@ def make_step_fns(
 
     return StepFns(init=init, init_opt_state=init_opt_state,
                    train_step=train_step, train_epochs=train_epochs,
-                   evaluate=evaluate, apply_update=apply_update)
+                   evaluate=evaluate, apply_update=apply_update,
+                   prepare_epoch=prepare_epoch, forward=forward,
+                   backward=backward)
 
 
 
@@ -447,6 +484,11 @@ class TorchLearner:
         self._interrupted = False
         #: the train loss of each fit's last epoch
         self.train_losses: list[float] = []
+        #: the last fit's devprof_* gauges (MFU, TFLOPs, memory) for the
+        #: status publisher; empty until a fit completes with devprof on
+        self.devprof_last: dict = {}
+        self._devprof_wall = 0.0
+        self._devprof_epochs = 0
         self._lock = device_lock(self.device)
 
     # -- wiring ----------------------------------------------------------
@@ -487,10 +529,14 @@ class TorchLearner:
     def set_parameters(self, params) -> None:
         check_parameters(params, self.get_parameters())
         # the incoming host leaves answer get_parameters from now on
-        self._host = tree_map(lambda old, new: to_host(new),
-                              self.state.params, params)
-        self.state = dataclasses.replace(self.state, params=tree_map(
-            _onto_device, self._host, self.state.params))
+        host = tree_map(lambda old, new: to_host(new), self.state.params,
+                        params)
+        # under the device lock, as every copy onto the card: a step-mode
+        # fit's synchronize then waits for its own node's work only
+        with self._lock:
+            self._host = host
+            self.state = dataclasses.replace(self.state, params=tree_map(
+                _onto_device, host, self.state.params))
 
     def device_parameters(self):
         """A copy of the params on the device, without the node axis (an
@@ -547,22 +593,51 @@ class TorchLearner:
         if self._interrupted:  # honour a pending interrupt_fit()
             self._interrupted = False
             return
-        with self._lock:
-            x, y, mask = self._train_args()
-            epochs_run = 0
-            for _ in range(self.epochs):
-                if self._interrupted:
-                    self._interrupted = False
-                    break
-                self.state, metrics = self.fns.train_epochs(
-                    self.state, x, y, mask, epochs=1)
-                epochs_run += 1
-            self._host = None
-            self.get_parameters()  # the device-to-host copy, here
-            if epochs_run:
-                self.train_losses.append(float(metrics["loss"][0]))
+        # the span opens once the device is this node's: a wait for
+        # another node's fit is not this fit's time
+        with self._lock, get_tracer().span(
+                "learner.fit", args={"round": self.round,
+                                     "epochs": self.epochs}):
+            epochs_run = self._fit_locked()
+        # gauges AFTER the span closes: the once-per-shape FLOP count
+        # must not bill itself to learner.fit
+        if devprof.enabled() and self._devprof_wall:
+            self.devprof_last = devprof.fit_gauges(
+                self, self._devprof_wall, self._devprof_epochs)
         self.local_step = (max(len(self.data.x) // self.batch_size, 1)
                            * epochs_run)
+
+    def _fit_locked(self) -> int:
+        x, y, mask = self._train_args()
+        t0 = time.monotonic()
+        self._devprof_wall = 0.0  # stays 0 on an interrupted fit
+        # step-level devprof runs the step functions' phases apart, each
+        # closed by a synchronize inside its span; otherwise the fused
+        # epoch runs untouched
+        step_prof = devprof.step_enabled()
+        epochs_run = 0
+        for _ in range(self.epochs):
+            if self._interrupted:
+                self._interrupted = False
+                break
+            if step_prof:
+                self.state, metrics = devprof.profiled_epoch(
+                    self, x, y, mask)
+            else:
+                self.state, metrics = self.fns.train_epochs(
+                    self.state, x, y, mask, epochs=1)
+            epochs_run += 1
+        self._host = None
+        # the device-to-host copy, here; it also ends the fit's device
+        # work, so the wall below needs no synchronize of its own
+        with (get_tracer().span("devprof.accum") if step_prof
+              else contextlib.nullcontext()):
+            self.get_parameters()
+        if epochs_run:
+            self.train_losses.append(float(metrics["loss"][0]))
+            self._devprof_wall = time.monotonic() - t0
+            self._devprof_epochs = epochs_run
+        return epochs_run
 
     def warm_up(self) -> None:
         """Build (or load) the kernels, and so the device's context,
@@ -585,7 +660,8 @@ class TorchLearner:
     def evaluate(self):
         d = self.data
         x, y = (d.x_val, d.y_val) if len(d.x_val) else (d.x, d.y)
-        with self._lock:
+        with self._lock, get_tracer().span("learner.evaluate",
+                                           args={"round": self.round}):
             xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
             yt = torch.from_numpy(np.ascontiguousarray(y)).to(self.device)
             mask = torch.ones(len(x), dtype=torch.bool, device=self.device)

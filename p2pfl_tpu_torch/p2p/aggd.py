@@ -26,9 +26,10 @@ at exit for the window before the handshake.
 Slots are accounted in the client alone (the loop and the reply
 thread, one lock). A fuse whose reply never comes (a killed worker)
 falls back to an in-process fuse of the same entries, and is counted in
-``fallbacks``; an error reply is kept in ``errors``. The flight events
-(``aggd.spawn``, ``aggd.error``, ``aggd.close``, the session's
-``aggd.fallback``) and the trace counter are A23.
+``fallbacks``; an error reply is kept in ``errors``. The flight recorder
+keeps ``aggd.spawn``, ``aggd.error`` and ``aggd.close`` (the session
+records ``aggd.fallback``), and under ``P2PFL_TRACE`` the tracer counts
+``aggd_bytes_ingested``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ import threading
 from contextlib import suppress
 from multiprocessing import shared_memory
 from typing import Any
+
+from p2pfl_tpu_torch.obs import flight
+from p2pfl_tpu_torch.obs.trace import get_tracer
 
 
 #: arena names carry this prefix, so a test (or an operator) can audit
@@ -154,8 +158,10 @@ class SidecarClient:
     unavailable), never as an error.
     """
 
-    def __init__(self, n_slots: int = 16):
+    def __init__(self, n_slots: int = 16, lane: str | None = None):
         self.n_slots = max(2, int(n_slots))
+        self._tracer = get_tracer()
+        self._lane = lane
         self.slot_bytes = 0
         self._shm: shared_memory.SharedMemory | None = None
         self._proc = None
@@ -199,6 +205,8 @@ class SidecarClient:
                 size=self.n_slots * self.slot_bytes)
         except OSError:
             self._closed = True  # no /dev/shm: permanent inline path
+            flight.record("aggd.error", lane=self._lane,
+                          error="shared memory unavailable")
             return False
         self._free = list(range(self.n_slots - 1, -1, -1))
         ctx = multiprocessing.get_context("spawn")
@@ -222,6 +230,8 @@ class SidecarClient:
         self._drain = threading.Thread(
             target=self._drain_loop, daemon=True, name="aggd-drain")
         self._drain.start()
+        flight.record("aggd.spawn", lane=self._lane, pid=self._proc.pid,
+                      n_slots=self.n_slots, slot_bytes=self.slot_bytes)
         return True
 
     def alive(self) -> bool:
@@ -266,6 +276,10 @@ class SidecarClient:
             with suppress(BufferError):
                 self._shm.close()
             self._shm = None
+        flight.record("aggd.close", lane=self._lane,
+                      fused_rounds=self.fused_rounds,
+                      fallbacks=self.fallbacks,
+                      bytes_ingested=self.bytes_ingested)
 
     def _unlink(self) -> None:
         if not self._unlinked and self._shm is not None:
@@ -288,6 +302,8 @@ class SidecarClient:
             slot = self._free.pop()
             self._leased.add(slot)
         self.bytes_ingested += int(nbytes)
+        if self._tracer.enabled:
+            self._tracer.count("aggd_bytes_ingested", int(nbytes))
         return slot, self.view(slot, nbytes)
 
     def view(self, slot: int, length: int) -> memoryview:
@@ -358,6 +374,7 @@ class SidecarClient:
         item = box[0]
         if item[0] == "err":
             self.errors.append(item[2])
+            flight.record("aggd.error", lane=self._lane, error=item[2])
             self.release(slot)
             return None
         _, _, length, stats = item

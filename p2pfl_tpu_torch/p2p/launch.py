@@ -45,6 +45,15 @@ front (the largest round of a live node) reaches the fault's round, not
 on a clock. The result's ``churn`` holds what happened, under the JAX
 package's keys; with reputation, ``trust`` and ``suspects`` hold each
 node's own view.
+
+Observability (``obs/``): with ``P2PFL_TRACE`` set, ``run_simulation``
+and every child of ``launch`` export ``proc<pid>.trace.json`` (under
+``1``: into ``<log_dir>/<name>/trace``), and ``run_simulation``'s result
+carries the tracer's summary as ``obs``; the flight recorder dumps into
+``<log_dir>/<name>/flight`` (on a crash, a dead peer's eviction, or a
+child's unhandled exception); status records carry the node's
+``critpath_*`` split and, under ``P2PFL_DEVPROF``, its learner's
+``devprof_*`` gauges.
 """
 
 from __future__ import annotations
@@ -84,11 +93,36 @@ from p2pfl_tpu_torch.p2p.aggd import SidecarClient
 from p2pfl_tpu_torch.p2p.node import P2PNode
 from p2pfl_tpu_torch.privacy.dp import DPSpec, epsilon_at
 from p2pfl_tpu_torch.topology.topology import generate_topology
+from p2pfl_tpu_torch.obs import flight
+from p2pfl_tpu_torch.obs import trace as obs_trace
 from p2pfl_tpu_torch.utils.monitor import publish_status
 
 
 #: a rejoining node's dial to one neighbour, the hello's answer included
 _DIAL_S = 10.0
+
+
+def _trace_setup(cfg: ScenarioConfig) -> obs_trace.Tracer:
+    """A process's observability: the flight recorder's dumps into
+    ``<log_dir>/<name>/flight`` and the tracer from ``P2PFL_TRACE``,
+    exporting (under ``1``) into ``<log_dir>/<name>/trace``: the status
+    dir's convention, so traceview finds every process of a federation
+    under one root."""
+    if cfg.log_dir:
+        flight.configure(
+            dump_dir=pathlib.Path(cfg.log_dir) / cfg.name / "flight")
+    return obs_trace.configure_from_env(
+        default_dir=(pathlib.Path(cfg.log_dir) / cfg.name / "trace")
+        if cfg.log_dir else None)
+
+
+def _critpath_status(node: P2PNode) -> dict:
+    """The node's last round split as the ``critpath_*`` status keys
+    (empty before a round closes)."""
+    cp = node.critpath_last
+    if not cp:
+        return {}
+    return {f"critpath_{k}": v for k, v in cp.items()}
 
 
 def _adversary_setup(cfg: ScenarioConfig):
@@ -262,7 +296,9 @@ def _status(cfg: ScenarioConfig, node: P2PNode) -> dict:
            "peer_bytes_in": dict(node.peer_bytes_in),
            "peer_bytes_out": dict(node.peer_bytes_out),
            "recompiles": 0, **_privacy_status(cfg, node.round),
-           **_aggd_status(node.sidecar)}
+           **_aggd_status(node.sidecar), **_critpath_status(node),
+           # the learner's last fit's devprof_* gauges (P2PFL_DEVPROF)
+           **getattr(node.learner, "devprof_last", {})}
     if node.reputation is not None:
         out["trust"] = float(node.reputation.trust[node.idx])
     return out
@@ -399,6 +435,7 @@ def node_main(config_path: str, idx: int | list[int], ports: list[int],
     loop, one ``P2PFL_RESULT`` line each."""
     idxs = [idx] if isinstance(idx, int) else list(idx)
     cfg = ScenarioConfig.load(config_path)
+    tracer = _trace_setup(cfg)
     dev = resolve_device(device)
     data = FederatedDataset.make(cfg.data, cfg.n_nodes)  # the same shards
     shared = _shared_trainer(cfg, data, dev)
@@ -413,9 +450,19 @@ def node_main(config_path: str, idx: int | list[int], ports: list[int],
 
     try:
         results = asyncio.run(_run_all())
+    except Exception as e:
+        # the control-event ring's moment: dumped before the process
+        # dies, so the parent finds a postmortem beside the missing
+        # result line
+        flight.record("proc.exception", nodes=idxs, error=repr(e))
+        flight.dump(f"proc{idxs[0]}.exception")
+        raise
     finally:
         if sidecar is not None:
             sidecar.close()
+    if tracer.enabled:
+        # one file a process; its nodes are lanes inside it
+        tracer.export(process_name="nodes " + ",".join(map(str, idxs)))
     for result in results:
         result.update(_sidecar_result(sidecar))
         print("P2PFL_RESULT " + json.dumps(result), flush=True)
@@ -509,6 +556,7 @@ async def _simulate(cfg: ScenarioConfig, timeout: float,
                 break
             await asyncio.sleep(0.05)
         recovery["recovery_s"] = round(time.monotonic() - t_heal, 3)
+        flight.record("sim.recovered", recovery_s=recovery["recovery_s"])
 
     async def _fault_driver() -> None:
         for f in sorted(cfg.faults, key=lambda f: (f.round, f.node)):
@@ -631,17 +679,22 @@ def run_simulation(cfg: ScenarioConfig, timeout: float = 600,
     ``P2PNode``s (their learners hold the final state), ``sidecar_out``
     the ``SidecarClient``."""
     nodes = nodes_out if nodes_out is not None else []
+    tracer = _trace_setup(cfg)
     sidecar = _sidecar_for(cfg, cfg.n_nodes)
     if sidecar is not None and sidecar_out is not None:
         sidecar_out.append(sidecar)
     try:
         with tempfile.TemporaryDirectory(prefix="p2pfl_tls_") as d:
             tls_dir = _mint_credentials(cfg, d) if cfg.encrypt else None
-            return asyncio.run(_simulate(cfg, timeout, resolve_device(device),
-                                         nodes, tls_dir, sidecar))
+            out = asyncio.run(_simulate(cfg, timeout, resolve_device(device),
+                                        nodes, tls_dir, sidecar))
     finally:
         if sidecar is not None:
             sidecar.close()
+    if tracer.enabled:
+        out["obs"] = tracer.summarize()
+        tracer.export(process_name=f"sim[{cfg.name}]")
+    return out
 
 
 def launch(cfg: ScenarioConfig, config_path: str | pathlib.Path,
@@ -696,7 +749,11 @@ def launch(cfg: ScenarioConfig, config_path: str | pathlib.Path,
             if p.returncode == 0 or attempt >= max_restarts:
                 return "".join(chunks), p.returncode, attempt
             attempt += 1
-            time.sleep(restart_backoff_delay(restart_backoff_s, attempt))
+            delay = restart_backoff_delay(restart_backoff_s, attempt)
+            flight.record("launch.restart", group=groups[gi],
+                          attempt=attempt, rc=p.returncode,
+                          backoff_s=round(delay, 3))
+            time.sleep(delay)
             p = spawn(cmds[gi] + ["--resume"])
 
     try:

@@ -19,8 +19,8 @@ same windows as the JAX package. Per (source -> destination) link:
   on every node, so the whole federation severs and heals one cut.
 
 The drops and delays come from one ``random.Random`` a source node,
-seeded from ``(seed, "netem", src)``. The flight events of the edges
-(``netem.partition``, ``netem.heal``) are A23 and are not recorded; the
+seeded from ``(seed, "netem", src)``. A window's edges are recorded as
+the flight events ``netem.partition`` and ``netem.heal``, and the
 ``on_transition`` callback runs.
 """
 
@@ -30,6 +30,7 @@ import asyncio
 import random
 from typing import Callable
 
+from p2pfl_tpu_torch.obs import flight
 from p2pfl_tpu_torch.p2p.protocol import Message, write_message
 
 
@@ -124,17 +125,21 @@ class LinkShaper:
                             self._plan_time(asyncio.get_event_loop().time()))
 
     def _note_transitions(self, t: float) -> None:
-        """Report sever/heal edges (the callback) as plan time
+        """Record sever/heal edges (flight + callback) as plan time
         crosses window boundaries. Piggybacked on send(), so detection
         latency is one outbound message — at most a heartbeat period."""
         now_active = {k for k, (s, e, _g, _m) in enumerate(self._windows)
                       if s <= t < e}
         for k in sorted(now_active - self._part_active):
             groups = self._windows[k][2]
+            flight.record("netem.partition", src=self.src, window=k,
+                          groups=groups, t=round(t, 3))
             if self._on_transition is not None:
                 self._on_transition("partition", groups)
         for k in sorted(self._part_active - now_active):
             groups = self._windows[k][2]
+            flight.record("netem.heal", src=self.src, window=k,
+                          groups=groups, t=round(t, 3))
             if self._on_transition is not None:
                 self._on_transition("heal", groups)
         self._part_active = now_active

@@ -69,8 +69,21 @@ The adversarial and elastic layers, each off unless asked for:
 
 Fit and evaluate run in the loop's executor, so heartbeats keep flowing
 while a node trains; a fit or an evaluation that raises fails the node
-(``error`` set, ``finished`` set) and the launcher raises. Trace spans
-and flight events are A23 and are left out.
+(``error`` set, ``finished`` set) and the launcher raises.
+
+Observability, as in the JAX package (``obs/``): under ``P2PFL_TRACE``
+the spans ``node.round``, ``node.fit``, ``node.wait`` (gossip, adopt,
+barrier), ``p2p.tx`` and ``p2p.rx`` (a PARAMS send stamps the header's
+``tc`` with its tx span id and wall clock; the receiver's span carries
+``tx_ns`` and ``rx_ns``), ``p2p.verify``, ``p2p.state_sync``,
+``p2p.join`` and ``p2p.probe`` on the node's lane (``node<idx>``), and
+the counters (``rx_bytes/peer<i>``, ``tx_msgs/<type>``, ``peer_join``,
+``join_state_sync``, ``stale_params_folded``, ``verify_ok``/``_fail``,
+``probe_*``), each behind ``tracer.enabled``; always the flight events
+of a crash, a partition and heal, a resume, a join, an injected attack
+and DP, and the flight recorder's dump on a crash and on a dead peer's
+eviction. ``critpath_last`` holds the last round's
+fit/wire/wait/agg/other split for the status record.
 """
 
 from __future__ import annotations
@@ -113,6 +126,8 @@ from p2pfl_tpu_torch.federation.checkpoint import (
     unpack_model,
 )
 from p2pfl_tpu_torch.federation.membership import Membership
+from p2pfl_tpu_torch.obs import flight
+from p2pfl_tpu_torch.obs.trace import get_tracer
 from p2pfl_tpu_torch.p2p.protocol import (
     GOSSIPED,
     PERIODIC_FLOODS,
@@ -287,11 +302,27 @@ class P2PNode:
         #: beats and roles a read loop dropped on a full lane (see
         #: ``_write``)
         self.floods_dropped = 0
+        # the process tracer (configured in place, so the cached
+        # reference stays valid) and this node's lane in it; per-peer and
+        # per-type counter keys are built only behind tracer.enabled
+        self._tracer = get_tracer()
+        self._lane = f"node{idx}"
         self.bytes_in = 0
         self.bytes_out = 0
         self.peer_bytes_in: dict[int, int] = {}
         self.peer_bytes_out: dict[int, int] = {}
         self.round_wall_s: list[float] = []
+        # the round's critical-path accumulators (plain-float adds; the
+        # wire seconds need the sender's tc stamp, so they accrue only
+        # while tracing): _learning_loop folds them into
+        # ``critpath_last`` at every round's close and zeroes them
+        self._cp_fit_s = 0.0
+        self._cp_wait_s = 0.0
+        self._cp_wire_s = 0.0
+        self._cp_agg_mark = 0.0
+        #: the last round's fit/wire/wait/agg/other split (the status
+        #: records' critpath_* keys); None before a round closes
+        self.critpath_last: dict[str, float] | None = None
         self.fit_slowdown = float(fit_slowdown)
         self.local_epochs = local_epochs
         self._peer_addrs: dict[int, tuple[str, int]] = {}
@@ -308,11 +339,12 @@ class P2PNode:
             self.session: AggregationSession = SidecarSession(
                 aggregator, timeout_s=self.protocol.aggregation_timeout_s,
                 reputation=reputation, client=sidecar,
-                spawn=self._track_task, **quorum)
+                spawn=self._track_task, lane=self._lane, **quorum)
         else:
             self.session = AggregationSession(
                 aggregator, timeout_s=self.protocol.aggregation_timeout_s,
-                reputation=reputation, masker=masker, **quorum)
+                reputation=reputation, masker=masker, lane=self._lane,
+                **quorum)
         self.membership = Membership(
             n_nodes, self.protocol, virtual=False,
             retry_limit=el.heartbeat_retry_limit,
@@ -370,6 +402,8 @@ class P2PNode:
             if not t.cancelled() and t.exception() is not None:
                 log.error("node %d background task %r failed: %r",
                           self.idx, what, t.exception())
+                flight.record("node.task_failed", node=self.idx, what=what,
+                              error=repr(t.exception())[:200])
 
         task.add_done_callback(_done)
         return task
@@ -401,8 +435,11 @@ class P2PNode:
         except ValueError as e:
             log.warning("node %d resume failed, joining fresh: %s",
                         self.idx, e)
+            flight.record("checkpoint.resume_failed", node=self.idx,
+                          error=str(e)[:200])
             return
         if got is None:
+            flight.record("checkpoint.resume_missing", node=self.idx)
             return
         params, rnd = got
         await self._set_parameters(params)
@@ -410,6 +447,7 @@ class P2PNode:
         self.round = rnd
         self._resume_round = rnd
         self.adopted.append("checkpoint")
+        flight.record("checkpoint.resume", node=self.idx, round=rnd)
 
     async def crash(self) -> None:
         """An abrupt teardown without the STOP announcement: the peers
@@ -421,6 +459,7 @@ class P2PNode:
         if self._crashed:
             return
         self._crashed = True
+        flight.record("node.crash", node=self.idx, round=self.round)
         self.learning = False
         interrupt = getattr(self.learner, "interrupt_fit", None)
         if interrupt is not None:
@@ -434,6 +473,9 @@ class P2PNode:
             self._server.close()
         self._release_slot_refs()
         self.finished.set()
+        # the postmortem: the moment the ring's history stops being
+        # reconstructible any other way
+        flight.dump(f"node{self.idx}.crash")
 
     async def _cancel_all(self) -> None:
         for t in [self._learn_task, *list(self._tasks)]:
@@ -480,6 +522,8 @@ class P2PNode:
             return
         others = {int(n) for g in groups if g is not mine for n in g}
         self._severed |= others - {self.idx}
+        flight.record("node.partition", node=self.idx, round=self.round,
+                      severed=sorted(self._severed))
         self.membership.apply_fault(
             FaultEvent(node=self.idx, kind="partition", groups=groups))
 
@@ -489,7 +533,10 @@ class P2PNode:
         and the first beat brings the peer back."""
         if not self._severed:
             return
+        healed = sorted(self._severed)
         self._severed.clear()
+        flight.record("node.heal", node=self.idx, round=self.round,
+                      healed=healed)
         self.membership.apply_fault(FaultEvent(node=self.idx, kind="heal"))
 
     def _on_netem_transition(self, kind: str, groups: list) -> None:
@@ -623,6 +670,8 @@ class P2PNode:
         peer.joiner = True
         self.membership.apply_fault(
             FaultEvent(node=peer.idx, round=self.round, kind="join"))
+        if self._tracer.enabled:
+            self._tracer.count("peer_join")
         if self.initialized and (self.learning or self.finished.is_set()):
             self._track_task(self._send_state_sync(peer), "state_sync")
 
@@ -632,24 +681,34 @@ class P2PNode:
         leader a joiner needs to fast-forward. MODEL_INITIALIZED goes
         first: a node whose run ended floods it no more, and a joiner
         would wait out its initial diffusion for it."""
-        init = self._sign(Message(MsgType.MODEL_INITIALIZED, self.idx))
-        self.dedup.check_and_add(init.msg_id)
-        msg = self._sign(Message(
-            MsgType.STATE_SYNC, self.idx,
-            {"round": self.round, "rounds": self.total_rounds,
-             "epochs": self.epochs, "leader": self.leader},
-            payload=pack_model(self.learner.get_parameters(), self.round)))
-        try:
-            await self._write(peer, init)
-            await self._write(peer, msg)
-        except (ConnectionError, RuntimeError):
-            self._drop_conn(peer)
+        with self._tracer.span("p2p.state_sync", lane=self._lane,
+                               args={"peer": peer.idx, "round": self.round}):
+            flight.record("checkpoint.state_sync_out", node=self.idx,
+                          peer=peer.idx, round=self.round)
+            init = self._sign(Message(MsgType.MODEL_INITIALIZED, self.idx))
+            self.dedup.check_and_add(init.msg_id)
+            msg = self._sign(Message(
+                MsgType.STATE_SYNC, self.idx,
+                {"round": self.round, "rounds": self.total_rounds,
+                 "epochs": self.epochs, "leader": self.leader},
+                payload=pack_model(self.learner.get_parameters(),
+                                   self.round)))
+            try:
+                await self._write(peer, init)
+                await self._write(peer, msg)
+            except (ConnectionError, RuntimeError):
+                self._drop_conn(peer)
 
     def _record_peer_wire(self, hello: Message) -> None:
         """The wire precisions the peer's hello advertised (none from a
         peer that predates them: it gets f32)."""
         self._peer_wire[int(hello.sender)] = tuple(
             str(d) for d in hello.body.get("wd", ()))
+        # once a hello (never a send: _wire_dtype_for is hot)
+        flight.record("wire.negotiate", node=self.idx,
+                      peer=int(hello.sender),
+                      peer_wd=list(self._peer_wire[int(hello.sender)]),
+                      own=str(self.wire_dtype))
 
     def _register_peer(self, idx: int, reader, writer) -> PeerState:
         peer = PeerState(idx=idx, writer=writer)
@@ -717,9 +776,12 @@ class P2PNode:
             conn.reader_task.cancel()
         conn.writer.close()
 
-    def _evict(self, node: int) -> None:
-        """``node`` left (STOP) or failed its probes: out of membership,
-        progress and roles, and its connection closed."""
+    def _evict(self, node: int, dead: bool = False) -> None:
+        """``node`` left (STOP) or failed its probes (``dead``): out of
+        membership, progress and roles, and its connection closed. A
+        dead peer's eviction dumps the flight recorder."""
+        if dead and self._tracer.enabled:
+            self._tracer.count("peer_evicted")
         self.membership.evict(node)
         self.progress.pop(node, None)
         self.peer_roles.pop(node, None)
@@ -727,6 +789,8 @@ class P2PNode:
         if conn is not None:
             self._teardown_conn(conn)
         self._secagg_on_evict(node)
+        if dead:
+            flight.dump(f"node{self.idx}.evicted_peer{node}")
 
     def _secagg_on_evict(self, node: int) -> None:
         """Dropout recovery: note the eviction, and flood this node's
@@ -740,6 +804,8 @@ class P2PNode:
             return
         self.masker.note_evicted(node)
         seed = self.masker.reveal_share(node)
+        flight.record("secagg.reveal", node=self.idx, dead=node,
+                      round=self.masker.round_num)
         self._track_task(
             self.broadcast(Message(
                 MsgType.SECAGG_SHARE, self.idx,
@@ -779,12 +845,20 @@ class P2PNode:
         self.bytes_in += msg._wire_bytes
         pb = self.peer_bytes_in
         pb[peer.idx] = pb.get(peer.idx, 0) + msg._wire_bytes
+        tr = self._tracer
+        if tr.enabled:
+            tr.count(f"rx_bytes/peer{peer.idx}", msg._wire_bytes)
+            tr.count(f"rx_msgs/{msg.type.value}")
 
     def _count_tx(self, peer: PeerState, msg: Message) -> None:
         n = msg.wire_size()
         self.bytes_out += n
         pb = self.peer_bytes_out
         pb[peer.idx] = pb.get(peer.idx, 0) + n
+        tr = self._tracer
+        if tr.enabled:
+            tr.count(f"tx_bytes/peer{peer.idx}", n)
+            tr.count(f"tx_msgs/{msg.type.value}")
 
     async def _read_loop(self, peer: PeerState, reader) -> None:
         # with the sidecar a round's PARAMS payload lands in the arena:
@@ -921,6 +995,27 @@ class P2PNode:
                     self._secagg_on_evict(int(msg.body["dead"]))
 
     async def _on_params(self, peer: PeerState, msg: Message) -> None:
+        """Traced entry: a tc-stamped frame (its sender was tracing) is
+        handled under a ``p2p.rx`` span carrying the sender's tx span id
+        (``parent``), its ``tx_ns`` and this node's ``rx_ns``, and the
+        send-to-receive wall delta accrues into the round's wire seconds
+        (critpath corrects the skew offline). An untraced frame goes
+        straight through."""
+        tr = self._tracer
+        if tr.enabled and msg.tc is not None:
+            rx_ns = time.time_ns()
+            lat_s = (rx_ns - int(msg.tc[2])) / 1e9
+            if 0.0 < lat_s < 60.0:
+                self._cp_wire_s += lat_s
+            with tr.span("p2p.rx", lane=self._lane,
+                         args={"parent": msg.tc[1], "trace": msg.tc[0],
+                               "tx_ns": int(msg.tc[2]), "rx_ns": rx_ns,
+                               "from": msg.sender,
+                               "round": int(msg.body.get("round", -1))}):
+                return await self._on_params_inner(peer, msg)
+        return await self._on_params_inner(peer, msg)
+
+    async def _on_params_inner(self, peer: PeerState, msg: Message) -> None:
         if msg.body.get("init"):
             # whoever pushes the initial weights has the model
             self._progress(msg.sender).initialized = True
@@ -969,7 +1064,8 @@ class P2PNode:
             self._release_msg_slot(msg)
             payload = decode_parameters(blob)
             covered = self.session.add_model(
-                payload.params, payload.contributors, payload.weight)
+                payload.params, payload.contributors, payload.weight,
+                parent=self._parent_of(msg))
         else:
             covered = self._session_add(msg, staleness)
         if covered:
@@ -986,6 +1082,12 @@ class P2PNode:
         return (self.session.async_mode and self._round_active
                 and not self.session.waiting
                 and not msg.body.get("aggregated"))
+
+    def _parent_of(self, msg: Message) -> str | None:
+        """The sender's tx span id, which the session's add span carries
+        (also across a buffered replay); None untraced."""
+        return (msg.tc[1] if self._tracer.enabled and msg.tc is not None
+                else None)
 
     def _session_add(self, msg: Message, staleness: int = 0):
         """``msg``'s contribution into the session, its weight discounted
@@ -1007,17 +1109,21 @@ class P2PNode:
         if staleness > 0 and (not contribs or (ts and set(contribs) >= ts)):
             self._release_msg_slot(msg)
             return ()
+        if staleness > 0 and self._tracer.enabled:
+            self._tracer.count("stale_params_folded")
+        parent = self._parent_of(msg)
         if msg._slot is not None:
             covered = self.session.add_slot(msg._slot, msg._slot_len,
                                             contribs, weight,
-                                            staleness=staleness)
+                                            staleness=staleness,
+                                            parent=parent)
             msg._slot = None  # the session owns it now
             return covered
         if undecoded:
             return self.session.add_blob(msg.payload, contribs, weight,
-                                         staleness=staleness)
+                                         staleness=staleness, parent=parent)
         return self.session.add_model(payload.params, contribs, weight,
-                                      staleness=staleness)
+                                      staleness=staleness, parent=parent)
 
     async def _on_state_sync(self, msg: Message) -> None:
         """The joiner's side of the live join: adopt the established
@@ -1036,10 +1142,22 @@ class P2PNode:
         adopt_over_resume = (self.initialized
                              and self._resume_round is not None
                              and rnd > self._resume_round)
+        if self._resume_round is not None and not self.learning:
+            flight.record("checkpoint.resume_decision", node=self.idx,
+                          checkpoint_round=self._resume_round,
+                          sync_round=rnd, adopt_sync=adopt_over_resume)
         # the first answer decides, also when a START_LEARNING came first
         # (the JAX package decides again at every answer then, and a
         # resumed node adopts every peer's model in turn)
         self._resume_round = None
+        flight.record("checkpoint.state_sync_in", node=self.idx,
+                      peer=int(msg.sender), round=rnd)
+        with self._tracer.span("p2p.join", lane=self._lane,
+                               args={"round": rnd, "from": msg.sender}):
+            await self._join(msg, rnd, adopt_over_resume)
+
+    async def _join(self, msg: Message, rnd: int,
+                    adopt_over_resume: bool) -> None:
         if rnd > self.round:
             if self.learning:
                 # a round body is running (or voting): jump at the next
@@ -1068,6 +1186,8 @@ class P2PNode:
             self.adopted.append("state_sync")
             await self.broadcast(Message(MsgType.MODEL_INITIALIZED, self.idx),
                                  nowait=True)
+        if self._tracer.enabled:
+            self._tracer.count("join_state_sync")
         if not self.learning and not self.finished.is_set():
             body = {"rounds": int(msg.body.get("rounds", 0)),
                     "epochs": int(msg.body.get("epochs", 1)),
@@ -1095,9 +1215,20 @@ class P2PNode:
         sender (always without TLS)."""
         if self._verifier is None:
             return True
-        if self._verifier.verify(msg.cert, msg.sig, msg.signing_bytes(),
-                                 msg.sender):
+        tr = self._tracer
+        # a tc-stamped frame's verify span names the sender's tx span
+        args = None
+        if tr.enabled and msg.tc is not None:
+            args = {"parent": msg.tc[1], "from": msg.sender}
+        with tr.span("p2p.verify", lane=self._lane, args=args):
+            ok = self._verifier.verify(msg.cert, msg.sig,
+                                       msg.signing_bytes(), msg.sender)
+        if ok:
+            if tr.enabled:
+                tr.count("verify_ok")
             return True
+        if tr.enabled:
+            tr.count("verify_fail")
         log.warning("node %d dropping %s with unverifiable origin claim "
                     "sender=%d", self.idx, msg.type.value, msg.sender)
         return False
@@ -1179,6 +1310,12 @@ class P2PNode:
                 if len(peer.overflow) == 1:
                     self._track_task(self._put_overflow(peer), "overflow")
                 return
+            tr = self._tracer
+            if tr.enabled:
+                # the lane's depth at enqueue, this frame included: its
+                # congestion high-water mark
+                tr.high_water(f"send_q_depth/peer{peer.idx}",
+                              peer.send_q.qsize() + 1)
             await peer.send_q.put(msg)
         elif not peer.writer.is_closing():
             self._flush(peer)
@@ -1267,9 +1404,22 @@ class P2PNode:
                                  wire_dtype=wd)
         self.params_bytes_out += len(blob) * len(peers)
         # explicit id: PARAMS is direct, but proxies relay and dedup it
-        await self._ship(peers, self._sign(Message(
-            MsgType.PARAMS, self.idx, body, payload=blob,
-            msg_id=secrets.token_hex(8))))
+        msg = self._sign(Message(MsgType.PARAMS, self.idx, body,
+                                 payload=blob, msg_id=secrets.token_hex(8)))
+        # the causal trace context: stamped before the first encode (one
+        # framed header serves every target), the send timed under a tx
+        # span whose id rides the wire; untraced, tc stays None and the
+        # header keeps its bytes
+        tr = self._tracer
+        if not tr.enabled:
+            await self._ship(peers, msg)
+            return
+        sid = tr.next_span_id()
+        msg.tc = (tr.trace_id, sid, time.time_ns())
+        with tr.span("p2p.tx", lane=self._lane,
+                     args={"sid": sid, "round": int(body["round"]),
+                           "n_peers": len(peers), "bytes": len(blob)}):
+            await self._ship(peers, msg)
 
     # ------------------------------------------------------------------
     # control plane loops
@@ -1315,27 +1465,37 @@ class P2PNode:
                 # the emulated cut drops frames but not sockets: a dial
                 # across it would succeed, so the probe fails here
                 if self.membership.probe_failed(node):
-                    self._evict(node)
+                    self._evict(node, dead=True)
                 continue
             conn = self.peers.get(node)
             if conn is not None and not conn.writer.is_closing():
                 if self.membership.probe_failed(node):
-                    self._evict(node)
+                    self._evict(node, dead=True)
+                elif self._tracer.enabled:
+                    self._tracer.count("probe_defer")
                 continue
             addr = self._peer_addrs.get(node)
             ok = False
             if addr is not None:
                 if conn is not None:
                     self._teardown_conn(conn)
-                try:
-                    await asyncio.wait_for(
-                        self.connect_to(*addr),
-                        timeout=self.protocol.heartbeat_period_s)
-                    ok = True
-                except Exception:
-                    ok = False
-            if not ok and self.membership.probe_failed(node):
-                self._evict(node)
+                with self._tracer.span("p2p.probe", lane=self._lane,
+                                       args={"peer": node}):
+                    try:
+                        await asyncio.wait_for(
+                            self.connect_to(*addr),
+                            timeout=self.protocol.heartbeat_period_s)
+                        ok = True
+                    except Exception:
+                        ok = False
+            if ok:
+                flight.record("membership.probe", node=node, ok=True)
+                if self._tracer.enabled:
+                    self._tracer.count("probe_ok")
+            elif self.membership.probe_failed(node):
+                self._evict(node, dead=True)
+            elif self._tracer.enabled:
+                self._tracer.count("probe_fail")
 
     # ------------------------------------------------------------------
     # learning
@@ -1477,8 +1637,16 @@ class P2PNode:
                 if self.round >= self.total_rounds:
                     break
             t0 = time.monotonic()
-            if await self._train_round():
-                self.round_wall_s.append(time.monotonic() - t0)
+            round_no = self.round
+            self._cp_fit_s = self._cp_wait_s = self._cp_wire_s = 0.0
+            self._cp_agg_mark = self.session.agg_wall_s
+            with self._tracer.span("node.round", lane=self._lane,
+                                   args={"round": round_no}):
+                done = await self._train_round()
+            if done:
+                wall = time.monotonic() - t0
+                self.round_wall_s.append(wall)
+                self._cp_snapshot(round_no, wall)
                 self._maybe_checkpoint()
         self.learn_t1 = time.monotonic()
         # the final evaluation, flooded to the federation
@@ -1535,10 +1703,33 @@ class P2PNode:
         """Local training in the loop's executor. ``fit_slowdown`` k > 1
         sleeps (k - 1) times the fit's own time after it."""
         t0 = time.monotonic()
-        await asyncio.get_running_loop().run_in_executor(None, self.learner.fit)
+        with self._tracer.span("node.fit", lane=self._lane,
+                               args={"round": self.round}):
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.learner.fit)
         if self.fit_slowdown > 1.0:
             await asyncio.sleep((time.monotonic() - t0)
                                 * (self.fit_slowdown - 1.0))
+        # the slowdown's sleep included: the critical path asks how long
+        # this node's update took to exist
+        self._cp_fit_s += time.monotonic() - t0
+
+    def _cp_snapshot(self, round_no: int, wall: float) -> None:
+        """Fold the round's accumulators into ``critpath_last``: wire
+        seconds overlap the quorum wait (frames land while the node
+        waits), so wire is carved out of wait; ``other`` is the residual,
+        clamped at 0, so the five sum to the round's wall."""
+        fit = self._cp_fit_s
+        agg = max(0.0, self.session.agg_wall_s - self._cp_agg_mark)
+        wire = min(self._cp_wire_s, self._cp_wait_s)
+        wait = self._cp_wait_s - wire
+        other = max(0.0, wall - fit - wait - wire - agg)
+        self.critpath_last = {
+            "round": round_no, "round_s": round(wall, 6),
+            "fit_s": round(fit, 6), "wire_s": round(wire, 6),
+            "wait_s": round(wait, 6), "agg_s": round(agg, 6),
+            "other_s": round(other, 6),
+        }
 
     async def _set_parameters(self, params) -> None:
         """The learner's ``set_parameters`` in the loop's executor: its
@@ -1671,6 +1862,12 @@ class P2PNode:
                                           (dp.seed, idx, rnd))
             return params
 
+        if poisons:
+            flight.record("attack.inject", node=idx, round=rnd,
+                          attack=type(attack).__name__)
+        if dp is not None:
+            flight.record("dp.privatize", node=idx, round=rnd)
+
         await asyncio.get_running_loop().run_in_executor(
             None, self.learner.transform_parameters, transform)
 
@@ -1689,7 +1886,22 @@ class P2PNode:
         not covered the train set the aggregate of the models it lacks,
         paced per target, until the session completes (coverage or
         timeout) and no target is left; then offer the full aggregate to
-        waiting peers (CFL server, SDFL leader)."""
+        waiting peers (CFL server, SDFL leader). Traced as a ``node.wait``
+        span; its wall, net of the aggregation inside it, is the round's
+        wait."""
+        tw0 = time.monotonic()
+        agg0 = self.session.agg_wall_s
+        with self._tracer.span("node.wait", lane=self._lane,
+                               args={"round": self.round, "kind": "gossip"}):
+            try:
+                await self._gossip_body(train_set, role, leader_at_start)
+            finally:
+                self._cp_wait_s += max(
+                    0.0, (time.monotonic() - tw0)
+                    - (self.session.agg_wall_s - agg0))
+
+    async def _gossip_body(self, train_set: set[int], role: str,
+                           leader_at_start: int | None) -> None:
         fanout = max(self.protocol.gossip_models_per_round, 1)
         loop = asyncio.get_event_loop()
         last_status = None
@@ -1774,16 +1986,33 @@ class P2PNode:
     async def _wait_done(self) -> None:
         """Wait for the adopted aggregate, bounded by the timeout (then
         the local params stand)."""
-        loop = asyncio.get_event_loop()
-        deadline = loop.time() + self.session.timeout_s
-        while not self.session.done.is_set() and loop.time() <= deadline:
-            await asyncio.sleep(self.gossip_period_s)
+        tw0 = time.monotonic()
+        with self._tracer.span("node.wait", lane=self._lane,
+                               args={"round": self.round, "kind": "adopt"}):
+            try:
+                loop = asyncio.get_event_loop()
+                deadline = loop.time() + self.session.timeout_s
+                while (not self.session.done.is_set()
+                       and loop.time() <= deadline):
+                    await asyncio.sleep(self.gossip_period_s)
+            finally:
+                self._cp_wait_s += time.monotonic() - tw0
 
     async def _wait_neighbors_ready(self) -> None:
         """The round barrier: every alive node heard of reports this
         round (MODELS_READY floods), bounded by the timeout. In async
         mode the barrier waits for the session's quorum share of them
         only; the stragglers catch up through the stale fold."""
+        tw0 = time.monotonic()
+        with self._tracer.span("node.wait", lane=self._lane,
+                               args={"round": self.round,
+                                     "kind": "barrier"}):
+            try:
+                await self._barrier()
+            finally:
+                self._cp_wait_s += time.monotonic() - tw0
+
+    async def _barrier(self) -> None:
         loop = asyncio.get_event_loop()
         deadline = loop.time() + self.session.timeout_s
         frac = self.session.min_received

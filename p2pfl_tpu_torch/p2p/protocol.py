@@ -6,7 +6,9 @@ The counterpart of ``p2pfl_tpu/p2p/protocol.py``, byte for byte::
 
 The header is the map ``{"v", "t", "s", "b", "i", "g", "c", "pl",
 "ph"}`` (wire version, message type, sender, body, message id, origin
-signature, certificate, payload length and digest), packed as
+signature, certificate, payload length and digest), with ``"tc"`` (the
+causal trace context ``[trace_id, parent span id, send wall ns]``)
+appended last only on a frame whose sender was tracing, packed as
 ``msgpack.packb(..., use_bin_type=True)`` packs it, through the port's
 own codec. The payload (a PARAMS envelope from ``core/serialize.py``)
 rides after the header as its own segment, never copied on the send
@@ -23,9 +25,7 @@ relays keep the origin's signature and certificate. A verifier always
 hashes the payload it received: the header's digest seeds the cache of
 unsigned frames only. ``read_message(reader, slot_sink)`` can land a
 PARAMS payload straight in a shared-memory slot of the aggregation
-sidecar (``p2p/aggd.py``) instead of a heap ``bytes``. The causal trace
-context (the header's ``tc``) is A23: it is never written, and a frame
-that carries one is read without it.
+sidecar (``p2p/aggd.py``) instead of a heap ``bytes``.
 """
 
 from __future__ import annotations
@@ -94,6 +94,11 @@ class Message:
     msg_id: str = ""
     sig: bytes = b""
     cert: bytes = b""
+    # causal trace context: (trace_id, parent_span_id, send_wall_ns),
+    # stamped by the sender only while its tracer is on. None keeps the
+    # header byte-identical to a frame without it; it lies outside
+    # signing_bytes() (observability metadata, not authenticated content)
+    tc: tuple | None = None
     # the framed header, built once for every peer a frame goes to (a
     # received frame keeps the bytes it arrived with)
     _head: bytes | None = dataclasses.field(
@@ -144,7 +149,7 @@ class Message:
             ph = self._payload_digest
             if ph is None and self.sig:
                 ph = self.payload_digest()  # a signed frame's digest
-            header = packb({
+            head_obj = {
                 "v": WIRE_VERSION,
                 "t": self.type.value,
                 "s": self.sender,
@@ -154,7 +159,12 @@ class Message:
                 "c": self.cert,
                 "pl": len(self.payload),
                 "ph": ph or b"",
-            })
+            }
+            if self.tc is not None:
+                # appended last, so a tc-less message encodes to the
+                # exact bytes of a frame that never had one
+                head_obj["tc"] = list(self.tc)
+            header = packb(head_obj)
             if len(header) > MAX_HEADER:
                 raise ValueError(f"header too large: {len(header)} bytes")
             if len(self.payload) > MAX_FRAME:
@@ -181,6 +191,7 @@ class Message:
             raise ValueError(
                 f"unsupported wire version {obj.get('v')!r} "
                 f"(this node speaks v{WIRE_VERSION})")
+        tc = obj.get("tc")
         try:
             msg = Message(
                 type=MsgType(obj["t"]),
@@ -190,6 +201,8 @@ class Message:
                 msg_id=obj.get("i", ""),
                 sig=obj.get("g", b""),
                 cert=obj.get("c", b""),
+                # absent on an untraced frame: None
+                tc=tuple(tc) if tc else None,
             )
         except (KeyError, TypeError) as e:
             raise ValueError(f"malformed frame header: {e!r}") from e

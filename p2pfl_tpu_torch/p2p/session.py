@@ -40,6 +40,14 @@ scores its entries against the round-start reference at finish
 weight by ``entry_scales`` in the fuse, at finish only: a gossiped
 partial is weighted again in each receiver's own finish.
 
+Observability as in the JAX package: under ``P2PFL_TRACE`` the spans
+``session.add_model`` (carrying the sender's tx span id from the
+header's ``tc`` as ``parent``), ``session.aggregate`` and
+``session.fuse`` on the owning node's lane; always the flight events
+``session.open``, ``session.quorum``, ``session.close``,
+``secagg.unmask`` and ``aggd.fallback``; and ``agg_wall_s``, the
+seconds spent fusing, which the node's round breakdown reads.
+
 ``SidecarSession`` keeps its entries undecoded in the sidecar's arena
 (``p2p/aggd.py``) and has the worker fuse them with the effective
 weights (staleness and ``entry_scales`` folded in); it cannot score
@@ -68,6 +76,8 @@ from p2pfl_tpu_torch.core.serialize import (
     to_host,
     tree_map_sorted,
 )
+from p2pfl_tpu_torch.obs import flight
+from p2pfl_tpu_torch.obs.trace import get_tracer
 from p2pfl_tpu_torch.p2p.aggd import SlotEntry
 from p2pfl_tpu_torch.parallel.federated import staleness_scale
 
@@ -109,8 +119,16 @@ class AggregationSession:
     def __init__(self, aggregator: Aggregator | None = None,
                  timeout_s: float = 60.0, reputation=None,
                  min_received: float = 1.0, staleness_beta: float = 0.0,
-                 masker=None):
+                 masker=None, lane: str | None = None):
         self.aggregator = aggregator or FedAvg()
+        # the owning node's trace lane (nodes of one process share the
+        # process tracer; the lane attributes the spans)
+        self._tracer = get_tracer()
+        self._lane = lane
+        #: seconds spent fusing models, every path; the node's round
+        #: breakdown diffs a round-start mark against it, so clear()
+        #: keeps it
+        self.agg_wall_s = 0.0
         #: a ``privacy.secagg.PairwiseMasker``: entries are masked trees
         self.masker = masker
         #: the async close quorum as a share of the train set (1.0: the
@@ -139,6 +157,9 @@ class AggregationSession:
     def set_nodes_to_aggregate(self, train_set) -> None:
         self.train_set = frozenset(int(i) for i in train_set)
         self._deadline = time.monotonic() + self.timeout_s
+        flight.record("session.open", lane=self._lane,
+                      train_set=sorted(self.train_set),
+                      quorum=self.quorum())
 
     def set_waiting_aggregated_model(self) -> None:
         """Trainer, proxy, idle: adopt the next aggregate received."""
@@ -186,12 +207,20 @@ class AggregationSession:
         return weight
 
     # -- adding models ---------------------------------------------------
+    def _add_span(self, parent: str | None):
+        return self._tracer.span(
+            "session.add_model", lane=self._lane,
+            args={"parent": parent} if parent is not None else None)
+
     def add_model(self, params: Params, contributors, weight: float,
-                  staleness: float = 0.0) -> tuple[int, ...]:
+                  staleness: float = 0.0,
+                  parent: str | None = None) -> tuple[int, ...]:
         """The contributors now covered (empty: rejected). ``staleness``,
-        in rounds behind, discounts the weight (see the module doc)."""
-        return self._add_model(params, contributors,
-                               self._discounted(weight, staleness))
+        in rounds behind, discounts the weight (see the module doc);
+        ``parent`` is the sender's tx span id (the header's ``tc``)."""
+        with self._add_span(parent):
+            return self._add_model(params, contributors,
+                                   self._discounted(weight, staleness))
 
     def _add_model(self, params: Params, contributors,
                    weight: float) -> tuple[int, ...]:
@@ -216,6 +245,10 @@ class AggregationSession:
         self.models[contrib] = (params, float(weight))
         self._partial_memo.clear()
         if self.quorum_met():
+            if self.async_mode and not self.covered >= self.train_set:
+                flight.record("session.quorum", lane=self._lane,
+                              covered=sorted(self.covered),
+                              quorum=self.quorum())
             self._finish()
         return tuple(sorted(self.covered))
 
@@ -275,9 +308,15 @@ class AggregationSession:
                     "masked session closed without a round-start "
                     "reference (set_reference) to dequantize against"
                 )
-            params, _ = self.masker.unmask(params, total, self.covered,
-                                           self.reference)
+            params, unmasked_dead = self.masker.unmask(
+                params, total, self.covered, self.reference)
+            flight.record("secagg.unmask", lane=self._lane,
+                          entries=len(keys), covered=sorted(self.covered),
+                          dead=unmasked_dead)
         self.result = (own_params(params), tuple(sorted(self.covered)))
+        flight.record("session.close", lane=self._lane, entries=len(keys),
+                      covered=sorted(self.covered),
+                      timed_out=self.timed_out())
         self.done.set()
 
     def _aggregate(self, entries,
@@ -285,20 +324,31 @@ class AggregationSession:
         if len(entries) == 1:
             p, w = entries[0]
             return p, (), w
+        t0 = time.perf_counter()
         if self.masker is not None:
             # the weights are folded into the masked integers: the exact
             # modular sum, no reweighting (partials stay masked)
             from p2pfl_tpu_torch.privacy.secagg import masked_sum
 
-            tree, total = masked_sum(entries)
-            return tree, (), total
-        weights = self._weights(entries, keys)
-        if type(self.aggregator) is FedAvg:
-            tree, total = fuse_numpy([p for p, _ in entries], weights)
+            with self._tracer.span(
+                    "session.aggregate", lane=self._lane,
+                    args={"path": "masked_modular", "n": len(entries)}):
+                tree, total = masked_sum(entries)
         else:
-            tree = _stacked_aggregate(self.aggregator,
-                                      [p for p, _ in entries], weights)
-            total = float(weights.sum())
+            weights = self._weights(entries, keys)
+            fedavg = type(self.aggregator) is FedAvg
+            with self._tracer.span(
+                    "session.aggregate", lane=self._lane,
+                    args={"path": "numpy_fast" if fedavg else "stacked_cpu",
+                          "n": len(entries)}):
+                if fedavg:
+                    tree, total = fuse_numpy([p for p, _ in entries],
+                                             weights)
+                else:
+                    tree = _stacked_aggregate(
+                        self.aggregator, [p for p, _ in entries], weights)
+                    total = float(weights.sum())
+        self.agg_wall_s += time.perf_counter() - t0
         return tree, (), total
 
     def _weights(self, entries, keys) -> np.ndarray:
@@ -344,10 +394,10 @@ class SidecarSession(AggregationSession):
     def __init__(self, aggregator: Aggregator | None = None,
                  timeout_s: float = 60.0, reputation=None,
                  min_received: float = 1.0, staleness_beta: float = 0.0,
-                 client=None, spawn=None):
+                 client=None, spawn=None, lane: str | None = None):
         super().__init__(aggregator, timeout_s=timeout_s,
                          reputation=reputation, min_received=min_received,
-                         staleness_beta=staleness_beta)
+                         staleness_beta=staleness_beta, lane=lane)
         #: the host's ``aggd.SidecarClient`` (one a process)
         self.client = client
         #: a task spawner, the node's ``_track_task(coro, what)``; None
@@ -374,46 +424,53 @@ class SidecarSession(AggregationSession):
             self.client.release(entry.slot)
 
     def add_model(self, params: Params, contributors, weight: float,
-                  staleness: float = 0.0) -> tuple[int, ...]:
+                  staleness: float = 0.0,
+                  parent: str | None = None) -> tuple[int, ...]:
         """The node's own model (and a waiting node's adoption, as the
         inline session): encoded into a leased slot, so every entry of a
         fuse is in the arena when it can be."""
         if self.waiting:
-            return super().add_model(params, contributors, weight, staleness)
-        weight = self._discounted(weight, staleness)
-        contrib = tuple(int(i) for i in contributors)
-        entry = self._entry(encode_parameters(params, contrib,
-                                              max(1, int(weight))))
-        covered = self._add_model(entry, contrib, weight)
-        if covered:
-            self._own = (params, contrib, float(weight))
-        else:
-            self._release_rejected(entry)
-        return covered
+            return super().add_model(params, contributors, weight, staleness,
+                                     parent=parent)
+        with self._add_span(parent):
+            weight = self._discounted(weight, staleness)
+            contrib = tuple(int(i) for i in contributors)
+            entry = self._entry(encode_parameters(params, contrib,
+                                                  max(1, int(weight))))
+            covered = self._add_model(entry, contrib, weight)
+            if covered:
+                self._own = (params, contrib, float(weight))
+            else:
+                self._release_rejected(entry)
+            return covered
 
     def add_slot(self, slot: int, length: int, contributors,
-                 weight: float, staleness: float = 0.0) -> tuple[int, ...]:
+                 weight: float, staleness: float = 0.0,
+                 parent: str | None = None) -> tuple[int, ...]:
         """A payload left undecoded in slot ``slot``: the session owns
         the lease from here (a refused entry's slot is released now, an
         accepted one's when its fuse or ``clear`` consumes it). A stale
         fold discounts the weight alone: the bytes stay undecoded."""
-        covered = self._add_model(SlotEntry(slot, length), contributors,
-                                  self._discounted(weight, staleness))
-        if not covered and self.client is not None:
-            self.client.release(slot)
-        return covered
+        with self._add_span(parent):
+            covered = self._add_model(SlotEntry(slot, length), contributors,
+                                      self._discounted(weight, staleness))
+            if not covered and self.client is not None:
+                self.client.release(slot)
+            return covered
 
     def add_blob(self, blob, contributors, weight: float,
-                 staleness: float = 0.0) -> tuple[int, ...]:
+                 staleness: float = 0.0,
+                 parent: str | None = None) -> tuple[int, ...]:
         """A payload that arrived as bytes (the arena was full when the
         reader asked): still never decoded here; a slot freed since may
         take it, else the bytes go to the worker in the descriptor."""
-        entry = self._entry(blob)
-        covered = self._add_model(entry, contributors,
-                                  self._discounted(weight, staleness))
-        if not covered:
-            self._release_rejected(entry)
-        return covered
+        with self._add_span(parent):
+            entry = self._entry(blob)
+            covered = self._add_model(entry, contributors,
+                                      self._discounted(weight, staleness))
+            if not covered:
+                self._release_rejected(entry)
+            return covered
 
     def _add_model(self, params, contributors, weight):
         if not self.waiting and (self._fusing or self.done.is_set()):
@@ -465,14 +522,18 @@ class SidecarSession(AggregationSession):
         except RuntimeError:
             # no loop (a synchronous test): the in-process fuse
             coro.close()
+            t0 = time.perf_counter()
             params = self._fallback_fuse(entries, weights)
+            self.agg_wall_s += time.perf_counter() - t0
             self._release_entries(entries)
-            self._publish(params, covered)
+            self._publish(params, covered, len(entries))
             return
         self._fuse_task = loop.create_task(coro)
 
     async def _fuse_and_close(self, entries, weights, covered) -> None:
         loop = asyncio.get_running_loop()
+        t_fuse0 = time.perf_counter()
+        n = len(entries)
         req = []
         for (p, _w), w in zip(entries, weights):
             if isinstance(p, SlotEntry):
@@ -485,19 +546,23 @@ class SidecarSession(AggregationSession):
                                          timeout_s=max(5.0, self.timeout_s))
         if out is not None:
             slot, length, _stats = out
-            try:
-                payload = await loop.run_in_executor(
-                    None, _decode_owned, self.client.view(slot, length))
-            finally:
-                self.client.release(slot)
+            with self._tracer.span("session.fuse", lane=self._lane,
+                                   args={"path": "sidecar", "n": n}):
+                try:
+                    payload = await loop.run_in_executor(
+                        None, _decode_owned, self.client.view(slot, length))
+                finally:
+                    self.client.release(slot)
             params = payload.params
         else:
             if self.client is not None:
                 self.client.fallbacks += 1
+            flight.record("aggd.fallback", lane=self._lane, entries=n)
             params = await loop.run_in_executor(
                 None, self._fallback_fuse, entries, weights)
+        self.agg_wall_s += time.perf_counter() - t_fuse0
         self._release_entries(entries)
-        self._publish(params, covered)
+        self._publish(params, covered, n)
 
     def _fallback_fuse(self, entries, weights):
         """The in-process fuse of the session's own entries, with the
@@ -526,8 +591,11 @@ class SidecarSession(AggregationSession):
             if isinstance(p, SlotEntry):
                 self.models[k] = (None, w)
 
-    def _publish(self, params, covered) -> None:
+    def _publish(self, params, covered, n_entries: int) -> None:
         self.result = (own_params(params), covered)
+        flight.record("session.close", lane=self._lane, entries=n_entries,
+                      covered=list(covered), timed_out=self.timed_out(),
+                      plane="sidecar")
         self.done.set()
 
     def release_entries(self) -> None:

@@ -3,7 +3,9 @@
 The publishing half of ``p2pfl_tpu/utils/monitor.py``: each participant
 atomically publishes ``node_<idx>.status.json`` into a status directory,
 in the record shape and with the keys the JAX package's ``python -m
-p2pfl_tpu.monitor <dir>`` reads. The renderer itself is ROADMAP item A25.
+p2pfl_tpu.monitor <dir>`` reads; ``read_statuses`` reads them back for
+the health rules (``obs/health.py``). The renderer itself is ROADMAP
+item A25.
 """
 
 from __future__ import annotations
@@ -15,6 +17,10 @@ from typing import Any
 
 from p2pfl_tpu_torch.obs.records import make_record
 from p2pfl_tpu_torch.utils.fsio import atomic_write_text
+
+#: seconds of silence after which a node's record reads as dead (the JAX
+#: package's monitor and health rules use the same cutoff)
+DEFAULT_LIVENESS_S = 20.0
 
 # per-(directory, node) monotonic publish sequence: ``ts`` comes from each
 # host's wall clock, and ``seq`` orders one node's records without skew

@@ -43,6 +43,7 @@ from p2pfl_tpu_torch.core.serialize import (
     encode_parameters,
     tree_leaves_sorted,
 )
+from p2pfl_tpu_torch.obs import flight
 from p2pfl_tpu_torch.p2p.aggd import SHM_PREFIX, SidecarClient
 from p2pfl_tpu_torch.p2p.launch import run_simulation
 from p2pfl_tpu_torch.p2p.protocol import Message, MsgType, read_message
@@ -51,6 +52,17 @@ from p2pfl_tpu_torch.p2p.session import (
     SidecarSession,
     fuse_numpy,
 )
+
+
+@pytest.fixture(autouse=True)
+def _flight_into_tmp(tmp_path):
+    """The port's flight recorder dumps (a crash, a dead peer's
+    eviction) into the test's directory, and is emptied after."""
+    rec = flight.get_recorder()
+    rec.configure(dump_dir=tmp_path / "flight")
+    yield
+    rec.dump_dir = None
+    rec.clear()
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -33,10 +33,23 @@ from p2pfl_tpu.config import schema as jschema
 from p2pfl_tpu.p2p import netem as jnetem
 from p2pfl_tpu.p2p import protocol as jproto
 from p2pfl_tpu_torch.config.schema import NetworkConfig, PartitionSpec
+from p2pfl_tpu_torch.obs import flight
 from p2pfl_tpu_torch.p2p import netem as tnetem
 from p2pfl_tpu_torch.p2p.node import P2PNode
 from p2pfl_tpu_torch.p2p.protocol import Message, MsgType
 from test_torch_socket import _fleet, _port_nodes
+
+
+@pytest.fixture(autouse=True)
+def _flight_into_tmp(tmp_path):
+    """The port's flight recorder dumps (a crash, a dead peer's
+    eviction) into the test's directory, and is emptied after."""
+    rec = flight.get_recorder()
+    rec.configure(dump_dir=tmp_path / "flight")
+    yield
+    rec.dump_dir = None
+    rec.clear()
+
 
 pytestmark = [
     pytest.mark.filterwarnings("error::ResourceWarning"),

@@ -39,9 +39,21 @@ from p2pfl_tpu.privacy import secagg as J
 from p2pfl_tpu_torch.config import schema as tschema
 from p2pfl_tpu_torch.core.aggregators import FedAvg
 from p2pfl_tpu_torch.core.serialize import BF16Array, tree_leaves_sorted
+from p2pfl_tpu_torch.obs import flight
 from p2pfl_tpu_torch.p2p import P2PNode
 from p2pfl_tpu_torch.p2p.session import AggregationSession
 from p2pfl_tpu_torch.privacy import secagg as T
+
+
+@pytest.fixture(autouse=True)
+def _flight_into_tmp(tmp_path):
+    """The port's flight recorder dumps (a crash, a dead peer's
+    eviction) into the test's directory, and is emptied after."""
+    rec = flight.get_recorder()
+    rec.configure(dump_dir=tmp_path / "flight")
+    yield
+    rec.dump_dir = None
+    rec.clear()
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -46,9 +46,22 @@ from p2pfl_tpu_torch.datasets.data import FederatedDataset
 from p2pfl_tpu_torch.learning.learner import SharedTrainer, TorchLearner
 from p2pfl_tpu_torch.models.mlp import MLP
 from p2pfl_tpu_torch.federation import checkpoint as ck
+from p2pfl_tpu_torch.obs import flight
 from p2pfl_tpu_torch.p2p import P2PNode
 from p2pfl_tpu_torch.p2p.launch import run_simulation
 from p2pfl_tpu_torch.p2p.protocol import Message, MsgType
+
+
+@pytest.fixture(autouse=True)
+def _flight_into_tmp(tmp_path):
+    """The port's flight recorder dumps (a crash, a dead peer's
+    eviction) into the test's directory, and is emptied after."""
+    rec = flight.get_recorder()
+    rec.configure(dump_dir=tmp_path / "flight")
+    yield
+    rec.dump_dir = None
+    rec.clear()
+
 
 pytestmark = [
     pytest.mark.filterwarnings("error::ResourceWarning"),

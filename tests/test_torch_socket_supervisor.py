@@ -29,7 +29,20 @@ import torch
 from p2pfl_tpu.config.schema import ScenarioConfig as JScenarioConfig
 from p2pfl_tpu.p2p import launch as jlaunch
 from p2pfl_tpu_torch.config.schema import ScenarioConfig
+from p2pfl_tpu_torch.obs import flight
 from p2pfl_tpu_torch.p2p.launch import launch, restart_backoff_delay
+
+
+@pytest.fixture(autouse=True)
+def _flight_into_tmp(tmp_path):
+    """The port's flight recorder dumps (a crash, a dead peer's
+    eviction) into the test's directory, and is emptied after."""
+    rec = flight.get_recorder()
+    rec.configure(dump_dir=tmp_path / "flight")
+    yield
+    rec.dump_dir = None
+    rec.clear()
+
 
 pytestmark = [
     pytest.mark.filterwarnings("error::ResourceWarning"),

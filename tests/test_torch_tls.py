@@ -33,6 +33,7 @@ pytest.importorskip("cryptography")
 from p2pfl_tpu.p2p import protocol as jproto
 from p2pfl_tpu.p2p import tls as jtls
 from p2pfl_tpu_torch.core.serialize import encode_parameters
+from p2pfl_tpu_torch.obs import flight
 from p2pfl_tpu_torch.p2p import P2PNode
 from p2pfl_tpu_torch.p2p import tls as ttls
 from p2pfl_tpu_torch.p2p.protocol import Message, MsgType, write_message
@@ -45,6 +46,18 @@ from test_torch_socket import (
     _port_learner,
     _port_shared,
 )
+
+
+@pytest.fixture(autouse=True)
+def _flight_into_tmp(tmp_path):
+    """The port's flight recorder dumps (a crash, a dead peer's
+    eviction) into the test's directory, and is emptied after."""
+    rec = flight.get_recorder()
+    rec.configure(dump_dir=tmp_path / "flight")
+    yield
+    rec.dump_dir = None
+    rec.clear()
+
 
 pytestmark = [
     pytest.mark.filterwarnings("error::ResourceWarning"),
